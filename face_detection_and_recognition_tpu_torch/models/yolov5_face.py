@@ -1,0 +1,314 @@
+"""YOLOv5-face detectors (the P5 graph: yolov5s/m/l) in PyTorch.
+
+The counterpart of ``models/yolov5_face.py`` in the JAX package. The network
+walks the same graph table and returns the same raw head maps
+[B, na, ny, nx, no]; ``yolov5_face_detect_maps`` selects the top candidates,
+gathers their rows (``rows_gather``), decodes them and runs greedy +1 px-IoU
+NMS (``nms_fixpoint``). The two kernels run as CUDA kernels on CUDA tensors
+and as their plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.boxes import xywh2xyxy
+from ..ops.cuda_kernels import nms_fixpoint, rows_gather
+from ..ops.nms import sort_by_score
+from .layers import C3, SPP, ConvBN, StemBlock, make_divisible_torch
+
+FACE_ANCHORS = (
+    ((4.0, 5.0), (8.0, 10.0), (13.0, 16.0)),
+    ((23.0, 29.0), (43.0, 55.0), (73.0, 105.0)),
+    ((146.0, 217.0), (231.0, 300.0), (335.0, 433.0)),
+)
+
+# graph structure: list of (from, number, module, args) like the yamls
+_P5_GRAPH: List[Tuple[Any, int, str, list]] = [
+    # backbone
+    (-1, 1, "StemBlock", [64, 3, 2]),          # 0  P2/4
+    (-1, 3, "C3", [128]),                       # 1
+    (-1, 1, "Conv", [256, 3, 2]),               # 2  P3/8
+    (-1, 9, "C3", [256]),                       # 3
+    (-1, 1, "Conv", [512, 3, 2]),               # 4  P4/16
+    (-1, 9, "C3", [512]),                       # 5
+    (-1, 1, "Conv", [1024, 3, 2]),              # 6  P5/32
+    (-1, 1, "SPP", [1024, [3, 5, 7]]),          # 7
+    (-1, 3, "C3", [1024, False]),               # 8
+    # head
+    (-1, 1, "Conv", [512, 1, 1]),               # 9
+    (-1, 1, "Upsample", []),                    # 10
+    ([-1, 5], 1, "Concat", []),                 # 11
+    (-1, 3, "C3", [512, False]),                # 12
+    (-1, 1, "Conv", [256, 1, 1]),               # 13
+    (-1, 1, "Upsample", []),                    # 14
+    ([-1, 3], 1, "Concat", []),                 # 15
+    (-1, 3, "C3", [256, False]),                # 16  P3/8 out
+    (-1, 1, "Conv", [256, 3, 2]),               # 17
+    ([-1, 13], 1, "Concat", []),                # 18
+    (-1, 3, "C3", [512, False]),                # 19  P4/16 out
+    (-1, 1, "Conv", [512, 3, 2]),               # 20
+    ([-1, 9], 1, "Concat", []),                 # 21
+    (-1, 3, "C3", [1024, False]),               # 22  P5/32 out
+    ([16, 19, 22], 1, "Detect", []),            # 23
+]
+
+ARCHS: Dict[str, Dict[str, Any]] = {
+    "yolov5s": dict(graph=_P5_GRAPH, gd=0.33, gw=0.35, anchors=FACE_ANCHORS,
+                    strides=(8, 16, 32)),
+    "yolov5m": dict(graph=_P5_GRAPH, gd=0.67, gw=0.75, anchors=FACE_ANCHORS,
+                    strides=(8, 16, 32)),
+    "yolov5l": dict(graph=_P5_GRAPH, gd=1.0, gw=1.0, anchors=FACE_ANCHORS,
+                    strides=(8, 16, 32)),
+}
+
+
+def graph_depth(n: int, gd: float) -> int:
+    """Repeat count of a graph entry under the depth multiple ``gd``."""
+    return max(round(n * gd), 1) if n > 1 else n
+
+
+class Concat(nn.Module):
+    """Channel concat of the graph's listed inputs (wired by the net)."""
+
+
+class Detect(nn.Module):
+    """One 1x1 conv per level; emits [B, na, ny, nx, no] like the reference's
+    ``view(bs, na, no, ny, nx).permute(0, 1, 3, 4, 2)``."""
+
+    def __init__(self, na: int, no: int, ch: Sequence[int]):
+        super().__init__()
+        self.na, self.no = na, no
+        self.m = nn.ModuleList(nn.Conv2d(c, na * no, 1) for c in ch)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        maps = []
+        for conv, x in zip(self.m, xs):
+            y = conv(x)
+            b, _, ny, nx = y.shape
+            maps.append(y.view(b, self.na, self.no, ny, nx)
+                        .permute(0, 1, 3, 4, 2).contiguous())
+        return maps
+
+
+class YoloV5FaceNet(nn.Module):
+    """Graph-executing yolov5-face network. Takes NHWC [B, h, w, 3] RGB in
+    [0, 1] and returns the raw per-level maps [B, na, ny, nx, no]
+    (no = nc + 5 + 10). Layers are ``model.{i}`` in graph order."""
+
+    def __init__(self, arch: str = "yolov5s", nc: int = 1):
+        super().__init__()
+        spec = ARCHS[arch]
+        gd, gw = spec["gd"], spec["gw"]
+        na, no = len(spec["anchors"][0]), nc + 5 + 10
+
+        def width(c: int) -> int:
+            return make_divisible_torch(c * gw, 8)
+
+        layers, ch, self.froms = [], [], []
+        c_prev = 3
+        for frm, n, mod, args in spec["graph"]:
+            c_in = c_prev if frm == -1 else (ch[frm] if isinstance(frm, int)
+                                             else None)
+            if mod == "Conv":
+                c_out = width(args[0])
+                m = ConvBN(c_in, c_out, args[1], args[2])
+            elif mod == "C3":
+                c_out = width(args[0])
+                shortcut = args[1] if len(args) > 1 else True
+                m = C3(c_in, c_out, graph_depth(n, gd), shortcut)
+            elif mod == "SPP":
+                c_out = width(args[0])
+                m = SPP(c_in, c_out, tuple(args[1]))
+            elif mod == "StemBlock":
+                c_out = width(args[0])
+                m = StemBlock(c_in, c_out, args[1], args[2])
+            elif mod == "Upsample":
+                c_out = c_in
+                m = nn.Upsample(scale_factor=2, mode="nearest")
+            elif mod == "Concat":
+                c_out = sum(c_prev if j == -1 else ch[j] for j in frm)
+                m = Concat()
+            elif mod == "Detect":
+                c_out = 0
+                m = Detect(na, no, [ch[j] for j in frm])
+            else:
+                raise ValueError(f"unknown module {mod}")
+            layers.append(m)
+            ch.append(c_out)
+            self.froms.append(frm)
+            c_prev = c_out
+        self.model = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        cur = x.permute(0, 3, 1, 2)  # NHWC data -> NCHW channels-last view
+        outputs: List[torch.Tensor] = []
+        for m, frm in zip(self.model, self.froms):
+            if isinstance(m, Detect):
+                return m([outputs[j] for j in frm])
+            if isinstance(m, Concat):
+                cur = torch.cat([cur if j == -1 else outputs[j] for j in frm],
+                                1)
+            else:
+                cur = m(cur if frm == -1 else outputs[frm])
+            outputs.append(cur)
+        raise RuntimeError("graph has no Detect layer")
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator) -> "YoloV5FaceNet":
+        """Draw every weight from ``generator`` (CPU): conv kernels from
+        N(0, 1/fan_in), flax's LeCun-normal scale, and conv biases 0. With
+        identity BN statistics such a deep net's activations fade to ~1e-6
+        by the last level, so the BN statistics are then set from one batch
+        of 256 x 256 uniform noise frames drawn from the same generator:
+        objectness logits then spread over a few units, as a trained net's
+        do, and the detect path gets real suppression work."""
+        bns = [m for m in self.modules() if isinstance(m, nn.BatchNorm2d)]
+        for mod in self.modules():
+            if isinstance(mod, nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.copy_(torch.randn(mod.weight.shape,
+                                             generator=generator)
+                                 * fan_in ** -0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        for bn in bns:
+            bn.reset_parameters()
+            bn.momentum = None  # cumulative: one batch sets the statistics
+        self.train()
+        self(torch.rand((2, 256, 256, 3), generator=generator))
+        for bn in bns:
+            bn.momentum = 0.03
+        return self.eval()
+
+
+def decode_heads(maps: Sequence[torch.Tensor],
+                 anchors: Sequence[Sequence[Tuple[float, float]]],
+                 strides: Sequence[int]) -> torch.Tensor:
+    """Grid/anchor decode over all levels. maps: per-level
+    [B, na, ny, nx, no]. Returns [B, total, no] rows [cx, cy, w, h, obj,
+    l1x, l1y, ..., l5x, l5y, cls...] in input pixels."""
+    outs = []
+    for m, anc, stride in zip(maps, anchors, strides):
+        m = m.float()
+        b, na, ny, nx, no = m.shape
+        gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32,
+                                             device=m.device),
+                                torch.arange(nx, dtype=torch.float32,
+                                             device=m.device), indexing="ij")
+        grid = torch.stack([gx, gy], -1)[None, None]           # [1,1,ny,nx,2]
+        anc = torch.tensor(anc, dtype=torch.float32,
+                           device=m.device).reshape(1, na, 1, 1, 2)
+        y = torch.cat([torch.sigmoid(m[..., :5]), m[..., 5:15],
+                       torch.sigmoid(m[..., 15:])], -1)
+        xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+        wh = (y[..., 2:4] * 2.0) ** 2 * anc
+        lmk = y[..., 5:15].reshape(b, na, ny, nx, 5, 2) * anc[..., None, :] \
+            + (grid[..., None, :] * stride)
+        out = torch.cat([xy, wh, y[..., 4:5], lmk.reshape(b, na, ny, nx, 10),
+                         y[..., 15:]], -1)
+        outs.append(out.reshape(b, -1, no))
+    return torch.cat(outs, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloV5FaceConfig:
+    arch: str = "yolov5s"
+    nc: int = 1
+    input_size: Tuple[int, int] = (640, 640)
+    conf_thres: float = 0.4
+    iou_thres: float = 0.3
+    max_candidates: int = 1024
+    max_det: int = 300
+
+
+def _nms_candidate_rows(p: torch.Tensor, cand_valid: torch.Tensor,
+                        cfg: YoloV5FaceConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NMS over decoded candidate rows [B, K, 16] sorted by score desc:
+    xywh -> xyxy, the +1 px-IoU >= thres suppression, and a max_det-sliced,
+    score-ordered output block."""
+    boxes = xywh2xyxy(p[..., :4])
+    cls_conf = p[..., 15:].amax(-1, keepdim=True)
+    rows = torch.cat([boxes, p[..., 4:5], p[..., 5:15], cls_conf], -1)
+    keep = nms_fixpoint(boxes.contiguous(), cand_valid.contiguous(),
+                        cfg.iou_thres, plus1=True, strict=False)
+    # push suppressed rows to the end, keep score order among kept
+    _, _, out_valid, out = sort_by_score(rows[..., 4], keep, rows,
+                                         top=cfg.max_det)
+    return out, out_valid
+
+
+def _candidate_grid_params(idx: torch.Tensor,
+                           anchors: Sequence[Sequence[Tuple[float, float]]],
+                           strides: Sequence[int],
+                           input_size: Tuple[int, int]):
+    """(grid_xy, stride, anchor_wh) of flat anchor indices ``idx`` [B, K],
+    by integer arithmetic over the level layout (levels concatenated, each
+    row-major over [na, ny, nx], as ``decode_heads`` orders them)."""
+    w, h = input_size
+    gx = torch.zeros_like(idx)
+    gy = torch.zeros_like(idx)
+    f32 = dict(dtype=torch.float32, device=idx.device)
+    stride_o = torch.zeros(idx.shape, **f32)
+    aw = torch.zeros(idx.shape, **f32)
+    ah = torch.zeros(idx.shape, **f32)
+    offset = 0
+    for anc, s in zip(anchors, strides):
+        ny, nx = h // s, w // s
+        block = len(anc) * ny * nx
+        r = idx - offset
+        in_lvl = (r >= 0) & (r < block)
+        a = r // (ny * nx)
+        cell = r % (ny * nx)
+        gy = torch.where(in_lvl, cell // nx, gy)
+        gx = torch.where(in_lvl, cell % nx, gx)
+        stride_o = torch.where(in_lvl, float(s), stride_o)
+        for j, (ajw, ajh) in enumerate(anc):
+            hit = in_lvl & (a == j)
+            aw = torch.where(hit, float(ajw), aw)
+            ah = torch.where(hit, float(ajh), ah)
+        offset += block
+    grid = torch.stack([gx, gy], -1).float()
+    return grid, stride_o[..., None], torch.stack([aw, ah], -1)
+
+
+def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
+                            anchors: Sequence[Sequence[Tuple[float, float]]],
+                            strides: Sequence[int], cfg: YoloV5FaceConfig
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidates-first decode + NMS: the top ``cfg.max_candidates`` rows by
+    objectness, then grid/anchor decode, box conversion and NMS on [B, K].
+
+    maps: per-level [B, na, ny, nx, no]. Returns dets [B, max_det, 16] rows
+    [x1, y1, x2, y2, obj, lmk x10, cls_conf] in input pixels, sorted by obj,
+    and valid [B, max_det]."""
+    b, no = maps[0].shape[0], maps[0].shape[-1]
+    maps_flat = [m.reshape(b, -1, no) for m in maps]
+    n = sum(mf.shape[1] for mf in maps_flat)
+    k = min(cfg.max_candidates, n)
+    # rank on the f32 sigmoid, as the JAX package does: saturated scores tie
+    # at 1.0, and lax.top_k puts the lower index first among ties. A stable
+    # descending sort keeps that order; torch.topk on CUDA promises none.
+    obj = torch.cat([mf[..., 4] for mf in maps_flat], 1).float()
+    idx = torch.sort(torch.sigmoid(obj), dim=1, descending=True,
+                     stable=True).indices[:, :k].to(torch.int32)
+    cand = rows_gather(maps_flat, idx.contiguous()).float()
+    # input dims from the maps (level 0 is h/s0 x w/s0), so rect letterbox
+    # inputs decode on their own grid
+    in_size = (maps[0].shape[3] * strides[0], maps[0].shape[2] * strides[0])
+    grid, stride, anc = _candidate_grid_params(idx, anchors, strides, in_size)
+
+    # decode exactly as decode_heads (same op order and dtypes)
+    y = torch.cat([torch.sigmoid(cand[..., :5]), cand[..., 5:15],
+                   torch.sigmoid(cand[..., 15:])], -1)
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    wh = (y[..., 2:4] * 2.0) ** 2 * anc
+    lmk = (y[..., 5:15].reshape(b, k, 5, 2) * anc[..., None, :]
+           + grid[..., None, :] * stride[..., None])
+    pred = torch.cat([xy, wh, y[..., 4:5], lmk.reshape(b, k, 10),
+                      y[..., 15:]], -1)
+    return _nms_candidate_rows(pred, pred[..., 4] >= cfg.conf_thres, cfg)

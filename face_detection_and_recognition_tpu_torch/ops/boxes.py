@@ -1,0 +1,34 @@
+"""Box arithmetic: format conversion and batched IoU, as ``ops/boxes.py`` of
+the JAX package computes them (same operation order, so the same f32
+results)."""
+from __future__ import annotations
+
+import torch
+
+
+def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
+    """[..., 4] center-size -> corner format."""
+    cx, cy, w, h = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def box_area(boxes: torch.Tensor, plus1: bool = False) -> torch.Tensor:
+    """Area of [..., 4] xyxy boxes; ``plus1`` adds the legacy +1px convention."""
+    off = 1.0 if plus1 else 0.0
+    return (boxes[..., 2] - boxes[..., 0] + off) * \
+        (boxes[..., 3] - boxes[..., 1] + off)
+
+
+def iou_matrix(a: torch.Tensor, b: torch.Tensor, plus1: bool = False,
+               eps: float = 0.0) -> torch.Tensor:
+    """Pairwise IoU between xyxy boxes a [..., N, 4] and b [..., M, 4] ->
+    [..., N, M]. ``plus1`` is the yolov5-face convention (+1 px on
+    intersections and areas, eps 1e-16)."""
+    off = 1.0 if plus1 else 0.0
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:4], b[..., None, :, 2:4])
+    wh = (rb - lt + off).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a, plus1)[..., :, None] + \
+        box_area(b, plus1)[..., None, :] - inter
+    return inter / (union + eps) if eps else inter / union

@@ -1,0 +1,256 @@
+"""The detect path's hand-written CUDA kernels, their plain PyTorch versions,
+and the build that turns ``csrc/*.cu`` into one shared library.
+
+Each wrapper takes the plain version for tensors on the CPU (the tests) and
+launches its kernel for CUDA tensors; there is no fallback between the two.
+Every launch adds one to ``LAUNCHES[name]``, so a run can show that it went
+through the kernel.
+
+Build: one ``nvcc`` call compiles every source in ``csrc/`` for ``sm_90a``
+into ``build/fdr_kernels_<hash>.so`` at the repository root, on first use.
+The name carries a hash of the sources and flags, so a later process finds
+the library and skips the build. The sources have a plain C interface and
+include no PyTorch header, so the build takes seconds; the library is bound
+with ``ctypes``. ``nvcc`` and ``ctypes`` are reached only inside the first
+launch, so this module imports on a machine without either.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# launches of each kernel since the last reset (chip_smoke.py reads them)
+LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0}
+
+_LIB = []  # the loaded library, once built
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"fdr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` with one nvcc call unless the library for these
+    sources is already built. Returns its path."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def _lib():
+    if not _LIB:
+        import ctypes
+
+        lib = ctypes.CDLL(str(build_library()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nms_fixpoint_launch.argtypes = [p, p, p, p, i, i, ctypes.c_float,
+                                            i, i, i, p]
+        lib.nms_fixpoint_launch.restype = i
+        lib.rows_gather_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i,
+                                           i, i, p]
+        lib.rows_gather_launch.restype = i
+        lib.kernels_error_string.argtypes = [i]
+        lib.kernels_error_string.restype = ctypes.c_char_p
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib().kernels_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device "
+                             f"(got {[str(x.device) for x in tensors]})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+# ---------------- B1: greedy NMS keep mask ----------------
+
+
+def nms_fixpoint_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_thres: float, plus1: bool = False,
+                       strict: bool = True, mode: str = "union"
+                       ) -> torch.Tensor:
+    """Greedy NMS keep mask over score-sorted boxes, as the fixpoint of the
+    "suppressed by a higher kept box" relation — the arithmetic and the
+    iteration of ``_nms_kernel`` (pallas_kernels.py:40-87).
+
+    boxes: [B, K, 4] f32 xyxy, highest score first; valid: [B, K] bool.
+    Returns keep [B, K] bool."""
+    if mode not in ("union", "min"):
+        raise ValueError(f"unknown NMS mode: {mode}")
+    off = 1.0 if plus1 else 0.0
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    lt_x = torch.maximum(x1[..., :, None], x1[..., None, :])
+    lt_y = torch.maximum(y1[..., :, None], y1[..., None, :])
+    rb_x = torch.minimum(x2[..., :, None], x2[..., None, :])
+    rb_y = torch.minimum(y2[..., :, None], y2[..., None, :])
+    inter = (rb_x - lt_x + off).clamp(min=0.0) * \
+        (rb_y - lt_y + off).clamp(min=0.0)
+    area = (x2 - x1 + off) * (y2 - y1 + off)
+    if mode == "min":
+        denom = torch.minimum(area[..., :, None], area[..., None, :])
+    else:
+        denom = area[..., :, None] + area[..., None, :] - inter
+        if plus1:
+            denom = denom + 1e-16
+    iou = inter / denom
+    overlaps = (iou > iou_thres) if strict else (iou >= iou_thres)
+    k = boxes.shape[-2]
+    higher = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    sup_higher = overlaps & higher  # [.., j, i]: j ranks above i
+    s = torch.zeros_like(valid)
+    while True:
+        keep = valid & ~s
+        new_s = (sup_higher & keep[..., :, None]).any(dim=-2)
+        if torch.equal(new_s, s):
+            return keep
+        s = new_s
+
+
+def nms_fixpoint(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                 plus1: bool = False, strict: bool = True,
+                 mode: str = "union") -> torch.Tensor:
+    """Greedy NMS keep mask over score-sorted boxes, every image in one
+    launch (``csrc/nms.cu``). The port of ``nms_fixpoint_pallas``.
+
+    boxes: [B, K, 4] f32 xyxy, highest score first; valid: [B, K] bool.
+    Returns keep [B, K] bool, equal bit for bit to ``nms_fixpoint_plain``."""
+    if boxes.device.type == "cpu":
+        return nms_fixpoint_plain(boxes, valid, iou_thres, plus1, strict, mode)
+    if mode not in ("union", "min"):
+        raise ValueError(f"unknown NMS mode: {mode}")
+    _require_cuda("nms_fixpoint", boxes, valid)
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError("nms_fixpoint: boxes must be float32, valid bool")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 \
+            or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"nms_fixpoint: boxes [B, K, 4] and valid [B, K] "
+                         f"expected, got {tuple(boxes.shape)} and "
+                         f"{tuple(valid.shape)}")
+    b, k = valid.shape
+    if k > 8192:
+        raise ValueError(f"nms_fixpoint: K = {k} exceeds 8192")
+    scratch = torch.empty((b, k, (k + 31) // 32), dtype=torch.int32,
+                          device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    err = _lib().nms_fixpoint_launch(
+        boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+        keep.data_ptr(), b, k, float(iou_thres), int(plus1), int(strict),
+        int(mode == "min"), _stream(boxes))
+    _check(err, "nms_fixpoint")
+    LAUNCHES["nms_fixpoint"] += 1
+    return keep
+
+
+# ---------------- B2: candidate-row gather ----------------
+
+
+def rows_gather_plain(maps_flat: Sequence[torch.Tensor],
+                      idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(concat(maps_flat, 1), idx[..., None], 1)``.
+
+    maps_flat: per-level [B, n_l, no]; idx: [B, K] int. Returns [B, K, no]."""
+    flat = torch.cat(list(maps_flat), dim=1)
+    return torch.take_along_dim(flat, idx.long()[..., None], dim=1)
+
+
+def rows_gather(maps_flat: Sequence[torch.Tensor],
+                idx: torch.Tensor) -> torch.Tensor:
+    """Gather candidate rows across up to four detect levels without building
+    their concat (``csrc/rows_gather.cu``). The port of
+    ``candidate_rows_gather_pallas``; exact for every dtype.
+
+    maps_flat: per-level [B, n_l, no] of one dtype, rows a multiple of 16
+    bytes; idx: [B, K] int32 global row indices. Returns [B, K, no]."""
+    maps_flat = list(maps_flat)
+    if idx.device.type == "cpu":
+        return rows_gather_plain(maps_flat, idx)
+    _require_cuda("rows_gather", idx, *maps_flat)
+    if not 1 <= len(maps_flat) <= 4:
+        raise ValueError(f"rows_gather: 1 to 4 levels, got {len(maps_flat)}")
+    m0 = maps_flat[0]
+    b, no, dtype = m0.shape[0], m0.shape[-1], m0.dtype
+    for m in maps_flat:
+        if m.dim() != 3 or m.shape[0] != b or m.shape[-1] != no \
+                or m.dtype != dtype:
+            raise ValueError("rows_gather: levels must be [B, n_l, no] of "
+                             "one B, no and dtype")
+        if m.data_ptr() % 16:
+            raise ValueError("rows_gather: level base not 16-byte aligned")
+    row_bytes = no * m0.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"rows_gather: a row of {row_bytes} bytes is not a "
+                         "multiple of 16")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != b:
+        raise ValueError("rows_gather: idx must be [B, K] int32")
+    k = idx.shape[1]
+    out = torch.empty((b, k, no), dtype=dtype, device=m0.device)
+    ptrs = [m.data_ptr() for m in maps_flat] + [0] * (4 - len(maps_flat))
+    rows = [m.shape[1] for m in maps_flat] + [0] * (4 - len(maps_flat))
+    err = _lib().rows_gather_launch(
+        *ptrs, *rows, len(maps_flat), idx.data_ptr(), out.data_ptr(), b, k,
+        row_bytes // 16, _stream(idx))
+    _check(err, "rows_gather")
+    LAUNCHES["rows_gather"] += 1
+    return out

@@ -1,0 +1,73 @@
+"""Greedy hard NMS over fixed-size, masked detections.
+
+The counterpart of ``ops/nms.py`` in the JAX package. Detections stay at a
+static K with a validity mask; the keep mask comes from ``nms_fixpoint``
+(the CUDA kernel for CUDA tensors, its plain version on the CPU). Functions
+take one image ([K, ...]) or a batch ([B, K, ...]).
+
+``jnp.argsort`` is stable, and ties decide greedy NMS, so every sort here is
+``stable=True``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .cuda_kernels import nms_fixpoint
+
+NEG_INF = -1e30
+
+
+def _take_rows(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    idx = order.reshape(order.shape + (1,) * (a.dim() - order.dim()))
+    return torch.take_along_dim(a, idx, dim=order.dim() - 1)
+
+
+def sort_by_score(scores: torch.Tensor, valid: torch.Tensor,
+                  *arrays: torch.Tensor, top=None):
+    """Sort descending by score along the last axis of ``scores``, invalid
+    entries pushed to the end, ties in input order.
+
+    Returns (order, sorted_scores, sorted_valid, *sorted_arrays); ``top``
+    keeps only the first ``top`` rows."""
+    masked = torch.where(valid, scores, NEG_INF)
+    order = torch.argsort(-masked, dim=-1, stable=True)
+    if top is not None:
+        order = order[..., :top]
+    out = tuple(_take_rows(a, order) for a in arrays)
+    return (order, _take_rows(masked, order), _take_rows(valid, order)) + out
+
+
+def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, iou_thres: float, plus1: bool = False,
+                    strict: bool = True, mode: str = "union") -> torch.Tensor:
+    """Greedy hard NMS keep mask, in the ORIGINAL input order.
+
+    boxes: [(B,) K, 4] xyxy; scores, valid: [(B,) K]. ``plus1`` is the +1 px
+    IoU convention; ``strict`` suppresses iou > thres (else >=); ``mode`` is
+    "union" (jaccard) or "min" (inter / min(area))."""
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+    order, _, svalid, sboxes = sort_by_score(scores, valid, boxes)
+    keep_sorted = nms_fixpoint(sboxes.contiguous(), svalid.contiguous(),
+                               iou_thres, plus1=plus1, strict=strict,
+                               mode=mode)
+    keep = torch.zeros_like(valid).scatter(-1, order, keep_sorted)
+    return keep[0] if single else keep
+
+
+def greedy_nms(dets: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+               max_out: int, score_col: int = -1, plus1: bool = False,
+               strict: bool = True, mode: str = "union"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hard NMS returning a fixed [(B,) max_out, D] block sorted by score.
+
+    dets: [(B,) K, D] rows whose first 4 cols are xyxy and ``score_col`` is
+    the ranking score. Returns (out, out_valid)."""
+    scores = dets[..., score_col]
+    keep = greedy_nms_mask(dets[..., :4], scores, valid, iou_thres,
+                           plus1=plus1, strict=strict, mode=mode)
+    _, _, kvalid, kdets = sort_by_score(scores, keep, dets, top=max_out)
+    return kdets, kvalid

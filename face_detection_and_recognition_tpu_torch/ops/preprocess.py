@@ -1,0 +1,76 @@
+"""Image preprocessing from a declarative recipe, on batched NHWC tensors.
+
+The counterpart of ``ops/preprocess.py`` in the JAX package. Frames come in
+as [B, H, W, 3] BGR (uint8 or float) and leave as [B, h, w, 3] model input.
+Per-image standardization (the FaceNet recipe) arrives with the slice that
+ports that recipe.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from .geometry import GRAY_FILL, letterbox_params, resize_bilinear
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessSpec:
+    """Declarative preprocessing recipe.
+
+    Attributes:
+        size: model input (width, height); None keeps the input resolution.
+        resize: "letterbox" (aspect-preserving pad), "stretch", or "none".
+        bgr_to_rgb: swap channel order before normalization.
+        scale: multiplicative factor applied after mean subtraction.
+        mean: per-channel mean subtracted (in the post-swap channel order).
+        std: per-channel divisor (after scale), or None.
+        fill: letterbox fill color (pre-swap order, like the reference's BGR).
+    """
+
+    size: Optional[Tuple[int, int]] = None
+    resize: str = "letterbox"
+    bgr_to_rgb: bool = False
+    scale: float = 1.0
+    mean: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    std: Optional[Tuple[float, float, float]] = None
+    fill: Tuple[float, float, float] = GRAY_FILL
+
+
+YOLOV5_FACE = PreprocessSpec(size=(640, 640), bgr_to_rgb=True, scale=1 / 255.0)
+
+
+def _normalize(x: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
+    if spec.bgr_to_rgb:
+        x = x.flip(-1)
+    kw = dict(dtype=x.dtype, device=x.device)
+    x = (x - torch.tensor(spec.mean, **kw)) * torch.tensor(spec.scale, **kw)
+    if spec.std is not None:
+        x = x / torch.tensor(spec.std, **kw)
+    return x
+
+
+def apply_preprocess_batch(imgs: torch.Tensor, spec: PreprocessSpec,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Preprocess [B, H, W, 3] same-sized BGR images -> [B, h, w, 3].
+
+    The letterbox resizes the interior, places it on a canvas of the fill
+    colour and normalizes the whole canvas; normalization is elementwise, so
+    this equals the JAX package's normalize-then-place order value for
+    value."""
+    if spec.size is not None and spec.resize == "letterbox":
+        w, h = spec.size
+        b, in_h, in_w = imgs.shape[:3]
+        _, sc_h, sc_w, top, left = letterbox_params((in_h, in_w), (h, w))
+        canvas = torch.empty((b, h, w, 3), dtype=dtype, device=imgs.device)
+        canvas.copy_(torch.tensor(spec.fill, dtype=dtype, device=imgs.device))
+        canvas[:, top:top + sc_h, left:left + sc_w] = \
+            resize_bilinear(imgs, (sc_h, sc_w), dtype=dtype)
+        return _normalize(canvas, spec)
+    if spec.size is not None and spec.resize == "stretch" \
+            and tuple(imgs.shape[1:3]) != (spec.size[1], spec.size[0]):
+        x = resize_bilinear(imgs, (spec.size[1], spec.size[0]), dtype=dtype)
+    else:
+        x = imgs.to(dtype)
+    return _normalize(x, spec)

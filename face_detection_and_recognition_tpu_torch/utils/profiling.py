@@ -1,0 +1,123 @@
+"""Where the detect path's time goes on the card.
+
+    python3 -m face_detection_and_recognition_tpu_torch.utils.profiling
+
+Builds the yolov5s ``FaceEngine`` with seeded weights, as ``chip_smoke.py``
+does, and for one batch of 8 seeded 576x1024 frames prints
+
+- the device time of each stage (frame upload, preprocess, network,
+  candidates-first decode + NMS, postprocess), between CUDA events;
+- the kernels with the most device time in ``detect_batch``, from
+  ``torch.profiler``, and the device's busy and idle share of the window.
+
+Needs a CUDA card; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..core.detections import postprocess_detections
+from ..core.engine import EngineConfig, FaceEngine, _full_f32
+from ..models.yolov5_face import (ARCHS, YoloV5FaceConfig,
+                                   yolov5_face_detect_maps)
+from ..ops.preprocess import apply_preprocess_batch
+
+B, H, W = 8, 576, 1024
+ITERS = 20
+
+
+def cuda_ms(fn, iters: int = ITERS) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls after one
+    warm-up, between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def stage_breakdown(eng: FaceEngine, frames: np.ndarray) -> dict:
+    """Device milliseconds of each stage of ``eng.detect_batch`` (square
+    letterbox), each timed alone on the same inputs."""
+    spec = ARCHS[eng.cfg.detector]
+    det_cfg = YoloV5FaceConfig(arch=eng.cfg.detector)
+    scale = torch.tensor([640.0, 640.0] * 7 + [1.0], device=eng.device)
+    imgs = torch.from_numpy(frames).to(eng.device)
+    out = {}
+    with torch.inference_mode(), _full_f32(eng.device):
+        out["upload"] = cuda_ms(lambda: torch.from_numpy(frames).to(
+            eng.device))
+        x = apply_preprocess_batch(imgs, eng.spec.preprocess)
+        out["preprocess"] = cuda_ms(
+            lambda: apply_preprocess_batch(imgs, eng.spec.preprocess))
+        maps = eng.net(x)
+        out["network"] = cuda_ms(lambda: eng.net(x))
+        dets, valid = yolov5_face_detect_maps(maps, spec["anchors"],
+                                              spec["strides"], det_cfg)
+        out["decode+nms"] = cuda_ms(lambda: yolov5_face_detect_maps(
+            maps, spec["anchors"], spec["strides"], det_cfg))
+        cols = torch.cat([dets[..., :4], dets[..., 5:15], dets[..., 4:5]], -1)
+        out["postprocess"] = cuda_ms(lambda: postprocess_detections(
+            cols[:, :64] / scale, valid[:, :64], (W, H), (640, 640), 0.7,
+            0.12))
+        out["detect_batch"] = cuda_ms(lambda: eng.detect_batch(frames))
+    return out
+
+
+def kernel_breakdown(eng: FaceEngine, frames: np.ndarray, top: int = 12):
+    """(rows, busy_ms, wall_ms) of ``ITERS`` detect_batch calls under
+    torch.profiler: rows are (name, calls, device ms per batch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.detect_batch(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(ITERS):
+            eng.detect_batch(frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # device-side events only (kernels, copies): the host ops that launch
+    # them report the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    rows = [(e.key, e.count // ITERS,
+             e.self_device_time_total / 1e3 / ITERS) for e in events[:top]]
+    return rows, busy_ms / ITERS, wall_ms / ITERS
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device is available")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}", flush=True)
+    eng = FaceEngine(EngineConfig(detector="yolov5s"))
+    frames = np.random.RandomState(0).randint(0, 256, (B, H, W, 3), np.uint8)
+    print(f"stage device ms, B={B} frames {H}x{W}, square 640x640:")
+    for name, ms in stage_breakdown(eng, frames).items():
+        print(f"  {name:<13} {ms:9.4f}")
+    rows, busy, wall = kernel_breakdown(eng, frames)
+    print(f"detect_batch under torch.profiler: {wall:.3f} ms wall per batch,"
+          f" device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), idle "
+          f"{100 * (1 - busy / wall):.1f} %")
+    for name, calls, ms in rows:
+        print(f"  {ms:9.4f} ms  x{calls:<4} {name[:90]}")
+
+
+if __name__ == "__main__":
+    main()

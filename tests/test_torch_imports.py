@@ -1,0 +1,50 @@
+"""Import hygiene of the PyTorch port: it and ``chip_smoke.py`` load with
+jax, flax, orbax and cv2 made unimportable, and pull in no module of the JAX
+package; its entry points refuse to fall back to the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "orbax", "cv2"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import face_detection_and_recognition_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "face_detection_and_recognition_tpu"
+                or m.startswith("face_detection_and_recognition_tpu."))
+print("MODULES", len(names))
+print("LEAKED", leaked)
+"""
+
+
+def test_port_imports_without_jax_cv2_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+    # ops, models, core, utils and their modules were all imported
+    n = int(out.stdout.split("MODULES ")[1].split()[0])
+    assert n >= 14, out.stdout
+
+
+def test_engine_raises_without_cuda(monkeypatch):
+    from face_detection_and_recognition_tpu_torch.core.engine import (
+        EngineConfig, FaceEngine)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaceEngine(EngineConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaceEngine(EngineConfig(), device="cuda")
+    assert FaceEngine(EngineConfig(), device="cpu").device.type == "cpu"

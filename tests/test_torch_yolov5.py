@@ -1,0 +1,90 @@
+"""The port's yolov5s-face network, weight bridge and candidates-first
+detect against the JAX package's, on the same weights and inputs (CPU)."""
+import os
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from face_detection_and_recognition_tpu.models import yolov5_face as JY
+from face_detection_and_recognition_tpu.ops import preprocess as JP
+from face_detection_and_recognition_tpu.utils.checkpoint import load_variables
+from face_detection_and_recognition_tpu_torch.models import yolov5_face as TY
+from face_detection_and_recognition_tpu_torch.utils.weights import \
+    yolov5_face_state_dict
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+CKPT = os.path.join(DATA, "golden_yolov5s_ckpt")
+
+
+@pytest.fixture(scope="module")
+def golden_variables():
+    return jax.tree_util.tree_map(np.asarray, load_variables(CKPT))
+
+
+@pytest.fixture(scope="module")
+def golden_input():
+    """The golden 3-face frame, letterboxed to 160 x 160 by the JAX recipe."""
+    import dataclasses
+
+    img = cv2.imread(os.path.join(DATA, "test2_faces_3.jpg"))
+    spec = dataclasses.replace(JP.YOLOV5_FACE, size=(160, 160))
+    return np.array(JP.apply_preprocess_batch(jnp.asarray(img[None]), spec))
+
+
+def test_bridged_net_raw_maps_equal_flax(golden_variables, golden_input):
+    ref = JY.YoloV5FaceNet(arch="yolov5s").apply(golden_variables,
+                                                 golden_input)
+    net = TY.YoloV5FaceNet("yolov5s").eval()
+    net.load_state_dict(yolov5_face_state_dict(golden_variables, "yolov5s"))
+    net = net.to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        got = net(torch.from_numpy(golden_input))
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == r.shape
+        # f32 convolutions summed in another order through ~60 layers
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _random_maps(rng, b=2, h=256, w=256):
+    """Raw head maps [B, 3, h/s, w/s, 16]; every 5th objectness logit is
+    saturated so that sigmoid scores tie at 1.0."""
+    maps = []
+    for s in (8, 16, 32):
+        m = rng.normal(0, 2, (b, 3, h // s, w // s, 16)).astype(np.float32)
+        m.reshape(b, -1, 16)[:, ::5, 4] = 25.0
+        maps.append(m)
+    return maps
+
+
+def test_decode_heads_equals_jax(rng):
+    maps = _random_maps(rng)
+    got = TY.decode_heads([torch.from_numpy(m) for m in maps],
+                          TY.FACE_ANCHORS, (8, 16, 32)).numpy()
+    ref = np.asarray(JY.decode_heads(maps, JY.FACE_ANCHORS, (8, 16, 32)))
+    # pixel coordinates up to ~1e3 from f32 sigmoids that may differ by an ulp
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("hw", [(256, 256), (128, 256)])
+def test_detect_maps_equals_jax(rng, hw):
+    h, w = hw
+    maps = _random_maps(rng, h=h, w=w)
+    kw = dict(max_candidates=256, max_det=64, input_size=(w, h))
+    got_d, got_v = TY.yolov5_face_detect_maps(
+        [torch.from_numpy(m) for m in maps], TY.FACE_ANCHORS, (8, 16, 32),
+        TY.YoloV5FaceConfig(**kw))
+    ref_d, ref_v = JY.yolov5_face_detect_maps(
+        maps, JY.FACE_ANCHORS, (8, 16, 32), JY.YoloV5FaceConfig(**kw))
+    ref_d, ref_v = np.asarray(ref_d), np.asarray(ref_v)
+    # the same kept rows in the same order (ties included) ...
+    np.testing.assert_array_equal(got_v.numpy(), ref_v)
+    assert ref_v.sum() > 10
+    # ... with boxes, scores and landmarks to f32 decode precision
+    np.testing.assert_allclose(got_d.numpy()[ref_v], ref_d[ref_v],
+                               rtol=1e-5, atol=1e-3)
