@@ -1,6 +1,9 @@
-"""FaceEngine: preprocess -> detector -> postprocess over batched NHWC frames.
+"""FaceEngine: preprocess -> detector -> postprocess -> crop -> embed /
+age-gender over batched NHWC frames.
 
-The counterpart of the detect path of ``core/engine.py`` in the JAX package.
+The counterpart of ``core/engine.py`` in the JAX package: the detect path and
+the fused ensemble (``detect_embed_classify_batch``) with its staged entry
+points.
 That engine compiled one XLA program per source resolution, cached them, and
 handed out frozen views of its weights so that a compiled program could
 never serve stale ones. PyTorch runs eagerly and reads the module's
@@ -17,21 +20,44 @@ import numpy as np
 import torch
 
 from ..models import registry
+from ..models.age_gender import labels_from_probs, make_age_gender
+from ..models.embedders import get_embedder, preprocess_crops
 from ..ops import preprocess as P
-from ..ops.geometry import rect_letterbox_size
+from ..ops.crop import crop_and_resize, pad_boxes
+from ..ops.geometry import rect_letterbox_size, resize_bilinear
 from ..ops.platform import resolve_device
 from .detections import Detections, PostProcessedDetection, postprocess_detections
+
+AG_HW = (227, 227)                  # age/gender crop size
+AG_PAD = (-5.0, -5.0, 5.0, 5.0)     # the cascade's +-5 px crop padding
+
+
+@dataclasses.dataclass
+class EnsembleResult:
+    """Output of ``detect_embed_classify_batch``: fixed-shape [B, K, ...]
+    tensors on the engine's device, aligned with ``det.valid``. ``crops``
+    are raw-pixel f32 BGR face crops; ``embeddings`` / ``age_probs`` /
+    ``gender_probs`` are None when the engine lacks that stage or the call
+    did not want it. Rows of invalid slots are zero."""
+
+    det: Detections
+    crops: torch.Tensor                          # [B, K, ch, cw, 3]
+    embeddings: Optional[torch.Tensor] = None    # [B, K, D]
+    age_probs: Optional[torch.Tensor] = None     # [B, K, 8]
+    gender_probs: Optional[torch.Tensor] = None  # [B, K, 2]
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Engine settings. The embedder and age/gender stages of the JAX
-    package's config arrive with the slice that ports them."""
+    """Engine settings, the JAX package's less ``dtype`` (the port runs
+    f32)."""
 
     detector: str = "yolov5s"
     det_thres: float = 0.70
     bbox_area_thres: float = 0.12
     max_det: int = 64
+    embedder: Optional[str] = None          # "mobile_facenet" | None
+    with_age_gender: bool = False
     # rect letterbox inference: each source resolution runs at the smallest
     # stride-multiple canvas its letterbox fits in, instead of the square
     # input_size (576x1024 -> 384x640)
@@ -73,10 +99,36 @@ class FaceEngine:
         generator = torch.Generator().manual_seed(cfg.seed)
         self.net, self._detect = self.spec.build(generator, self.device,
                                                  **cfg.detector_overrides)
+        # each stage draws from its own stream of the seed
+        self.embed_spec = self.embed_net = None
+        if cfg.embedder is not None:
+            self.embed_spec = get_embedder(cfg.embedder)
+            self.embed_net = self.embed_spec.build(
+                torch.Generator().manual_seed(cfg.seed + 1), self.device)
+        self.ag_net = None
+        if cfg.with_age_gender:
+            self.ag_net = make_age_gender(
+                torch.Generator().manual_seed(cfg.seed + 2), self.device)
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load detector weights (e.g. from ``utils.weights`` bridge)."""
         self.net.load_state_dict(state_dict)
+
+    def load_embed_state_dict(self, state_dict: Dict[str, torch.Tensor]
+                              ) -> None:
+        """Load embedder weights (``utils.weights.mobile_facenet_state_dict``
+        or a reference MobileFaceNet state dict)."""
+        if self.embed_net is None:
+            raise ValueError("engine built without an embedder")
+        self.embed_net.load_state_dict(state_dict)
+
+    def load_age_gender_state_dict(self, state_dict: Dict[str, torch.Tensor]
+                                   ) -> None:
+        """Load both heads (``utils.weights.age_gender_state_dict``)."""
+        if self.ag_net is None:
+            raise ValueError("engine built without age/gender heads "
+                             "(with_age_gender=True)")
+        self.ag_net.load_state_dict(state_dict)
 
     @property
     def input_size(self) -> Tuple[int, int]:
@@ -138,3 +190,204 @@ class FaceEngine:
             with _full_f32(self.device):
                 dets, valid = self._detect(x)
             return dets[0][valid[0]].cpu().numpy()
+
+    # ---------------- the fused ensemble ----------------
+
+    def _embed(self, crops: torch.Tensor) -> torch.Tensor:
+        """[N, eh, ew, 3] BGR crops at the embedder's size -> [N, D]."""
+        with _full_f32(crops.device):
+            return self.embed_net(preprocess_crops(self.embed_spec, crops))
+
+    def _classify(self, crops: torch.Tensor):
+        """[N, 227, 227, 3] mean-subtracted BGR crops -> (age, gender)."""
+        with _full_f32(crops.device):
+            return self.ag_net(crops)
+
+    @staticmethod
+    def _face_crops(frames: torch.Tensor, boxes: torch.Tensor,
+                    size: Tuple[int, int], valid: torch.Tensor
+                    ) -> torch.Tensor:
+        """Raw BGR crops [B, K, oh, ow, 3] of the [B, K, 4] boxes, zero in
+        the invalid slots. The kernel reads the uint8 frames and writes the
+        invalid slots without reading; exact bilinear cannot leave
+        [0, 255], so the clip is the JAX engine's contract, kept."""
+        return crop_and_resize(frames, boxes, size, valid).clamp_(0.0, 255.0)
+
+    @staticmethod
+    def _ag_crops(frames: torch.Tensor, boxes: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None,
+                  clip: bool = False) -> torch.Tensor:
+        """227x227 age/gender crops of ``boxes`` padded by +-5 px, BGR mean
+        subtracted (``clip``: clipped to [0, 255] first, as the ensemble
+        is)."""
+        h, w = frames.shape[-3:-1]
+        crops = crop_and_resize(frames, pad_boxes(boxes, AG_PAD, (w, h)),
+                                AG_HW, valid)
+        if clip:
+            crops.clamp_(0.0, 255.0)
+        crops -= torch.tensor(P.AGE_GENDER.mean, device=crops.device)
+        return crops
+
+    @staticmethod
+    def _live_slots(valid: torch.Tensor) -> int:
+        """One past the last slot column valid in any frame (one host
+        read). Slot skipping, the counterpart of the JAX engine's lax.cond
+        over 4-wide slot columns: every slot at or past it is invalid in
+        every frame, so its rows are zero whatever the nets would compute,
+        and the nets and the 227x227 crops run on [:, :k_live] alone:
+        exact for any validity pattern."""
+        live_cols = valid.any(0).nonzero()
+        return int(live_cols[-1]) + 1 if len(live_cols) else 0
+
+    def detect_embed_classify_batch(
+        self,
+        imgs: np.ndarray,
+        det_thres: float = None,
+        bbox_area_thres: float = None,
+        crop_size: Tuple[int, int] = None,
+        embed_offsets: Tuple[float, ...] = None,
+        want_embed: bool = True,
+        want_ag: bool = True,
+    ) -> EnsembleResult:
+        """Detect -> crop -> embed -> age/gender on a [B, H, W, 3] BGR uint8
+        batch, every stage on the engine's device.
+
+        crop_size: (height, width) of the returned raw face crops; defaults
+        to the embedder's input size (112x112 with no embedder).
+        embed_offsets: optional per-corner crop offsets applied to the boxes
+        before cropping and embedding (the extraction pipelines'
+        (-6, -1, +4, +5)); the reported boxes stay as detected.
+        want_embed / want_ag: skip those stages for this call."""
+        if crop_size is None:
+            crop_size = (112, 112)
+            if self.embed_spec is not None:
+                ew, eh = self.embed_spec.input_size
+                crop_size = (eh, ew)
+        crop_size = tuple(crop_size)
+        frames = self._frames(imgs)
+        bsz, h, w = frames.shape[:3]
+        dt = self.cfg.det_thres if det_thres is None else det_thres
+        at = (self.cfg.bbox_area_thres if bbox_area_thres is None
+              else bbox_area_thres)
+        post = self._pipeline_for(tuple(frames.shape[1:]))(
+            frames, float(dt), float(at))
+        k = post.valid.shape[1]
+        do_embed = want_embed and self.embed_net is not None
+        do_ag = want_ag and self.ag_net is not None
+        with torch.inference_mode():
+            crop_boxes = (post.boxes if embed_offsets is None else
+                          pad_boxes(post.boxes, tuple(embed_offsets), (w, h)))
+            crops = self._face_crops(frames, crop_boxes, crop_size,
+                                     post.valid)
+            if not (do_embed or do_ag):
+                return EnsembleResult(det=post, crops=crops)
+            emb = age = gender = None
+            k_live = self._live_slots(post.valid)
+            v = post.valid[:, :k_live]
+            vf = v.reshape(-1, 1)
+
+            def scatter(rows: torch.Tensor, dim: int) -> torch.Tensor:
+                out = crops.new_zeros((bsz, k, dim))
+                if k_live:
+                    out[:, :k_live] = torch.where(vf, rows, 0.0).reshape(
+                        bsz, k_live, dim)
+                return out
+
+            if do_embed:
+                ew, eh = self.embed_spec.input_size
+                e = None
+                if k_live:
+                    ecrops = (crops[:, :k_live] if (eh, ew) == crop_size
+                              else self._face_crops(
+                                  frames, crop_boxes[:, :k_live], (eh, ew),
+                                  v))
+                    e = self._embed(ecrops.reshape(-1, eh, ew, 3))
+                emb = scatter(e, self.embed_spec.dim)
+            if do_ag:
+                a = g = None
+                if k_live:
+                    agc = self._ag_crops(frames, post.boxes[:, :k_live], v,
+                                         clip=True)
+                    a, g = self._classify(agc.reshape(-1, *AG_HW, 3))
+                age, gender = scatter(a, 8), scatter(g, 2)
+        return EnsembleResult(det=post, crops=crops, embeddings=emb,
+                              age_probs=age, gender_probs=gender)
+
+    # ---------------- batched crop entry points ----------------
+
+    def embed_crops(self, faces: np.ndarray) -> np.ndarray:
+        """[N, H, W, 3] BGR face crops (any same size) -> [N, D]
+        embeddings: stretch-resize to the embedder's size, normalize,
+        embed."""
+        if self.embed_net is None:
+            raise RuntimeError("engine built without an embedder")
+        spec = self.embed_spec
+        if faces.shape[0] == 0:
+            return np.zeros((0, spec.dim), np.float32)
+        ew, eh = spec.input_size
+        with torch.inference_mode():
+            x = self._frames(faces).float()
+            if tuple(x.shape[1:3]) != (eh, ew):
+                x = resize_bilinear(x, (eh, ew))
+            return self._embed(x).cpu().numpy()
+
+    def classify_crops_age_gender(self, faces: np.ndarray):
+        """[N, H, W, 3] BGR face crops -> (age_probs [N, 8], gender_probs
+        [N, 2]), through the ``AGE_GENDER`` recipe (stretch to 227x227,
+        BGR mean subtracted)."""
+        if self.ag_net is None:
+            raise RuntimeError("engine built without age/gender heads")
+        if faces.shape[0] == 0:
+            return np.zeros((0, 8), np.float32), np.zeros((0, 2), np.float32)
+        with torch.inference_mode():
+            x = P.apply_preprocess_batch(self._frames(faces), P.AGE_GENDER)
+            a, g = self._classify(x)
+            return a.cpu().numpy(), g.cpu().numpy()
+
+    def embed_faces(self, img: np.ndarray, boxes: np.ndarray,
+                    offsets: Tuple[float, float, float, float] = None
+                    ) -> np.ndarray:
+        """Crop faces from one BGR frame (optionally offset like the
+        reference's extraction crops) -> [N, D] L2-normalized embeddings."""
+        if self.embed_net is None:
+            raise RuntimeError("engine built without an embedder")
+        spec = self.embed_spec
+        if len(boxes) == 0:
+            return np.zeros((0, spec.dim), np.float32)
+        h, w = img.shape[:2]
+        ew, eh = spec.input_size
+        with torch.inference_mode():
+            frame = self._frames(img)
+            b = torch.as_tensor(np.asarray(boxes, np.float32),
+                                device=self.device)
+            if offsets is not None:
+                b = pad_boxes(b, tuple(offsets), (w, h))
+            crops = crop_and_resize(frame, b, (eh, ew))
+            return self._embed(crops).cpu().numpy()
+
+    def detect_and_embed(self, img: np.ndarray):
+        """Detections and embeddings of one BGR frame."""
+        post = self.detect_image(img)
+        dim = self.embed_spec.dim if self.embed_spec else 512
+        emb = (self.embed_faces(img, post.boxes) if len(post.boxes)
+               else np.zeros((0, dim), np.float32))
+        return post, emb
+
+    def detect_age_gender(self, img: np.ndarray) -> PostProcessedDetection:
+        """The two-stage cascade on one BGR frame: detect, crop with +-5 px
+        padding, classify all faces in one batch, and attach
+        'Gender:conf,(age):conf' labels as ``bbox_labels``."""
+        if self.ag_net is None:
+            raise RuntimeError("engine built without age/gender heads")
+        post = self.detect_image(img)
+        if len(post.boxes) == 0:
+            post.bbox_labels = []
+            return post
+        with torch.inference_mode():
+            crops = self._ag_crops(
+                self._frames(img), torch.as_tensor(
+                    post.boxes, dtype=torch.float32, device=self.device))
+            a, g = self._classify(crops)
+        post.bbox_labels = list(labels_from_probs(a.cpu().numpy(),
+                                                  g.cpu().numpy()))
+        return post

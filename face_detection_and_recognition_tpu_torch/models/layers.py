@@ -1,6 +1,7 @@
 """The yolov5-face building blocks as PyTorch modules.
 
-The counterparts of ``models/layers.py`` in the JAX package. Submodules carry
+The counterparts of ``models/layers.py`` in the JAX package: the yolov5-face
+blocks and the MobileFaceNet blocks. Submodules carry
 the reference torch names (``conv``/``bn``, ``cv1``..``cv3``, ``m``,
 ``stem_*``), so a network's ``state_dict`` keys are those of a reference
 yolov5-face checkpoint. Tensors are NCHW; the network keeps them in the
@@ -106,3 +107,104 @@ class StemBlock(nn.Module):
         s1 = self.stem_1(x)
         s2 = self.stem_2b(self.stem_2a(s1))
         return self.stem_3(torch.cat([s2, self.stem_2p(s1)], 1))
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """ShuffleNet channel shuffle of NCHW ``x``: channel j of the output is
+    channel (j % groups) * (C / groups) + j // groups of the input."""
+    b, c, h, w = x.shape
+    return x.reshape(b, groups, c // groups, h, w).transpose(1, 2) \
+        .reshape(b, c, h, w)
+
+
+def _conv_bn(c_in: int, c_out: int, k: int, s: int, groups: int = 1):
+    """(Conv2d without bias, BatchNorm) of a ShuffleV2 branch; BN epsilon
+    1e-3, the JAX package's ConvBN."""
+    return (nn.Conv2d(c_in, c_out, k, s, k // 2, groups=groups, bias=False),
+            nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03))
+
+
+class ShuffleV2Block(nn.Module):
+    """ShuffleNetV2 unit with SiLU activations (yolov5n). The branches are
+    the reference's ``nn.Sequential``s, so their indices are its state_dict
+    names: branch1 = (dw conv, bn, conv, bn, SiLU) when strided, branch2 =
+    (conv, bn, SiLU, dw conv, bn, conv, bn, SiLU)."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        bf = c_out // 2
+        if stride > 1:
+            self.branch1 = nn.Sequential(*_conv_bn(c_in, c_in, 3, stride, c_in),
+                                         *_conv_bn(c_in, bf, 1, 1), nn.SiLU())
+        else:
+            self.branch1 = nn.Sequential()
+        self.branch2 = nn.Sequential(
+            *_conv_bn(c_in if stride > 1 else c_in // 2, bf, 1, 1), nn.SiLU(),
+            *_conv_bn(bf, bf, 3, stride, bf), *_conv_bn(bf, bf, 1, 1),
+            nn.SiLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride == 1:
+            x1, x2 = x.chunk(2, dim=1)
+            out = torch.cat([x1, self.branch2(x2)], 1)
+        else:
+            out = torch.cat([self.branch1(x), self.branch2(x)], 1)
+        return channel_shuffle(out, 2)
+
+
+# ---------------- MobileFaceNet blocks ----------------
+
+
+class MFConvBlock(nn.Module):
+    """Conv (no bias) + BN + per-channel PReLU: the reference's
+    ``Conv_block`` (``conv``, ``bn``, ``prelu``). BN epsilon 1e-5."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
+                 p: int = 0, groups: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, k, s, p, groups=groups, bias=False)
+        self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
+        self.prelu = nn.PReLU(c_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.prelu(self.bn(self.conv(x)))
+
+
+class MFLinearBlock(nn.Module):
+    """Conv (no bias) + BN, no activation: the reference's
+    ``Linear_block``."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
+                 p: int = 0, groups: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c_in, c_out, k, s, p, groups=groups, bias=False)
+        self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(self.conv(x))
+
+
+class MFDepthWise(nn.Module):
+    """Pointwise expand to ``groups`` channels -> depthwise 3x3 -> linear
+    project to ``c_out``, with an optional residual: the reference's
+    ``Depth_Wise`` (``conv``, ``conv_dw``, ``project``)."""
+
+    def __init__(self, c_in: int, c_out: int, groups: int, stride: int = 2,
+                 residual: bool = False):
+        super().__init__()
+        self.conv = MFConvBlock(c_in, groups, 1)
+        self.conv_dw = MFConvBlock(groups, groups, 3, stride, 1, groups=groups)
+        self.project = MFLinearBlock(groups, c_out, 1)
+        self.residual = residual
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.project(self.conv_dw(self.conv(x)))
+        return x + y if self.residual else y
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) along ``dim``."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True),
+                           min=eps)

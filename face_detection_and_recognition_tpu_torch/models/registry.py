@@ -1,10 +1,10 @@
 """Detector registry: one uniform build-and-detect interface.
 
 The counterpart of ``models/registry.py`` in the JAX package, with the
-detectors this port has so far (yolov5s). ``build`` returns the network and
-``detect(imgs) -> (dets, valid)``, with detections in the normalized
-contract: rows [xmin, ymin, xmax, ymax, (lmk xy pairs...), conf] in [0, 1]
-wrt the model input size.
+detectors this port has so far (yolov5s, yolov5n, yolov5n-0.5). ``build``
+returns the network and ``detect(imgs) -> (dets, valid)``, with detections
+in the normalized contract: rows [xmin, ymin, xmax, ymax, (lmk xy
+pairs...), conf] in [0, 1] wrt the model input size.
 """
 from __future__ import annotations
 
@@ -80,10 +80,11 @@ def _build_yolov5(arch: str, input_size):
     return build
 
 
-register(DetectorSpec(
-    name="yolov5s",
-    input_size=(640, 640),
-    preprocess=P.YOLOV5_FACE,
-    build=_build_yolov5("yolov5s", (640, 640)),
-    rect_stride=32,
-))
+for _arch in ("yolov5s", "yolov5n", "yolov5n-0.5"):
+    register(DetectorSpec(
+        name=_arch,
+        input_size=(640, 640),
+        preprocess=P.YOLOV5_FACE,
+        build=_build_yolov5(_arch, (640, 640)),
+        rect_stride=32,
+    ))

@@ -1,4 +1,5 @@
-"""YOLOv5-face detectors (the P5 graph: yolov5s/m/l) in PyTorch.
+"""YOLOv5-face detectors in PyTorch: the P5 graph (yolov5s/m/l) and the
+ShuffleNetV2 graph (yolov5n, yolov5n-0.5).
 
 The counterpart of ``models/yolov5_face.py`` in the JAX package. The network
 walks the same graph table and returns the same raw head maps
@@ -18,7 +19,8 @@ from torch import nn
 from ..ops.boxes import xywh2xyxy
 from ..ops.cuda_kernels import nms_fixpoint, rows_gather
 from ..ops.nms import sort_by_score
-from .layers import C3, SPP, ConvBN, StemBlock, make_divisible_torch
+from .layers import (C3, SPP, ConvBN, ShuffleV2Block, StemBlock,
+                     make_divisible_torch)
 
 FACE_ANCHORS = (
     ((4.0, 5.0), (8.0, 10.0), (13.0, 16.0)),
@@ -56,6 +58,32 @@ _P5_GRAPH: List[Tuple[Any, int, str, list]] = [
     ([16, 19, 22], 1, "Detect", []),            # 23
 ]
 
+# yolov5n / yolov5n-0.5: StemBlock + ShuffleNetV2 backbone
+_SHUFFLE_GRAPH: List[Tuple[Any, int, str, list]] = [
+    (-1, 1, "StemBlock", [32, 3, 2]),            # 0  P2/4
+    (-1, 1, "ShuffleV2Block", [128, 2]),         # 1  P3/8
+    (-1, 3, "ShuffleV2Block", [128, 1]),         # 2
+    (-1, 1, "ShuffleV2Block", [256, 2]),         # 3  P4/16
+    (-1, 7, "ShuffleV2Block", [256, 1]),         # 4
+    (-1, 1, "ShuffleV2Block", [512, 2]),         # 5  P5/32
+    (-1, 3, "ShuffleV2Block", [512, 1]),         # 6
+    (-1, 1, "Conv", [128, 1, 1]),                # 7
+    (-1, 1, "Upsample", []),                     # 8
+    ([-1, 4], 1, "Concat", []),                  # 9
+    (-1, 1, "C3", [128, False]),                 # 10
+    (-1, 1, "Conv", [128, 1, 1]),                # 11
+    (-1, 1, "Upsample", []),                     # 12
+    ([-1, 2], 1, "Concat", []),                  # 13
+    (-1, 1, "C3", [128, False]),                 # 14  P3/8 out
+    (-1, 1, "Conv", [128, 3, 2]),                # 15
+    ([-1, 11], 1, "Concat", []),                 # 16
+    (-1, 1, "C3", [128, False]),                 # 17  P4/16 out
+    (-1, 1, "Conv", [128, 3, 2]),                # 18
+    ([-1, 7], 1, "Concat", []),                  # 19
+    (-1, 1, "C3", [128, False]),                 # 20  P5/32 out
+    ([14, 17, 20], 1, "Detect", []),             # 21
+]
+
 ARCHS: Dict[str, Dict[str, Any]] = {
     "yolov5s": dict(graph=_P5_GRAPH, gd=0.33, gw=0.35, anchors=FACE_ANCHORS,
                     strides=(8, 16, 32)),
@@ -63,6 +91,10 @@ ARCHS: Dict[str, Dict[str, Any]] = {
                     strides=(8, 16, 32)),
     "yolov5l": dict(graph=_P5_GRAPH, gd=1.0, gw=1.0, anchors=FACE_ANCHORS,
                     strides=(8, 16, 32)),
+    "yolov5n": dict(graph=_SHUFFLE_GRAPH, gd=1.0, gw=1.0,
+                    anchors=FACE_ANCHORS, strides=(8, 16, 32)),
+    "yolov5n-0.5": dict(graph=_SHUFFLE_GRAPH, gd=1.0, gw=0.5,
+                        anchors=FACE_ANCHORS, strides=(8, 16, 32)),
 }
 
 
@@ -126,6 +158,13 @@ class YoloV5FaceNet(nn.Module):
             elif mod == "StemBlock":
                 c_out = width(args[0])
                 m = StemBlock(c_in, c_out, args[1], args[2])
+            elif mod == "ShuffleV2Block":
+                # repeats are model.{i}.{r}, a single block model.{i}
+                c_out = width(args[0])
+                reps = graph_depth(n, gd)
+                blocks = [ShuffleV2Block(c_in if r == 0 else c_out, c_out,
+                                         args[1]) for r in range(reps)]
+                m = blocks[0] if reps == 1 else nn.Sequential(*blocks)
             elif mod == "Upsample":
                 c_out = c_in
                 m = nn.Upsample(scale_factor=2, mode="nearest")

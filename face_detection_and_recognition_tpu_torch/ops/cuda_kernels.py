@@ -1,5 +1,6 @@
-"""The detect path's hand-written CUDA kernels, their plain PyTorch versions,
-and the build that turns ``csrc/*.cu`` into one shared library.
+"""The hand-written CUDA kernels of the detect and ensemble paths, their plain
+PyTorch versions, and the build that turns ``csrc/*.cu`` into one shared
+library.
 
 Each wrapper takes the plain version for tensors on the CPU (the tests) and
 launches its kernel for CUDA tensors; there is no fallback between the two.
@@ -22,8 +23,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -32,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
-LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0}
+LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0}
 
 _LIB = []  # the loaded library, once built
 
@@ -98,6 +100,9 @@ def _lib():
         lib.rows_gather_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i,
                                            i, i, p]
         lib.rows_gather_launch.restype = i
+        lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
+                                           i, i, p]
+        lib.crop_resize_launch.restype = i
         lib.kernels_error_string.argtypes = [i]
         lib.kernels_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -253,4 +258,135 @@ def rows_gather(maps_flat: Sequence[torch.Tensor],
         row_bytes // 16, _stream(idx))
     _check(err, "rows_gather")
     LAUNCHES["rows_gather"] += 1
+    return out
+
+
+# ---------------- B3: crop + bilinear resize ----------------
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as a fused
+    multiply-add rounds it. The product is exact in float64; the sum is
+    rounded to odd there (TwoSum gives its error), and a round-to-odd
+    result with 29 spare bits rounds to float32 as the exact sum would."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    e = (p - (s - bv)) + (cd - bv)
+    inexact = e != 0
+    # truncate toward zero: step back one ulp where s rounded away from it
+    away = inexact & ((e > 0) != (s > 0))
+    s = torch.where(away, torch.nextafter(s, torch.zeros_like(s)), s)
+    bits = s.view(torch.int64)
+    return torch.where(inexact, bits | 1, bits).view(torch.float64).float()
+
+
+def _crop_taps(b0: torch.Tensor, b1: torch.Tensor, n: int, n_out: int,
+               clamp: bool):
+    """Sample taps along one axis for boxes whose edges are ``b0``/``b1``
+    [B, K], over a frame extent ``n``: (i0, i1, w, in0, in1), each
+    [B, K, n_out]; i0/i1 are clipped into the frame, in0/in1 say whether the
+    tap lies inside it (pad semantics read 0 outside)."""
+    dev = b0.device
+    if clamp:
+        lo = torch.floor(b0).clamp(0.0, n - 1.0)
+        hi = torch.maximum(torch.floor(b1), lo + 1.0).clamp(max=float(n))
+        length = hi - lo
+    else:
+        lo = torch.floor(b0)
+        length = (torch.floor(b1) - lo).clamp(min=1.0)
+    lo, length = lo[..., None], length[..., None]
+    o = torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5
+    rcp = torch.tensor(np.float32(1.0) / np.float32(n_out), device=dev)
+    s = _fma_f32(o * length, rcp, lo) - 0.5
+    if clamp:
+        s = torch.minimum(torch.maximum(s, lo), lo + length - 1.0)
+        f0 = torch.floor(s).clamp(0.0, n - 1.0)
+        f1 = (f0 + 1.0).clamp(0.0, n - 1.0)
+        inside = torch.ones_like(s, dtype=torch.bool)
+        return f0.long(), f1.long(), s - f0, inside, inside
+    f0 = torch.floor(s)
+    f1 = f0 + 1.0
+    in0, in1 = (f0 >= 0) & (f0 < n), (f1 >= 0) & (f1 < n)
+    return (f0.clamp(0.0, n - 1.0).long(), f1.clamp(0.0, n - 1.0).long(),
+            s - f0, in0, in1)
+
+
+def crop_resize_plain(img: torch.Tensor, boxes: torch.Tensor,
+                      valid: torch.Tensor, out_hw: Tuple[int, int],
+                      clamp: bool = True) -> torch.Tensor:
+    """The gather arithmetic of ``crop_and_resize`` (``clamp=True``) or
+    ``crop_and_resize_padded`` (``clamp=False``) of the JAX package's
+    ``ops/crop.py``, batched over frames and boxes. The sample coordinate
+    is ``fma((o + 0.5) * len, rcp(n_out), lo) - 0.5``, the form XLA
+    compiles the JAX source's ``lo + (o + 0.5) * len / n_out - 0.5`` into
+    on the CPU.
+
+    img: [B, H, W, C] uint8 or float; boxes: [B, K, 4] f32 xyxy pixels;
+    valid: [B, K] bool. Returns [B, K, oh, ow, C] f32, invalid slots 0."""
+    b, h, w, c = img.shape
+    oh, ow = out_hw
+    boxes = boxes.float()
+    y0, y1, wy, iy0, iy1 = _crop_taps(boxes[..., 1], boxes[..., 3], h, oh,
+                                      clamp)
+    x0, x1, wx, ix0, ix1 = _crop_taps(boxes[..., 0], boxes[..., 2], w, ow,
+                                      clamp)
+    flat = img.reshape(b * h * w, c).float()
+    base = (torch.arange(b, device=img.device) * h).view(b, 1, 1)
+
+    def tap(yi, iny, xi, inx):
+        idx = ((base + yi)[..., :, None] * w + xi[..., None, :])
+        vals = flat[idx]                                   # [B, K, oh, ow, C]
+        inb = (iny[..., :, None] & inx[..., None, :])[..., None]
+        return torch.where(inb, vals, 0.0)
+
+    wx1, wy1 = wx[..., None, :, None], wy[..., :, None, None]
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    top = tap(y0, iy0, x0, ix0) * wx0 + tap(y0, iy0, x1, ix1) * wx1
+    bot = tap(y1, iy1, x0, ix0) * wx0 + tap(y1, iy1, x1, ix1) * wx1
+    out = top * wy0 + bot * wy1
+    return torch.where(valid[..., None, None, None], out, 0.0)
+
+
+def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+                out_hw: Tuple[int, int], clamp: bool = True) -> torch.Tensor:
+    """Crop and bilinearly resize K boxes from each of B frames in one
+    launch (``csrc/crop_resize.cu``). The port of ``crop_gemm_pallas``;
+    equal bit for bit to ``crop_resize_plain``.
+
+    img: [B, H, W, C] uint8 or float32 NHWC, C <= 4; boxes: [B, K, 4]
+    float32 xyxy pixels; valid: [B, K] bool; ``clamp`` picks the box
+    semantics (True: clamp to the frame, False: zero pad). Returns
+    [B, K, oh, ow, C] float32, invalid slots 0."""
+    if img.device.type == "cpu":
+        return crop_resize_plain(img, boxes, valid, out_hw, clamp)
+    _require_cuda("crop_resize", img, boxes, valid)
+    if img.dim() != 4 or img.dtype not in (torch.uint8, torch.float32) \
+            or not 1 <= img.shape[-1] <= 4:
+        raise ValueError("crop_resize: img must be [B, H, W, C<=4] uint8 or "
+                         f"float32, got {tuple(img.shape)} {img.dtype}")
+    b, h, w, c = img.shape
+    if boxes.dtype != torch.float32 or tuple(boxes.shape[:1]) != (b,) \
+            or boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"crop_resize: boxes must be [B, K, 4] float32, got "
+                         f"{tuple(boxes.shape)} {boxes.dtype}")
+    k = boxes.shape[1]
+    if valid.dtype != torch.bool or tuple(valid.shape) != (b, k):
+        raise ValueError("crop_resize: valid must be [B, K] bool")
+    if boxes.data_ptr() % 16:
+        raise ValueError("crop_resize: boxes not 16-byte aligned")
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if oh < 1 or not 1 <= ow <= 2048 or k > 65535 or b > 65535:
+        raise ValueError(f"crop_resize: out {oh}x{ow}, B {b}, K {k} out of "
+                         "range (ow <= 2048, B and K <= 65535)")
+    out = torch.empty((b, k, oh, ow, c), dtype=torch.float32,
+                      device=img.device)
+    err = _lib().crop_resize_launch(
+        img.data_ptr(), int(img.dtype == torch.uint8), boxes.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), b, k, h, w, c, oh, ow, int(clamp),
+        _stream(img))
+    _check(err, "crop_resize")
+    LAUNCHES["crop_resize"] += 1
     return out

@@ -39,6 +39,15 @@ class PreprocessSpec:
 
 
 YOLOV5_FACE = PreprocessSpec(size=(640, 640), bgr_to_rgb=True, scale=1 / 255.0)
+AGE_GENDER = PreprocessSpec(
+    size=(227, 227),
+    resize="stretch",
+    mean=(78.4263377603, 87.7689143744, 114.895847746),
+)
+MOBILE_FACENET = PreprocessSpec(
+    size=(112, 112), resize="stretch", scale=1 / 127.5,
+    mean=(127.5, 127.5, 127.5)
+)
 
 
 def _normalize(x: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:

@@ -1,14 +1,18 @@
-"""Where the detect path's time goes on the card.
+"""Where the detect and ensemble paths' time goes on the card.
 
     python3 -m face_detection_and_recognition_tpu_torch.utils.profiling
 
 Builds the yolov5s ``FaceEngine`` with seeded weights, as ``chip_smoke.py``
 does, and for one batch of 8 seeded 576x1024 frames prints
 
-- the device time of each stage (frame upload, preprocess, network,
+- the device time of each detect stage (frame upload, preprocess, network,
   candidates-first decode + NMS, postprocess), between CUDA events;
-- the kernels with the most device time in ``detect_batch``, from
-  ``torch.profiler``, and the device's busy and idle share of the window.
+- the device time of each ensemble stage (detect, 112x112 crops,
+  MobileFaceNet, 227x227 crops, the age/gender heads) with every NMS
+  survivor live, as ``chip_smoke.py`` drives it;
+- for ``detect_batch`` and ``detect_embed_classify_batch``, the kernels
+  with the most device time, from ``torch.profiler``, and the device's busy
+  and idle share of the window.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from ..core.detections import postprocess_detections
-from ..core.engine import EngineConfig, FaceEngine, _full_f32
+from ..core.engine import AG_HW, EngineConfig, FaceEngine, _full_f32
 from ..models.yolov5_face import (ARCHS, YoloV5FaceConfig,
                                    yolov5_face_detect_maps)
 from ..ops.preprocess import apply_preprocess_batch
@@ -73,18 +77,45 @@ def stage_breakdown(eng: FaceEngine, frames: np.ndarray) -> dict:
     return out
 
 
-def kernel_breakdown(eng: FaceEngine, frames: np.ndarray, top: int = 12):
-    """(rows, busy_ms, wall_ms) of ``ITERS`` detect_batch calls under
-    torch.profiler: rows are (name, calls, device ms per batch)."""
+def ensemble_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
+    """Device milliseconds of each stage of
+    ``eng.detect_embed_classify_batch`` with both thresholds 0 (every NMS
+    survivor a live slot), each timed alone on the same inputs, and
+    ``k_live``, the slot columns the nets run on."""
+    imgs = torch.from_numpy(frames).to(eng.device)
+    out = {}
+    with torch.inference_mode():
+        out["detect"] = cuda_ms(lambda: eng.detect_batch(frames, 0.0, 0.0))
+        post = eng.detect_batch(frames, 0.0, 0.0)
+        k_live = eng._live_slots(post.valid)
+        v = post.valid[:, :k_live]
+        out["crops 112"] = cuda_ms(lambda: eng._face_crops(
+            imgs, post.boxes, (112, 112), post.valid))
+        faces = eng._face_crops(imgs, post.boxes[:, :k_live], (112, 112),
+                                v).reshape(-1, 112, 112, 3)
+        out["mobilefacenet"] = cuda_ms(lambda: eng._embed(faces))
+        boxes = post.boxes[:, :k_live]
+        out["crops 227"] = cuda_ms(lambda: eng._ag_crops(imgs, boxes, v,
+                                                         clip=True))
+        agc = eng._ag_crops(imgs, boxes, v, clip=True).reshape(-1, *AG_HW, 3)
+        out["age/gender"] = cuda_ms(lambda: eng._classify(agc))
+        out["ensemble"] = cuda_ms(lambda: eng.detect_embed_classify_batch(
+            frames, det_thres=0.0, bbox_area_thres=0.0))
+    return out, k_live
+
+
+def kernel_breakdown(run, top: int = 12):
+    """(rows, busy_ms, wall_ms) of ``ITERS`` calls of ``run`` (one batch)
+    under torch.profiler: rows are (name, calls, device ms per batch)."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng.detect_batch(frames)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(ITERS):
-            eng.detect_batch(frames)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # device-side events only (kernels, copies): the host ops that launch
@@ -111,12 +142,25 @@ def main() -> None:
     print(f"stage device ms, B={B} frames {H}x{W}, square 640x640:")
     for name, ms in stage_breakdown(eng, frames).items():
         print(f"  {name:<13} {ms:9.4f}")
-    rows, busy, wall = kernel_breakdown(eng, frames)
-    print(f"detect_batch under torch.profiler: {wall:.3f} ms wall per batch,"
-          f" device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), idle "
-          f"{100 * (1 - busy / wall):.1f} %")
-    for name, calls, ms in rows:
-        print(f"  {ms:9.4f} ms  x{calls:<4} {name[:90]}")
+    ens = FaceEngine(EngineConfig(detector="yolov5s",
+                                  embedder="mobile_facenet",
+                                  with_age_gender=True))
+    stages, k_live = ensemble_stages(ens, frames)
+    print(f"ensemble stage device ms, B={B} frames {H}x{W}, every NMS "
+          f"survivor live, k_live={k_live} of {ens.cfg.max_det} slots:")
+    for name, ms in stages.items():
+        print(f"  {name:<13} {ms:9.4f}")
+    for label, run in (
+            ("detect_batch", lambda: eng.detect_batch(frames)),
+            ("detect_embed_classify_batch",
+             lambda: ens.detect_embed_classify_batch(
+                 frames, det_thres=0.0, bbox_area_thres=0.0))):
+        rows, busy, wall = kernel_breakdown(run)
+        print(f"{label} under torch.profiler: {wall:.3f} ms wall per batch,"
+              f" device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), "
+              f"idle {100 * (1 - busy / wall):.1f} %")
+        for name, calls, ms in rows:
+            print(f"  {ms:9.4f} ms  x{calls:<4} {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Weight bridge: a flax variables tree of numpy arrays -> a PyTorch
-state_dict.
+state_dict, for the yolov5-face detectors, MobileFaceNet and the age/gender
+heads.
 
-The inverse of ``convert_yolov5_face`` in the JAX package's
-``utils/weights.py``: flax names layers ``layer{i}`` with ``ConvBN_k`` /
-``Bottleneck_k`` children; the port's modules carry the reference torch names
-(``model.{i}.cv1.conv``...). Conv kernels go HWIO -> OIHW; flax BatchNorm
+The inverse of ``convert_yolov5_face`` / ``convert_mobile_facenet`` /
+``convert_caffenet_head`` in the JAX package's ``utils/weights.py``: flax
+names layers ``layer{i}`` with ``ConvBN_k`` / ``Bottleneck_k`` children; the
+port's modules carry the reference torch names (``model.{i}.cv1.conv``...). Conv kernels go HWIO -> OIHW; flax BatchNorm
 ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` become ``weight``,
 ``bias``, ``running_mean`` and ``running_var``. Reading a checkpoint is the
 caller's business: this module takes arrays, nothing else.
@@ -29,6 +30,15 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def _bn(sd: Dict[str, torch.Tensor], tp: str, p: Mapping, s: Mapping) -> None:
+    """flax BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> torch BN."""
+    sd[f"{tp}.weight"] = _t(p["scale"])
+    sd[f"{tp}.bias"] = _t(p["bias"])
+    sd[f"{tp}.running_mean"] = _t(s["mean"])
+    sd[f"{tp}.running_var"] = _t(s["var"])
+    sd[f"{tp}.num_batches_tracked"] = torch.tensor(0)
+
+
 def yolov5_face_state_dict(variables: Mapping, arch: str
                            ) -> Dict[str, torch.Tensor]:
     """Map a ``YoloV5FaceNet`` flax tree {"params", "batch_stats"} of numpy
@@ -37,19 +47,18 @@ def yolov5_face_state_dict(variables: Mapping, arch: str
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
 
+    def conv_bn(conv: str, bn: str, p: Mapping, s: Mapping) -> None:
+        sd[f"{conv}.weight"] = f2t_conv(p["Conv_0"]["kernel"])
+        _bn(sd, bn, p["BatchNorm_0"], s["BatchNorm_0"])
+
     def convbn(tp: str, p: Mapping, s: Mapping) -> None:
-        sd[f"{tp}.conv.weight"] = f2t_conv(p["Conv_0"]["kernel"])
-        sd[f"{tp}.bn.weight"] = _t(p["BatchNorm_0"]["scale"])
-        sd[f"{tp}.bn.bias"] = _t(p["BatchNorm_0"]["bias"])
-        sd[f"{tp}.bn.running_mean"] = _t(s["BatchNorm_0"]["mean"])
-        sd[f"{tp}.bn.running_var"] = _t(s["BatchNorm_0"]["var"])
-        sd[f"{tp}.bn.num_batches_tracked"] = torch.tensor(0)
+        conv_bn(f"{tp}.conv", f"{tp}.bn", p, s)
 
     def children(tp: str, p: Mapping, s: Mapping, names) -> None:
         for k, sub in enumerate(names):
             convbn(f"{tp}.{sub}", p[f"ConvBN_{k}"], s[f"ConvBN_{k}"])
 
-    for i, (frm, n, mod, _) in enumerate(spec["graph"]):
+    for i, (frm, n, mod, args) in enumerate(spec["graph"]):
         t, name = f"model.{i}", f"layer{i}"
         if mod == "Conv":
             convbn(t, params[name], stats[name])
@@ -64,9 +73,91 @@ def yolov5_face_state_dict(variables: Mapping, arch: str
         elif mod == "StemBlock":
             children(t, params[name], stats[name],
                      ("stem_1", "stem_2a", "stem_2b", "stem_3"))
+        elif mod == "ShuffleV2Block":
+            # flax: layer{i}_{r} with ConvBN_k in call order (branch1's two
+            # when strided, then branch2's three); torch: the branches'
+            # Sequential indices of each (conv, bn) pair
+            pairs = ([("branch1.0", "branch1.1"), ("branch1.2", "branch1.3")]
+                     if args[1] > 1 else [])
+            pairs += [("branch2.0", "branch2.1"), ("branch2.3", "branch2.4"),
+                      ("branch2.5", "branch2.6")]
+            reps = graph_depth(n, spec["gd"])
+            for r in range(reps):
+                tp = t if reps == 1 else f"{t}.{r}"
+                p, s = params[f"layer{i}_{r}"], stats[f"layer{i}_{r}"]
+                for k, (cp, bp) in enumerate(pairs):
+                    conv_bn(f"{tp}.{cp}", f"{tp}.{bp}", p[f"ConvBN_{k}"],
+                            s[f"ConvBN_{k}"])
         elif mod == "Detect":
             for li in range(len(frm)):
                 det = params[f"detect_m{li}"]
                 sd[f"{t}.m.{li}.weight"] = f2t_conv(det["kernel"])
                 sd[f"{t}.m.{li}.bias"] = _t(det["bias"])
+    return sd
+
+
+def mobile_facenet_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``MobileFaceNet`` tree {"params", "batch_stats"} of numpy
+    arrays onto the port's ``MobileFaceNet`` state_dict (the reference
+    torch names). The inverse of the JAX package's
+    ``convert_mobile_facenet``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def block(tp: str, p: Mapping, s: Mapping) -> None:
+        # MFConvBlock (with PReLU) or MFLinearBlock
+        sd[f"{tp}.conv.weight"] = f2t_conv(p["Conv_0"]["kernel"])
+        _bn(sd, f"{tp}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+        if "PReLU_0" in p:
+            sd[f"{tp}.prelu.weight"] = _t(p["PReLU_0"]["alpha"])
+
+    def depthwise(tp: str, p: Mapping, s: Mapping) -> None:
+        for sub, name in (("conv", "MFConvBlock_0"), ("conv_dw", "MFConvBlock_1"),
+                          ("project", "MFLinearBlock_0")):
+            block(f"{tp}.{sub}", p[name], s[name])
+
+    for name in ("conv1", "conv2_dw", "conv_6_sep", "conv_6_dw"):
+        block(name, params[name], stats[name])
+    for name in ("conv_23", "conv_34", "conv_45"):
+        depthwise(name, params[name], stats[name])
+    for name, nb in (("conv_3", 4), ("conv_4", 6), ("conv_5", 2)):
+        for i in range(nb):
+            depthwise(f"{name}.model.{i}", params[name][f"MFDepthWise_{i}"],
+                      stats[name][f"MFDepthWise_{i}"])
+    sd["linear.weight"] = _t(params["linear"]["kernel"]).T.contiguous()
+    _bn(sd, "bn", params["bn"], stats["bn"])
+    return sd
+
+
+def _caffenet_head(sd: Dict[str, torch.Tensor], tp: str,
+                   params: Mapping) -> None:
+    for i in range(3):
+        conv = params[f"Conv_{i}"]
+        sd[f"{tp}.conv{i + 1}.weight"] = f2t_conv(conv["kernel"])
+        sd[f"{tp}.conv{i + 1}.bias"] = _t(conv["bias"])
+    # fc6 reads conv3's map: flax flattens it (H, W, C), the port (C, H, W)
+    w6 = np.asarray(params["Dense_0"]["kernel"], np.float32)    # [H*W*C, out]
+    c3 = params["Conv_2"]["bias"].shape[0]
+    side = int(round((w6.shape[0] // c3) ** 0.5))
+    if side * side * c3 != w6.shape[0]:
+        raise ValueError(f"fc6 input {w6.shape[0]} is not H*W*C with "
+                         f"C={c3} and H == W")
+    w6 = w6.reshape(side, side, c3, -1).transpose(2, 0, 1, 3) \
+        .reshape(w6.shape[0], -1)
+    sd[f"{tp}.fc6.weight"] = torch.from_numpy(np.ascontiguousarray(w6.T))
+    sd[f"{tp}.fc6.bias"] = _t(params["Dense_0"]["bias"])
+    for i, name in ((1, "fc7"), (2, "fc8")):
+        dense = params[f"Dense_{i}"]
+        sd[f"{tp}.{name}.weight"] = _t(dense["kernel"]).T.contiguous()
+        sd[f"{tp}.{name}.bias"] = _t(dense["bias"])
+
+
+def age_gender_state_dict(age_vars: Mapping, gender_vars: Mapping
+                          ) -> Dict[str, torch.Tensor]:
+    """Map the two flax ``CaffeNetHead`` trees ({"params": ...} of numpy
+    arrays, any float dtype) onto the port's ``AgeGenderNet`` state_dict
+    (``age.*``, ``gender.*``), in float32."""
+    sd: Dict[str, torch.Tensor] = {}
+    _caffenet_head(sd, "age", age_vars["params"])
+    _caffenet_head(sd, "gender", gender_vars["params"])
     return sd

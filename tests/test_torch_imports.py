@@ -23,6 +23,7 @@ leaked = sorted(m for m in sys.modules
                 if m == "face_detection_and_recognition_tpu"
                 or m.startswith("face_detection_and_recognition_tpu."))
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("LEAKED", leaked)
 """
 
@@ -35,7 +36,11 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
     assert "LEAKED []" in out.stdout, out.stdout
     # ops, models, core, utils and their modules were all imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 14, out.stdout
+    assert n >= 21, out.stdout
+    names = out.stdout.split("NAMES ")[1].split()
+    for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
+                "models.embedders"):
+        assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 
 def test_engine_raises_without_cuda(monkeypatch):

@@ -100,7 +100,8 @@ def test_wrappers_take_plain_path_on_cpu(rng):
                                ck.rows_gather_plain(levels, idx),
                                rtol=0, atol=0)
     # the CPU path launches nothing and builds nothing
-    assert ck.LAUNCHES == {"nms_fixpoint": 0, "rows_gather": 0}
+    assert ck.LAUNCHES == {"nms_fixpoint": 0, "rows_gather": 0,
+                           "crop_resize": 0}
     assert ck._LIB == []
 
 

@@ -88,3 +88,46 @@ def test_detect_maps_equals_jax(rng, hw):
     # ... with boxes, scores and landmarks to f32 decode precision
     np.testing.assert_allclose(got_d.numpy()[ref_v], ref_d[ref_v],
                                rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["yolov5n", "yolov5n-0.5"])
+def test_shuffle_graph_raw_maps_equal_flax(arch, golden_input):
+    """The ShuffleNetV2 graph through the bridge: golden_yolov5n_ckpt for
+    yolov5n, the flax module's own seeded init for yolov5n-0.5."""
+    if arch == "yolov5n":
+        variables = jax.tree_util.tree_map(np.asarray, load_variables(
+            os.path.join(DATA, "golden_yolov5n_ckpt")))
+    else:
+        variables = jax.tree_util.tree_map(np.asarray, JY.YoloV5FaceNet(
+            arch=arch).init(jax.random.PRNGKey(3), golden_input))
+    ref = JY.YoloV5FaceNet(arch=arch).apply(variables, golden_input)
+    net = TY.YoloV5FaceNet(arch).eval()
+    net.load_state_dict(yolov5_face_state_dict(variables, arch))
+    net = net.to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        got = net(torch.from_numpy(golden_input))
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_port_yolov5n_passes_golden_gate():
+    """The gate of tests/test_golden_accuracy.py for golden_yolov5n_ckpt,
+    through the port's engine."""
+    from face_detection_and_recognition_tpu.train.golden import \
+        evaluate_golden
+    from face_detection_and_recognition_tpu_torch.core.engine import (
+        EngineConfig, FaceEngine)
+
+    variables = jax.tree_util.tree_map(np.asarray, load_variables(
+        os.path.join(DATA, "golden_yolov5n_ckpt")))
+    eng = FaceEngine(EngineConfig(detector="yolov5n", det_thres=0.5),
+                     device="cpu")
+    eng.load_state_dict(yolov5_face_state_dict(variables, "yolov5n"))
+    r = evaluate_golden(eng, det_thres=0.6, margin=0.15)
+    assert r["ok"], r
+    assert r["n_pos"] == 3, f"expected 3 golden faces, got {r['n_pos']}"
+    assert r["n_neg"] == 0, f"0-face image produced {r['n_neg']} detections"
+    assert all(iou >= 0.8 for iou in r["ious"]), r["ious"]
