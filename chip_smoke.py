@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's detect and ensemble paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's detect, ensemble, similarity and BlazeFace
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,8 +13,11 @@ seconds:
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes (B = 8 frames, K = 1024 candidates, the three
    yolov5s levels at 640 x 640; 64 crop slots a frame at 112 x 112 and
-   227 x 227); each must be exactly equal. Prints kernel, plain and library
-   times and the bound;
+   227 x 227; 512 queries against a 524,288 x 512 gallery, k = 5; 896
+   BlazeFace rows a frame, 16 slots); each must be exactly equal. The
+   gallery top-k is also held to the default search path (matrix product
+   and stable top-k). Prints kernel, plain and library times and the
+   bound;
 4. main path, detect: ``FaceEngine(EngineConfig(detector="yolov5s"))`` at
    full width with weights drawn from a seeded generator, ``detect_batch``
    on 8 seeded 576 x 1024 frames (square and rect letterbox) and
@@ -21,13 +25,22 @@ seconds:
 5. main path, ensemble: the yolov5s + mobile_facenet + age/gender engine,
    ``detect_embed_classify_batch`` on the same 8 frames with every NMS
    survivor a live slot, then ``embed_crops``, ``classify_crops_age_gender``
-   and ``detect_age_gender``.
+   and ``detect_age_gender``;
+6. main path, similarity: the ensemble's live embeddings through
+   ``topk_similar`` (k = 5) on both search paths against a seeded
+   524,288 x 512 numpy gallery (IMDB-WIKI's size), which must agree, and
+   ``filter_embeddings``; prints the call's time and the host's share;
+7. main path, BlazeFace: ``FaceEngine(EngineConfig(detector=...))`` for
+   ``blazeface-back`` (256 x 256) and ``blazeface-front`` (128 x 128) at
+   full width, ``detect_batch`` on the same 8 frames and ``detect_image``
+   on the 3 single frames; prints the anchors above the score threshold
+   and the blend NMS's picks a frame.
    Each main path zeroes the launch counts just before it and reads them
    just after; every kernel of the path must have launched, and every
    output must be finite and of the contract's shape;
-6. reference: the detector's raw maps, MobileFaceNet's embeddings and the
-   age/gender heads' logits on the card against the same modules on the
-   CPU.
+8. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+   age/gender heads' logits and both BlazeFace nets' raw heads on the card
+   against the same modules on the CPU.
 
 The line before the last is a JSON object of per-kernel numbers, and the last
 line is ``{"ok": true, "device": {...}}``. Any failure propagates: the script
@@ -259,6 +272,170 @@ def check_crop(gen, frames):
         library_ms=library_ms)
 
 
+TOPK_N, TOPK_M, TOPK_D, TOPK_K = 512, 524288, 512, 5  # the similarity path
+TOPK_TOL = 1e-6  # |cosine| gap under which two orders may differ
+
+
+def unit_rows(x):
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def close_ranks(s, tol=TOPK_TOL):
+    """[N, k] mask of the ranks whose score lies within ``tol`` of a
+    neighbour's: there a product summed in another order may swap them.
+    Given k + 1 scores, it also flags the last rank against the next."""
+    gap = s[:, :-1] - s[:, 1:]
+    near = torch.zeros_like(s, dtype=torch.bool)
+    near[:, :-1] |= gap <= tol
+    near[:, 1:] |= gap <= tol
+    return near
+
+
+def check_topk(gen):
+    """B4 against its plain version (bit for bit) and against the default
+    search path (a full-f32 matrix product and a stable top-k) at the
+    similarity path's shape: unit queries against a unit gallery."""
+    from face_detection_and_recognition_tpu_torch.pipelines.similarity \
+        import _f32_matmul, _topk_stable
+
+    q = unit_rows(torch.randn((TOPK_N, TOPK_D), generator=gen,
+                              device="cuda"))
+    g = unit_rows(torch.randn((TOPK_M, TOPK_D), generator=gen,
+                              device="cuda"))
+    g[TOPK_M - 1] = g[12345]  # an exact tie: the smaller index first
+    q[7] = g[12345]
+    got = ck.topk_gallery(q, g, TOPK_K)
+    ref = ck.topk_gallery_plain(q, g, TOPK_K)
+    torch.cuda.synchronize()
+    err = float((got[0] - ref[0]).abs().max())
+    say(f"  topk_gallery [{TOPK_N}, {TOPK_D}] x [{TOPK_M}, {TOPK_D}], "
+        f"k {TOPK_K}: max abs err {err}, indices equal "
+        f"{torch.equal(got[1], ref[1])}")
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("topk_gallery differs from its plain version")
+    if int(got[1][7, 0]) != 12345 or int(got[1][7, 1]) != TOPK_M - 1:
+        raise AssertionError("topk_gallery broke an exact tie wrongly")
+
+    def library():
+        with _f32_matmul():
+            return torch.topk(q @ g.T, TOPK_K)
+
+    with _f32_matmul():  # one rank more, to see the k-th rank's gap
+        mm_s, mm_i = _topk_stable(q @ g.T, TOPK_K + 1)
+    far = ~close_ranks(mm_s)[:, :TOPK_K]
+    mism = int((mm_i[:, :TOPK_K].int() != got[1])[far].sum())
+    serr = float((mm_s[:, :TOPK_K] - got[0]).abs().max())
+    say(f"  topk_gallery against the matrix-product path: max |score "
+        f"difference| {serr:.2e}, index mismatches {mism} among "
+        f"{int(far.sum())} ranks more than {TOPK_TOL} from a neighbour")
+    if mism or serr > TOPK_TOL:
+        raise AssertionError("topk_gallery disagrees with the matmul path")
+    ms = cuda_ms(lambda: ck.topk_gallery(q, g, TOPK_K), 5)
+    plain_ms = cuda_ms(lambda: ck.topk_gallery_plain(q, g, TOPK_K), 1)
+    library_ms = cuda_ms(library, 5)
+    # every score is D multiplies and D adds; queries and gallery read
+    # once, scores and indices written once
+    ops = 2 * TOPK_N * TOPK_M * TOPK_D
+    nbytes = (TOPK_N + TOPK_M) * TOPK_D * 4 + TOPK_N * TOPK_K * 8
+    return dict(
+        name="topk_gallery", route="cuda",
+        source="face_detection_and_recognition_tpu_torch/csrc/"
+               "topk_gallery.cu",
+        replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:186",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
+                  else "operations"),
+        library_ms=library_ms)
+
+
+BLEND_B, BLEND_K, BLEND_OUT = 8, 896, 16  # 8 frames of BlazeFace anchors
+
+
+def blend_inputs(gen, b, k):
+    """Score-sorted BlazeFace rows [ymin, xmin, ymax, xmax, 12 kps, score]
+    in clusters of overlapping boxes, with an inverted box and invalid
+    rows, as the decode hands them to the blend NMS."""
+    centers = torch.rand((b, 40, 2), generator=gen) * 0.8
+    pick = torch.randint(0, 40, (b, k), generator=gen)
+    c = torch.take_along_dim(centers, pick[..., None], 1) \
+        + torch.randn((b, k, 2), generator=gen) * 0.01
+    wh = 0.05 + torch.rand((b, k, 2), generator=gen) * 0.02
+    dets = torch.cat([c, c + wh, torch.rand((b, k, 13), generator=gen)], -1)
+    dets[:, 3, 2:4] = dets[:, 3, 0:2] - 0.05          # inverted box
+    valid = torch.rand((b, k), generator=gen) > 0.3
+    order = torch.argsort(torch.where(valid, dets[..., 16], -1e30), dim=1,
+                          descending=True, stable=True)
+    return (torch.take_along_dim(dets, order[..., None], 1).cuda(),
+            torch.take_along_dim(valid, order, 1).cuda())
+
+
+def blend_work(sdets, svalid, thr, max_out):
+    """(IoUs, taken rows) that the blend NMS computes on these inputs: one
+    IoU a slot for each row alive at its pick, and each taken row blended
+    once."""
+    y1, x1, y2, x2 = sdets[..., :4].unbind(-1)
+    area = (x2 - x1) * (y2 - y1)
+    alive, ious, taken = svalid.clone(), 0, 0
+    rows = torch.arange(sdets.shape[1], device=sdets.device)
+    for _ in range(max_out):
+        ious += int(alive.sum())
+        f = alive.to(torch.uint8).argmax(1, keepdim=True)
+        iw = (torch.minimum(x2.gather(1, f), x2)
+              - torch.maximum(x1.gather(1, f), x1)).clamp(min=0)
+        ih = (torch.minimum(y2.gather(1, f), y2)
+              - torch.maximum(y1.gather(1, f), y1)).clamp(min=0)
+        inter = iw * ih
+        over = alive & ((inter / ((area.gather(1, f) + area) - inter) > thr)
+                        | (rows == f))
+        taken += int(over.sum())
+        alive &= ~over
+    return ious, taken
+
+
+def check_blend(gen):
+    """B5 against its plain version, bit for bit: the detect shape (8
+    frames of 896 rows), fewer rows than slots, and nothing valid."""
+    sd, sv = blend_inputs(gen, BLEND_B, BLEND_K)
+    small = blend_inputs(gen, 2, 10)
+    cases = [(sd, sv), small, (sd, torch.zeros_like(sv))]
+    err = 0.0
+    for d, v in cases:
+        got = ck.blend_nms(d, v, 0.3, BLEND_OUT)
+        ref = ck.blend_nms_plain(d, v, 0.3, BLEND_OUT)
+        torch.cuda.synchronize()
+        e = float((got[0] - ref[0]).abs().max())
+        err = max(err, e)
+        say(f"  blend_nms [{d.shape[0]}, {d.shape[1]}, 17]: "
+            f"{int(v.sum())} valid rows, {int(got[1].sum())} picks, "
+            f"max abs err {e}")
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError("blend_nms differs from its plain version")
+    ms = cuda_ms(lambda: ck.blend_nms(sd, sv, 0.3, BLEND_OUT), 50)
+    plain_ms = cuda_ms(lambda: ck.blend_nms_plain(sd, sv, 0.3, BLEND_OUT), 2)
+    ious, taken = blend_work(sd, sv, 0.3, BLEND_OUT)
+    # an IoU: 2 max, 2 min, 2 sub, 2 clamp, 1 mul, the other box's area
+    # (2 sub, 1 mul), add, sub, div, compare = 15; a taken row: a multiply
+    # and two adds a column, then a divide a column a slot
+    ops = ious * 15 + taken * 17 * 3 + BLEND_B * BLEND_OUT * 17
+    # what the function must read: every valid byte, the box (cols 0:4) of
+    # every valid row, the rest of each taken row; it writes the slots'
+    # rows and valid bytes
+    nbytes = (BLEND_B * BLEND_K + int(sv.sum()) * 16 + taken * (17 - 4) * 4
+              + BLEND_B * BLEND_OUT * (17 * 4 + 1))
+    say(f"  blend_nms bound: {ious} IoUs, {taken} taken rows, {nbytes} bytes"
+        f" read and written, {ops} operations")
+    return dict(
+        name="blend_nms", route="cuda",
+        source="face_detection_and_recognition_tpu_torch/csrc/blend_nms.cu",
+        replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:689",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
+                  else "operations"),
+        library_ms=None)
+
+
 def check_reference(name, fn, x):
     """``fn`` on the card against a copy of it on the CPU, on ``x``."""
     with torch.inference_mode():
@@ -336,7 +513,135 @@ def run_ensemble(eng, frames, card):
         f"{age.shape} {gender.shape}, detect_age_gender: {len(res)} faces, "
         f"labels {res.bbox_labels[:2]}")
     torch.cuda.synchronize()
+    return dict(ck.LAUNCHES), r
+
+
+def run_similarity(emb, card):
+    """The similarity main path: the ensemble's live embeddings searched
+    with ``topk_similar`` on both paths against a seeded numpy gallery of
+    IMDB-WIKI's size, then ``filter_embeddings`` on the card. Returns the
+    launch counts of this path alone."""
+    from face_detection_and_recognition_tpu_torch.pipelines import \
+        similarity as S
+
+    t = time.time()
+    gallery = np.random.default_rng(SEED + 3).standard_normal(
+        (TOPK_M, TOPK_D), dtype=np.float32)
+    say(f"  gallery [{TOPK_M}, {TOPK_D}] f32 ({gallery.nbytes / 2**30:.2f} "
+        f"GiB) drawn on the host in {time.time() - t:.2f} s; queries: "
+        f"{emb.shape[0]} live embeddings of the ensemble batch")
+    # what topk_similar spends on the host: its numpy normalisation, and
+    # the copy of the gallery to the card
+    t = time.time()
+    g = S.normalize_rows(gallery)
+    t_norm = time.time() - t
+    t = time.time()
+    torch.as_tensor(g, device="cuda")
+    torch.cuda.synchronize()
+    t_copy = time.time() - t
+    del g
+    for use_kernel in (True, False):
+        S.topk_similar(emb[:8], gallery[:4096], k=TOPK_K,
+                       use_pallas=use_kernel)  # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out = {}
+    for use_kernel in (True, False):
+        t = time.time()
+        out[use_kernel] = S.topk_similar(emb, gallery, k=TOPK_K,
+                                         use_pallas=use_kernel)
+        sec = time.time() - t
+        say(f"  topk_similar(k={TOPK_K}, use_pallas={use_kernel}): "
+            f"{sec * 1e3:.1f} ms on {card}, of which the host's "
+            f"normalisation ~{t_norm * 1e3:.1f} ms and the gallery's copy "
+            f"~{t_copy * 1e3:.1f} ms")
+    (ks, ki), (ms_, mi) = out[True], out[False]
+    far = ~close_ranks(torch.from_numpy(ks)).numpy()
+    mism = int((ki != mi)[far].sum())
+    if ks.shape != (emb.shape[0], TOPK_K) or not np.isfinite(ks).all():
+        raise AssertionError("topk_similar returned bad scores")
+    if mism or np.abs(ks - ms_).max() > TOPK_TOL:
+        raise AssertionError(f"the two search paths disagree: {mism} "
+                             "indices")
+    say(f"  both paths: equal indices at {int(far.sum())} of {far.size} "
+        f"ranks more than {TOPK_TOL} from a neighbour (the rest within it),"
+        f" max |score difference| {np.abs(ks - ms_).max():.2e}; best "
+        f"cosine {ks[:, 0].max():.4f}")
+    # up to 16 classes of 16 references from the first embeddings; the
+    # rest, each held to one class, are filtered (no reference row sits on
+    # its own class's threshold)
+    n_cls = max(1, min(16, emb.shape[0] // 32))
+    refs = [S.ClassReference(str(c), *S.ref_mean_and_threshold(
+        emb[c * 16:(c + 1) * 16])) for c in range(n_cls)]
+    probes = emb[n_cls * 16:]
+    ids = np.arange(probes.shape[0]) % n_cls
+    keep = S.filter_embeddings(probes, refs, ids)
+    keep_cpu = S.filter_embeddings(probes, refs, ids, device="cpu")
+    say(f"  filter_embeddings on the card: {int(keep.sum())} of {len(keep)}"
+        f" clean against {n_cls} classes, "
+        f"{int((keep != keep_cpu).sum())} differ from the CPU's")
+    if keep.shape != (probes.shape[0],) or (keep != keep_cpu).any():
+        raise AssertionError("filter_embeddings on the card is off")
+    torch.cuda.synchronize()
     return dict(ck.LAUNCHES)
+
+
+def run_blazeface(frames, singles, card):
+    """The BlazeFace main path: the back (256 x 256) and front (128 x 128)
+    detectors on the 8 frames and on single frames. Returns the launch
+    counts of this path alone."""
+    from face_detection_and_recognition_tpu_torch.models.blazeface import \
+        BlazeFaceConfig
+
+    t = time.time()
+    engines = {name: FaceEngine(EngineConfig(detector=name, seed=SEED))
+               for name in ("blazeface-back", "blazeface-front")}
+    say(f"  engines built in {time.time() - t:.1f} s")
+    ck.reset_launches()
+    for name, eng in engines.items():
+        cfg = BlazeFaceConfig(back_model=name == "blazeface-back",
+                              **eng.cfg.detector_overrides)
+        with torch.inference_mode():
+            raw = eng._network(eng._preprocess(eng._frames(frames)))[1]
+        raw = raw[..., 0].clamp(-cfg.score_clipping_thresh,
+                                cfg.score_clipping_thresh)
+        above = (torch.sigmoid(raw) >= cfg.min_score_thresh).sum(1)
+        picks = eng.detect_batch(frames, 0.0, 0.0).valid.sum(1)
+        say(f"  {name}: anchors above {cfg.min_score_thresh} a frame "
+            f"{above.tolist()} of 896; blend NMS picks {picks.tolist()}")
+        if not bool(((above > 0) & (above < 896)).all()):
+            raise AssertionError("every or no anchor passes: the blend NMS "
+                                 "would have nothing to do")
+        eng.detect_batch(frames)
+        torch.cuda.synchronize()
+        t = time.time()
+        reps = 5
+        for _ in range(reps):
+            dets = eng.detect_batch(frames)
+        torch.cuda.synchronize()
+        sec = (time.time() - t) / reps
+        want = {"boxes": (B, 16, 4), "scores": (B, 16), "lmarks": (B, 16, 12),
+                "valid": (B, 16)}
+        for field, shape in want.items():
+            arr = getattr(dets, field)
+            if tuple(arr.shape) != shape:
+                raise AssertionError(f"{name} {field} shape "
+                                     f"{tuple(arr.shape)}")
+            if field != "valid" and not bool(torch.isfinite(arr).all()):
+                raise AssertionError(f"{name}: non-finite {field}")
+        say(f"  {name} detect_batch: {B} x 576x1024 frames in "
+            f"{sec * 1e3:.2f} ms = {B / sec:.1f} frames/s on {card}; "
+            f"detections per frame {dets.valid.sum(1).tolist()}")
+        for i, img in enumerate(singles):
+            t = time.time()
+            res = eng.detect_image(img)
+            if not (np.isfinite(res.boxes).all()
+                    and res.boxes.shape[1:] == (4,)):
+                raise AssertionError("detect_image returned bad boxes")
+            say(f"  {name} detect_image request {i}: {len(res)} faces in "
+                f"{(time.time() - t) * 1e3:.2f} ms")
+    torch.cuda.synchronize()
+    return dict(ck.LAUNCHES), engines
 
 
 def main():
@@ -351,7 +656,8 @@ def main():
     say(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
     say(f"  kernels: {sorted(ck.LAUNCHES)} (B1 NMS keep mask, B2 candidate"
-        " row gather, B3 crop + bilinear resize), CUDA C++ for sm_90a")
+        " row gather, B3 crop + bilinear resize, B4 gallery top-k, B5"
+        " weighted-blend NMS), CUDA C++ for sm_90a")
     phase_end("environment")
 
     say("[build]")
@@ -368,7 +674,9 @@ def main():
     frames = rng.randint(0, 256, (B, 576, 1024, 3), np.uint8)
     singles = rng.randint(0, 256, (3, 540, 720, 3), np.uint8)
     kernels = [check_nms(gen), check_gather(gen),
-               check_crop(gen, torch.from_numpy(frames).cuda())]
+               check_crop(gen, torch.from_numpy(frames).cuda()),
+               check_topk(torch.Generator(device="cuda").manual_seed(SEED)),
+               check_blend(gen)]
     for k in kernels:
         say(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
@@ -426,12 +734,28 @@ def main():
                                   embedder="mobile_facenet",
                                   with_age_gender=True, seed=SEED))
     say(f"  engine built in {time.time() - t:.1f} s")
-    ensemble_launches = run_ensemble(ens, frames, card)
+    ensemble_launches, ens_result = run_ensemble(ens, frames, card)
     say(f"  launches on the ensemble path: {ensemble_launches}")
-    for name, n in ensemble_launches.items():
-        if n <= 0:
+    for name in ("nms_fixpoint", "rows_gather", "crop_resize"):
+        if ensemble_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
     phase_end("main path: ensemble")
+
+    say("[main path: similarity] the ensemble's embeddings against a "
+        "gallery")
+    emb = ens_result.embeddings[ens_result.det.valid].cpu().numpy()
+    similarity_launches = run_similarity(emb, card)
+    say(f"  launches on the similarity path: {similarity_launches}")
+    if similarity_launches["topk_gallery"] <= 0:
+        raise AssertionError("kernel topk_gallery never launched on the path")
+    phase_end("main path: similarity")
+
+    say("[main path: blazeface] BlazeFace back and front FaceEngines")
+    blaze_launches, blaze = run_blazeface(frames, singles, card)
+    say(f"  launches on the blazeface path: {blaze_launches}")
+    if blaze_launches["blend_nms"] <= 0:
+        raise AssertionError("kernel blend_nms never launched on the path")
+    phase_end("main path: blazeface")
 
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -444,13 +768,19 @@ def main():
         on(ens.ag_net, lambda m, x: [m.age(x.permute(0, 3, 1, 2)),
                                      m.gender(x.permute(0, 3, 1, 2))]),
         torch.rand((4, 227, 227, 3), generator=gen) * 255 - 100)
+    for name, eng in blaze.items():
+        side = eng.spec.input_size[0]
+        check_reference(f"{name} raw heads", on(eng.net),
+                        torch.rand((2, side, side, 3), generator=gen) * 2 - 1)
     phase_end("reference")
 
     # each path's counts were zeroed just before it and read just after;
     # launches is their sum, launches_by_path keeps them apart
     for k in kernels:
         by_path = {"detect": detect_launches[k["name"]],
-                   "ensemble": ensemble_launches[k["name"]]}
+                   "ensemble": ensemble_launches[k["name"]],
+                   "similarity": similarity_launches[k["name"]],
+                   "blazeface": blaze_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

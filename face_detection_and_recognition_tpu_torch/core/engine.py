@@ -97,7 +97,7 @@ class FaceEngine:
                 preprocess=dataclasses.replace(self.spec.preprocess,
                                                size=ov_size))
         generator = torch.Generator().manual_seed(cfg.seed)
-        self.net, self._detect = self.spec.build(generator, self.device,
+        self.net, self._decode = self.spec.build(generator, self.device,
                                                  **cfg.detector_overrides)
         # each stage draws from its own stream of the seed
         self.embed_spec = self.embed_net = None
@@ -134,6 +134,35 @@ class FaceEngine:
     def input_size(self) -> Tuple[int, int]:
         return self.spec.input_size
 
+    # ---------------- the detect stages ----------------
+
+    def _preprocess(self, imgs: torch.Tensor,
+                    spec_pre: Optional[P.PreprocessSpec] = None
+                    ) -> torch.Tensor:
+        """[B, H, W, 3] BGR uint8 frames on the device -> the detector's
+        input, by ``spec_pre`` (default: the detector's square recipe)."""
+        return P.apply_preprocess_batch(imgs,
+                                        spec_pre or self.spec.preprocess)
+
+    def _network(self, x: torch.Tensor):
+        """The detector net's raw heads on its preprocessed input, f32."""
+        with _full_f32(x.device):
+            return self.net(x)
+
+    def _detect(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Network, then decode + NMS: (dets [B, K, 4+L+1] normalized to
+        the input size, valid [B, K])."""
+        return self._decode(self._network(x), tuple(x.shape[1:3]))
+
+    def _postprocess(self, dets: torch.Tensor, valid: torch.Tensor,
+                     src_wh: Tuple[int, int], in_size: Tuple[int, int],
+                     det_thres: float, area_thres: float) -> Detections:
+        """The first ``max_det`` rows, thresholded and mapped back to the
+        source frames' pixels."""
+        k = self.cfg.max_det
+        return postprocess_detections(dets[:, :k], valid[:, :k], src_wh,
+                                      in_size, det_thres, area_thres)
+
     def _pipeline_for(self, shape: Tuple[int, int, int]) -> Callable:
         """Preprocess + detect + postprocess for one source resolution. The
         JAX package compiled and cached this per resolution
@@ -147,17 +176,13 @@ class FaceEngine:
             in_size = rect_letterbox_size((h, w), self.spec.input_size,
                                           self.spec.rect_stride)
             spec_pre = dataclasses.replace(spec_pre, size=in_size)
-        max_det = self.cfg.max_det
 
         def run(imgs: torch.Tensor, det_thres: float,
                 area_thres: float) -> Detections:
             with torch.inference_mode():
-                x = P.apply_preprocess_batch(imgs, spec_pre)
-                with _full_f32(imgs.device):
-                    dets, valid = self._detect(x)
-                return postprocess_detections(
-                    dets[:, :max_det], valid[:, :max_det], (w, h), in_size,
-                    det_thres, area_thres)
+                dets, valid = self._detect(self._preprocess(imgs, spec_pre))
+                return self._postprocess(dets, valid, (w, h), in_size,
+                                         det_thres, area_thres)
 
         return run
 
@@ -185,10 +210,8 @@ class FaceEngine:
         """Reference ``Model.__call__`` contract: [N, 4+L+1] normalized to
         the model input size, threshold-unfiltered (conf in last column)."""
         with torch.inference_mode():
-            x = P.apply_preprocess_batch(self._frames(img[None]),
-                                         self.spec.preprocess)
-            with _full_f32(self.device):
-                dets, valid = self._detect(x)
+            dets, valid = self._detect(self._preprocess(
+                self._frames(img[None])))
             return dets[0][valid[0]].cpu().numpy()
 
     # ---------------- the fused ensemble ----------------

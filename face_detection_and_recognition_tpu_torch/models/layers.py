@@ -1,10 +1,10 @@
-"""The yolov5-face building blocks as PyTorch modules.
+"""The yolov5-face, BlazeFace and MobileFaceNet building blocks as PyTorch
+modules.
 
-The counterparts of ``models/layers.py`` in the JAX package: the yolov5-face
-blocks and the MobileFaceNet blocks. Submodules carry
+The counterparts of ``models/layers.py`` in the JAX package. Submodules carry
 the reference torch names (``conv``/``bn``, ``cv1``..``cv3``, ``m``,
-``stem_*``), so a network's ``state_dict`` keys are those of a reference
-yolov5-face checkpoint. Tensors are NCHW; the network keeps them in the
+``stem_*``, ``convs``), so a network's ``state_dict`` keys are those of a
+reference checkpoint. Tensors are NCHW; the network keeps them in the
 channels-last memory format.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -151,6 +152,54 @@ class ShuffleV2Block(nn.Module):
         else:
             out = torch.cat([self.branch1(x), self.branch2(x)], 1)
         return channel_shuffle(out, 2)
+
+
+# ---------------- BlazeFace blocks ----------------
+
+
+def _blaze_convs(c_in: int, c_out: int, k: int, stride: int, pad: int
+                 ) -> nn.Sequential:
+    """Depthwise k x k conv, then 1x1 conv, both with bias (the TFLite
+    export folded BN into them): the reference's ``convs``."""
+    return nn.Sequential(
+        nn.Conv2d(c_in, c_in, k, stride, pad, groups=c_in, bias=True),
+        nn.Conv2d(c_in, c_out, 1, bias=True))
+
+
+class BlazeBlock(nn.Module):
+    """Depthwise-separable residual block with TFLite stride-2 padding.
+
+    Stride 2: the depthwise conv reads x padded by (0, 2, 0, 2) with no
+    padding of its own, and the residual is max-pooled 2x2; a channel
+    deficit of the residual is zero-padded."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 3, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.c_pad = c_out - c_in
+        self.convs = _blaze_convs(c_in, c_out, k, stride,
+                                  0 if stride == 2 else (k - 1) // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride == 2:
+            h, res = F.pad(x, (0, 2, 0, 2)), F.max_pool2d(x, 2, 2)
+        else:
+            h, res = x, x
+        if self.c_pad > 0:
+            res = F.pad(res, (0, 0, 0, 0, 0, self.c_pad))
+        return F.relu(self.convs(h) + res)
+
+
+class FinalBlazeBlock(nn.Module):
+    """Stride-2 separable block without residual (BlazeFace back's
+    ``final``)."""
+
+    def __init__(self, channels: int, k: int = 3):
+        super().__init__()
+        self.convs = _blaze_convs(channels, channels, k, 2, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.convs(F.pad(x, (0, 2, 0, 2))))
 
 
 # ---------------- MobileFaceNet blocks ----------------

@@ -1,7 +1,8 @@
 """Detector registry: one uniform build-and-detect interface.
 
 The counterpart of ``models/registry.py`` in the JAX package, with the
-detectors this port has so far (yolov5s, yolov5n, yolov5n-0.5). ``build``
+detectors this port has so far (yolov5s, yolov5n, yolov5n-0.5,
+blazeface-front, blazeface-back). ``build``
 returns the network and ``detect(imgs) -> (dets, valid)``, with detections
 in the normalized contract: rows [xmin, ymin, xmax, ymax, (lmk xy
 pairs...), conf] in [0, 1] wrt the model input size.
@@ -14,6 +15,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..ops import preprocess as P
+from .blazeface import BlazeFaceConfig, make_blazeface
 from .yolov5_face import (ARCHS, YoloV5FaceConfig, YoloV5FaceNet,
                           yolov5_face_detect_maps)
 
@@ -22,9 +24,9 @@ from .yolov5_face import (ARCHS, YoloV5FaceConfig, YoloV5FaceNet,
 class DetectorSpec:
     """A detector registry entry.
 
-    build(generator, device, **overrides) -> (net, detect) where
-    detect(imgs [B, h, w, 3] preprocessed) returns (dets [B, K, 4+L+1]
-    NORMALIZED to the input size, valid [B, K]).
+    build(generator, device, **overrides) -> (net, decode) where net(imgs
+    [B, h, w, 3] preprocessed) gives the raw heads and decode(raw, (h, w))
+    returns (dets [B, K, 4+L+1] NORMALIZED to the input size, valid [B, K]).
     """
 
     name: str
@@ -61,21 +63,21 @@ def _build_yolov5(arch: str, input_size):
         net = net.to(device=device, memory_format=torch.channels_last).eval()
         spec = ARCHS[arch]
 
-        def detect(imgs: torch.Tensor):
-            # normalize by the ACTUAL input dims: the same detect serves
+        def decode(maps, in_hw: Tuple[int, int]):
+            # normalize by the ACTUAL input dims: the same decode serves
             # square and rect letterbox resolutions
-            ih, iw = imgs.shape[1], imgs.shape[2]
+            ih, iw = in_hw
             scale = torch.tensor([iw, ih] * 7 + [1.0], dtype=torch.float32,
-                                 device=imgs.device)
+                                 device=maps[0].device)
             dets, valid = yolov5_face_detect_maps(
-                net(imgs), spec["anchors"], spec["strides"], cfg)
+                maps, spec["anchors"], spec["strides"], cfg)
             # [x1,y1,x2,y2,obj,lmk x10, cls] pixels ->
             # [x1,y1,x2,y2, lmk x10, obj] normalized
             cols = torch.cat([dets[..., :4], dets[..., 5:15], dets[..., 4:5]],
                              -1)
             return cols / scale, valid
 
-        return net, detect
+        return net, decode
 
     return build
 
@@ -88,3 +90,25 @@ for _arch in ("yolov5s", "yolov5n", "yolov5n-0.5"):
         build=_build_yolov5(_arch, (640, 640)),
         rect_stride=32,
     ))
+
+
+# ---------------- blazeface ----------------
+
+
+def _build_blazeface(back: bool):
+    def build(generator: torch.Generator, device: torch.device, **kw):
+        if kw.pop("input_size", None) is not None:
+            raise ValueError(
+                "blazeface input size is fixed by the architecture "
+                "(front 128x128 / back 256x256)")
+        # detections come out normalized, in the 17-column contract
+        return make_blazeface(BlazeFaceConfig(back_model=back, **kw),
+                              generator, device)
+
+    return build
+
+
+register(DetectorSpec("blazeface-front", (128, 128), P.BLAZEFACE_FRONT,
+                      _build_blazeface(False)))
+register(DetectorSpec("blazeface-back", (256, 256), P.BLAZEFACE_BACK,
+                      _build_blazeface(True)))

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels of the detect and ensemble paths, their plain
-PyTorch versions, and the build that turns ``csrc/*.cu`` into one shared
-library.
+"""The hand-written CUDA kernels of the port (the detect, ensemble,
+similarity and BlazeFace paths), their plain PyTorch versions, and the build
+that turns ``csrc/*.cu`` into one shared library.
 
 Each wrapper takes the plain version for tensors on the CPU (the tests) and
 launches its kernel for CUDA tensors; there is no fallback between the two.
@@ -17,6 +17,7 @@ launch, so this module imports on a machine without either.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import shutil
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
-LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0}
+LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0,
+            "topk_gallery": 0, "blend_nms": 0}
 
 _LIB = []  # the loaded library, once built
 
@@ -103,6 +105,12 @@ def _lib():
         lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
                                            i, i, p]
         lib.crop_resize_launch.restype = i
+        lib.topk_gallery_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            p]
+        lib.topk_gallery_launch.restype = i
+        lib.blend_nms_launch.argtypes = [p, p, p, p, i, i, i, ctypes.c_float,
+                                         i, p]
+        lib.blend_nms_launch.restype = i
         lib.kernels_error_string.argtypes = [i]
         lib.kernels_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -390,3 +398,191 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
     _check(err, "crop_resize")
     LAUNCHES["crop_resize"] += 1
     return out
+
+
+# ---------------- B4: streaming gallery top-k ----------------
+
+TOPK_MAX_K = 16        # the largest k that topk_gallery takes
+_TOPK_TILE = 64        # queries of a CTA, gallery rows of a tile
+
+
+@functools.lru_cache(maxsize=None)
+def _topk_ctas(device_index: int) -> int:
+    """Launch-1 CTAs to aim for on a card: four a streaming
+    multiprocessor."""
+    return 4 * torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+def topk_gallery_plain(queries: torch.Tensor, gallery: torch.Tensor, k: int,
+                       chunk: int = 65536
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best inner products of each query, the function of
+    ``topk_gallery_pallas``: scores summed from 0 over d = 0 .. D-1, each
+    product and each sum rounded once; order (score desc, index asc); a
+    score must beat the empty slot's -1e30 to enter, and an empty slot
+    reads (-1e30, 0). The gallery streams through in ``chunk``-row pieces,
+    each merged into the running list by a stable sort (the running list
+    first, so equal scores keep the smaller index).
+
+    queries: [N, D] f32; gallery: [M, D] f32. Returns (scores [N, k] f32,
+    indices [N, k] int32)."""
+    n, d = queries.shape
+    dev = queries.device
+    run_s = torch.full((n, k), -1e30, dtype=torch.float32, device=dev)
+    run_i = torch.full((n, k), -1, dtype=torch.int64, device=dev)
+    for m0 in range(0, gallery.shape[0], chunk):
+        gt = gallery[m0:m0 + chunk].t().contiguous()         # [D, mc]
+        acc = torch.zeros((n, gt.shape[1]), dtype=torch.float32, device=dev)
+        prod = torch.empty_like(acc)
+        for j in range(d):
+            torch.mul(queries[:, j:j + 1], gt[j], out=prod)
+            acc.add_(prod)
+        idx = torch.arange(m0, m0 + gt.shape[1], device=dev).expand_as(acc)
+        s, i = torch.cat([run_s, acc], 1), torch.cat([run_i, idx], 1)
+        order = torch.sort(s, dim=1, descending=True, stable=True).indices
+        run_s = torch.take_along_dim(s, order[:, :k], 1)
+        run_i = torch.take_along_dim(i, order[:, :k], 1)
+    return run_s, run_i.clamp(min=0).to(torch.int32)
+
+
+def topk_gallery(queries: torch.Tensor, gallery: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k inner-product search of [N, D] queries against an [M, D]
+    gallery without forming the [N, M] scores (``csrc/topk_gallery.cu``,
+    two launches). The port of ``topk_gallery_pallas``; equal bit for bit
+    to ``topk_gallery_plain``.
+
+    queries, gallery: f32, contiguous; 1 <= k <= ``TOPK_MAX_K``. Returns
+    (scores [N, k] f32 descending, indices [N, k] int32)."""
+    if not 1 <= k <= TOPK_MAX_K:
+        raise ValueError(f"topk_gallery: k = {k} outside 1..{TOPK_MAX_K}")
+    if queries.device.type == "cpu":
+        return topk_gallery_plain(queries, gallery, k)
+    _require_cuda("topk_gallery", queries, gallery)
+    if queries.dtype != torch.float32 or gallery.dtype != torch.float32 \
+            or queries.dim() != 2 or gallery.dim() != 2 \
+            or queries.shape[1] != gallery.shape[1]:
+        raise ValueError(f"topk_gallery: f32 [N, D] and [M, D] expected, got "
+                         f"{tuple(queries.shape)} {queries.dtype} and "
+                         f"{tuple(gallery.shape)} {gallery.dtype}")
+    (n, d), m = queries.shape, gallery.shape[0]
+    q_tiles = -(-n // _TOPK_TILE)
+    # grid.y holds the query tiles; the kernel's row offsets are int32
+    if q_tiles > 65535 or m >= 2 ** 31 - 2 ** 20:
+        raise ValueError(f"topk_gallery: N = {n} or M = {m} too large")
+    tiles = -(-m // _TOPK_TILE)
+    chunks = max(1, min(tiles, -(-_topk_ctas(queries.device.index)
+                                    // max(q_tiles, 1))))
+    per_chunk = max(1, -(-tiles // chunks))
+    n_parts = 4 * max(1, -(-tiles // per_chunk))
+    part_s = torch.empty((n, n_parts, k), dtype=torch.float32,
+                         device=queries.device)
+    part_i = torch.empty((n, n_parts, k), dtype=torch.int32,
+                         device=queries.device)
+    scores = torch.empty((n, k), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((n, k), dtype=torch.int32, device=queries.device)
+    err = _lib().topk_gallery_launch(
+        queries.data_ptr(), gallery.data_ptr(), part_s.data_ptr(),
+        part_i.data_ptr(), scores.data_ptr(), idx.data_ptr(), n, m, d, k,
+        per_chunk, _stream(queries))
+    _check(err, "topk_gallery")
+    LAUNCHES["topk_gallery"] += 1
+    return scores, idx
+
+
+# ---------------- B5: weighted-blend NMS ----------------
+
+BLEND_MAX_ROWS = 2048  # the K cap of blend_nms, the Pallas version's
+
+
+def blend_nms_plain(sdets: torch.Tensor, svalid: torch.Tensor,
+                    iou_thres: float, max_out: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BlazeFace's weighted-blend NMS over score-sorted rows: the fori loop
+    of the JAX package's ``ops/nms.py:187-223``, every image at once.
+
+    Slot s picks the first alive row and takes every alive row whose
+    jaccard IoU with it (cols 0:4 are [ymin, xmin, ymax, xmax]) is above
+    ``iou_thres``, and the row itself. With n > 1 taken rows the slot's
+    coords are sum(coord * score) / sum(score) and its score
+    sum(score) / n, both sums adding the taken rows one by one in score
+    order; with n = 1 the row is copied. Slots past the last pick are zero
+    rows with valid False.
+
+    sdets: [B, K, D] f32 sorted by score (col D-1) descending; svalid:
+    [B, K] bool. Returns (rows [B, max_out, D], valid [B, max_out])."""
+    b, k, d = sdets.shape
+    dev = sdets.device
+    y1, x1, y2, x2 = sdets[..., :4].unbind(-1)
+    area = (x2 - x1) * (y2 - y1)
+    rows = torch.arange(k, device=dev)
+    alive = svalid.clone()
+    taken = torch.zeros((b, max_out, k), dtype=torch.bool, device=dev)
+    out_valid = torch.zeros((b, max_out), dtype=torch.bool, device=dev)
+    for slot in range(min(max_out, k)):
+        has = alive.any(1)
+        if not bool(has.any()):
+            break
+        first = alive.to(torch.uint8).argmax(1, keepdim=True)  # first alive
+        fx1, fy1, fx2, fy2, fa = (t.gather(1, first)
+                                  for t in (x1, y1, x2, y2, area))
+        iw = (torch.minimum(fx2, x2) - torch.maximum(fx1, x1)).clamp(min=0.0)
+        ih = (torch.minimum(fy2, y2) - torch.maximum(fy1, y1)).clamp(min=0.0)
+        inter = iw * ih
+        iou = inter / ((fa + area) - inter)
+        over = alive & ((iou > iou_thres) | (rows == first))
+        taken[:, slot] = over
+        alive &= ~over
+        out_valid[:, slot] = has
+    score = sdets[..., -1]
+    total = torch.zeros((b, max_out), dtype=torch.float32, device=dev)
+    num = torch.zeros((b, max_out, d), dtype=torch.float32, device=dev)
+    # rows no slot took add +0 to every sum, which changes none of them
+    for j in taken.any(1).any(0).nonzero()[:, 0].tolist():
+        t = taken[:, :, j]
+        w = score[:, j:j + 1]
+        total = total + torch.where(t, w, 0.0)
+        num = num + torch.where(t[..., None], (sdets[:, j] * w)[:, None], 0.0)
+    n = taken.sum(2)
+    blended = num / total[..., None]
+    blended[..., -1] = total / n
+    single = torch.take_along_dim(
+        sdets, taken.to(torch.uint8).argmax(2)[..., None], 1)
+    out = torch.where((n == 1)[..., None], single, blended)
+    return torch.where(out_valid[..., None], out, 0.0), out_valid
+
+
+def blend_nms(sdets: torch.Tensor, svalid: torch.Tensor, iou_thres: float,
+              max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted-blend NMS of every image in one launch, one CTA an image
+    (``csrc/blend_nms.cu``). The port of ``weighted_blend_nms_pallas``, to
+    the function of the f32 fori loop; equal bit for bit to
+    ``blend_nms_plain``.
+
+    sdets: [B, K, D] f32 score-sorted rows (score in col D-1, D >= 5,
+    K <= ``BLEND_MAX_ROWS``); svalid: [B, K] bool. Returns (rows
+    [B, max_out, D] f32, valid [B, max_out] bool)."""
+    if sdets.device.type == "cpu":
+        return blend_nms_plain(sdets, svalid, iou_thres, max_out)
+    _require_cuda("blend_nms", sdets, svalid)
+    if sdets.dtype != torch.float32 or svalid.dtype != torch.bool \
+            or sdets.dim() != 3 or svalid.shape != sdets.shape[:2]:
+        raise ValueError(f"blend_nms: f32 [B, K, D] and bool [B, K] "
+                         f"expected, got {tuple(sdets.shape)} {sdets.dtype} "
+                         f"and {tuple(svalid.shape)} {svalid.dtype}")
+    b, k, d = sdets.shape
+    if k > BLEND_MAX_ROWS or d < 5:
+        raise ValueError(f"blend_nms: K = {k} (at most {BLEND_MAX_ROWS}) or "
+                         f"D = {d} (at least 5) out of range")
+    out = torch.empty((b, max_out, d), dtype=torch.float32,
+                      device=sdets.device)
+    out_valid = torch.empty((b, max_out), dtype=torch.bool,
+                            device=sdets.device)
+    err = _lib().blend_nms_launch(
+        sdets.data_ptr(), svalid.data_ptr(), out.data_ptr(),
+        out_valid.data_ptr(), b, k, d, float(iou_thres), int(max_out),
+        _stream(sdets))
+    _check(err, "blend_nms")
+    LAUNCHES["blend_nms"] += 1
+    return out, out_valid

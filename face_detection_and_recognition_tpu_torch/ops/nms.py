@@ -1,9 +1,11 @@
-"""Greedy hard NMS over fixed-size, masked detections.
+"""Greedy hard NMS and BlazeFace's weighted-blend NMS over fixed-size,
+masked detections.
 
 The counterpart of ``ops/nms.py`` in the JAX package. Detections stay at a
-static K with a validity mask; the keep mask comes from ``nms_fixpoint``
-(the CUDA kernel for CUDA tensors, its plain version on the CPU). Functions
-take one image ([K, ...]) or a batch ([B, K, ...]).
+static K with a validity mask; the keep mask comes from ``nms_fixpoint`` and
+the blended rows from ``blend_nms`` (the CUDA kernels for CUDA tensors, their
+plain versions on the CPU). Functions take one image ([K, ...]) or a batch
+([B, K, ...]).
 
 ``jnp.argsort`` is stable, and ties decide greedy NMS, so every sort here is
 ``stable=True``.
@@ -14,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_kernels import nms_fixpoint
+from .cuda_kernels import blend_nms, nms_fixpoint
 
 NEG_INF = -1e30
 
@@ -71,3 +73,26 @@ def greedy_nms(dets: torch.Tensor, valid: torch.Tensor, iou_thres: float,
                            plus1=plus1, strict=strict, mode=mode)
     _, _, kvalid, kdets = sort_by_score(scores, keep, dets, top=max_out)
     return kdets, kvalid
+
+
+def weighted_blend_nms(dets: torch.Tensor, valid: torch.Tensor,
+                       iou_thres: float = 0.3, max_out: int = 16
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BlazeFace weighted-blend NMS (the reference's ``blazeface.py:404-458``).
+
+    Each output row is the score-weighted mean of the remaining detections
+    whose IoU with the current best one exceeds ``iou_thres`` (the best one
+    always included), with the mean of their scores as its confidence; a
+    lone detection is kept as it is.
+
+    dets: [(B,) K, D] f32 rows [coords..., score], score LAST, every coord
+    blended, cols 0:4 a box ([ymin, xmin, ymax, xmax]); valid: [(B,) K].
+    Returns (out [(B,) max_out, D], out_valid [(B,) max_out]): zero rows
+    with valid False past the last pick, also when K < max_out."""
+    single = dets.dim() == 2
+    if single:
+        dets, valid = dets[None], valid[None]
+    _, _, svalid, sdets = sort_by_score(dets[..., -1], valid, dets)
+    out, out_valid = blend_nms(sdets.contiguous(), svalid.contiguous(),
+                               iou_thres, max_out)
+    return (out[0], out_valid[0]) if single else (out, out_valid)

@@ -39,6 +39,11 @@ class PreprocessSpec:
 
 
 YOLOV5_FACE = PreprocessSpec(size=(640, 640), bgr_to_rgb=True, scale=1 / 255.0)
+BLAZEFACE_FRONT = PreprocessSpec(
+    size=(128, 128), bgr_to_rgb=True, scale=1 / 127.5,
+    mean=(127.5, 127.5, 127.5)
+)
+BLAZEFACE_BACK = dataclasses.replace(BLAZEFACE_FRONT, size=(256, 256))
 AGE_GENDER = PreprocessSpec(
     size=(227, 227),
     resize="stretch",

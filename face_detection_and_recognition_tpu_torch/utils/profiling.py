@@ -1,18 +1,24 @@
-"""Where the detect and ensemble paths' time goes on the card.
+"""Where the detect, ensemble, BlazeFace and similarity paths' time goes on
+the card.
 
     python3 -m face_detection_and_recognition_tpu_torch.utils.profiling
 
-Builds the yolov5s ``FaceEngine`` with seeded weights, as ``chip_smoke.py``
-does, and for one batch of 8 seeded 576x1024 frames prints
+Builds the engines with seeded weights, as ``chip_smoke.py`` does, and for
+one batch of 8 seeded 576x1024 frames prints
 
-- the device time of each detect stage (frame upload, preprocess, network,
-  candidates-first decode + NMS, postprocess), between CUDA events;
+- the device time of each yolov5s detect stage (frame upload, preprocess,
+  network, candidates-first decode + NMS, postprocess), between CUDA events;
 - the device time of each ensemble stage (detect, 112x112 crops,
   MobileFaceNet, 227x227 crops, the age/gender heads) with every NMS
   survivor live, as ``chip_smoke.py`` drives it;
-- for ``detect_batch`` and ``detect_embed_classify_batch``, the kernels
-  with the most device time, from ``torch.profiler``, and the device's busy
-  and idle share of the window.
+- the device time of each BlazeFace detect stage (preprocess, network,
+  decode + blend NMS, postprocess), back and front;
+- ``topk_similar`` of 512 queries against a 524,288 x 512 gallery on both
+  search paths: the host's normalisation and copy, and the device's search;
+- for ``detect_batch`` (yolov5s and BlazeFace back) and
+  ``detect_embed_classify_batch``, the kernels with the most device time,
+  from ``torch.profiler``, and the device's busy and idle share of the
+  window.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -24,11 +30,10 @@ import time
 import numpy as np
 import torch
 
-from ..core.detections import postprocess_detections
-from ..core.engine import AG_HW, EngineConfig, FaceEngine, _full_f32
-from ..models.yolov5_face import (ARCHS, YoloV5FaceConfig,
-                                   yolov5_face_detect_maps)
-from ..ops.preprocess import apply_preprocess_batch
+from ..core.engine import AG_HW, EngineConfig, FaceEngine
+from ..ops.cuda_kernels import topk_gallery
+from ..pipelines.similarity import (_f32_matmul, _topk_stable,
+                                   normalize_rows, topk_similar)
 
 B, H, W = 8, 576, 1024
 ITERS = 20
@@ -49,30 +54,27 @@ def cuda_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def stage_breakdown(eng: FaceEngine, frames: np.ndarray) -> dict:
+def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
     """Device milliseconds of each stage of ``eng.detect_batch`` (square
-    letterbox), each timed alone on the same inputs."""
-    spec = ARCHS[eng.cfg.detector]
-    det_cfg = YoloV5FaceConfig(arch=eng.cfg.detector)
-    scale = torch.tensor([640.0, 640.0] * 7 + [1.0], device=eng.device)
+    letterbox, the engine's own thresholds), each timed alone on the same
+    inputs through the engine's stage methods."""
+    h, w = frames.shape[1:3]
+    side = eng.spec.input_size
+    dt, at = eng.cfg.det_thres, eng.cfg.bbox_area_thres
     imgs = torch.from_numpy(frames).to(eng.device)
     out = {}
-    with torch.inference_mode(), _full_f32(eng.device):
+    with torch.inference_mode():
         out["upload"] = cuda_ms(lambda: torch.from_numpy(frames).to(
             eng.device))
-        x = apply_preprocess_batch(imgs, eng.spec.preprocess)
-        out["preprocess"] = cuda_ms(
-            lambda: apply_preprocess_batch(imgs, eng.spec.preprocess))
-        maps = eng.net(x)
-        out["network"] = cuda_ms(lambda: eng.net(x))
-        dets, valid = yolov5_face_detect_maps(maps, spec["anchors"],
-                                              spec["strides"], det_cfg)
-        out["decode+nms"] = cuda_ms(lambda: yolov5_face_detect_maps(
-            maps, spec["anchors"], spec["strides"], det_cfg))
-        cols = torch.cat([dets[..., :4], dets[..., 5:15], dets[..., 4:5]], -1)
-        out["postprocess"] = cuda_ms(lambda: postprocess_detections(
-            cols[:, :64] / scale, valid[:, :64], (W, H), (640, 640), 0.7,
-            0.12))
+        x = eng._preprocess(imgs)
+        out["preprocess"] = cuda_ms(lambda: eng._preprocess(imgs))
+        raw = eng._network(x)
+        out["network"] = cuda_ms(lambda: eng._network(x))
+        hw = tuple(x.shape[1:3])
+        dets, valid = eng._decode(raw, hw)
+        out["decode+nms"] = cuda_ms(lambda: eng._decode(raw, hw))
+        out["postprocess"] = cuda_ms(lambda: eng._postprocess(
+            dets, valid, (w, h), side, dt, at))
         out["detect_batch"] = cuda_ms(lambda: eng.detect_batch(frames))
     return out
 
@@ -102,6 +104,37 @@ def ensemble_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
         out["ensemble"] = cuda_ms(lambda: eng.detect_embed_classify_batch(
             frames, det_thres=0.0, bbox_area_thres=0.0))
     return out, k_live
+
+
+def similarity_stages(n: int = 512, m: int = 524288, d: int = 512,
+                      k: int = 5) -> dict:
+    """Milliseconds of ``topk_similar`` on both search paths: the host's
+    normalisation and the gallery's copy (host clock), the search on the
+    card (CUDA events), and the whole call (host clock)."""
+    rng = np.random.default_rng(3)
+    emb = rng.standard_normal((n, d), dtype=np.float32)
+    gallery = rng.standard_normal((m, d), dtype=np.float32)
+    out = {}
+    t = time.perf_counter()
+    g = normalize_rows(gallery)
+    out["host normalise"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    gt = torch.as_tensor(g, device="cuda")
+    torch.cuda.synchronize()
+    out["gallery copy"] = (time.perf_counter() - t) * 1e3
+    et = torch.as_tensor(normalize_rows(emb), device="cuda")
+    with torch.inference_mode():
+        out["search, kernel"] = cuda_ms(lambda: topk_gallery(et, gt, k), 5)
+        with _f32_matmul():
+            out["search, matmul"] = cuda_ms(
+                lambda: _topk_stable(et @ gt.T, k), 5)
+    for use_kernel in (True, False):
+        topk_similar(emb[:8], gallery[:4096], k, use_pallas=use_kernel)
+        t = time.perf_counter()
+        topk_similar(emb, gallery, k, use_pallas=use_kernel)
+        out[f"call, use_pallas={use_kernel}"] = \
+            (time.perf_counter() - t) * 1e3
+    return out
 
 
 def kernel_breakdown(run, top: int = 12):
@@ -140,7 +173,7 @@ def main() -> None:
     eng = FaceEngine(EngineConfig(detector="yolov5s"))
     frames = np.random.RandomState(0).randint(0, 256, (B, H, W, 3), np.uint8)
     print(f"stage device ms, B={B} frames {H}x{W}, square 640x640:")
-    for name, ms in stage_breakdown(eng, frames).items():
+    for name, ms in detect_stages(eng, frames).items():
         print(f"  {name:<13} {ms:9.4f}")
     ens = FaceEngine(EngineConfig(detector="yolov5s",
                                   embedder="mobile_facenet",
@@ -150,8 +183,20 @@ def main() -> None:
           f"survivor live, k_live={k_live} of {ens.cfg.max_det} slots:")
     for name, ms in stages.items():
         print(f"  {name:<13} {ms:9.4f}")
+    blaze = FaceEngine(EngineConfig(detector="blazeface-back"))
+    for detector in ("blazeface-back", "blazeface-front"):
+        beng = (blaze if detector == "blazeface-back"
+                else FaceEngine(EngineConfig(detector=detector)))
+        print(f"{detector} stage device ms, B={B} frames {H}x{W}:")
+        for name, ms in detect_stages(beng, frames).items():
+            print(f"  {name:<13} {ms:9.4f}")
+    print("topk_similar, 512 queries x 524288 x 512 gallery, k=5, ms:")
+    for name, ms in similarity_stages().items():
+        print(f"  {name:<24} {ms:9.3f}")
     for label, run in (
             ("detect_batch", lambda: eng.detect_batch(frames)),
+            ("blazeface-back detect_batch",
+             lambda: blaze.detect_batch(frames)),
             ("detect_embed_classify_batch",
              lambda: ens.detect_embed_classify_batch(
                  frames, det_thres=0.0, bbox_area_thres=0.0))):

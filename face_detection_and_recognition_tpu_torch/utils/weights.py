@@ -1,9 +1,10 @@
 """Weight bridge: a flax variables tree of numpy arrays -> a PyTorch
-state_dict, for the yolov5-face detectors, MobileFaceNet and the age/gender
-heads.
+state_dict, for the yolov5-face and BlazeFace detectors, MobileFaceNet and
+the age/gender heads.
 
-The inverse of ``convert_yolov5_face`` / ``convert_mobile_facenet`` /
-``convert_caffenet_head`` in the JAX package's ``utils/weights.py``: flax
+The inverse of ``convert_yolov5_face`` / ``convert_blazeface`` /
+``convert_mobile_facenet`` / ``convert_caffenet_head`` in the JAX package's
+``utils/weights.py``: flax
 names layers ``layer{i}`` with ``ConvBN_k`` / ``Bottleneck_k`` children; the
 port's modules carry the reference torch names (``model.{i}.cv1.conv``...). Conv kernels go HWIO -> OIHW; flax BatchNorm
 ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` become ``weight``,
@@ -93,6 +94,41 @@ def yolov5_face_state_dict(variables: Mapping, arch: str
                 det = params[f"detect_m{li}"]
                 sd[f"{t}.m.{li}.weight"] = f2t_conv(det["kernel"])
                 sd[f"{t}.m.{li}.bias"] = _t(det["bias"])
+    return sd
+
+
+def blazeface_state_dict(variables: Mapping, back_model: bool
+                         ) -> Dict[str, torch.Tensor]:
+    """Map a flax ``BlazeFaceNet`` tree {"params": ...} of numpy arrays onto
+    the port's ``BlazeFaceNet(back_model)`` state_dict (the reference torch
+    names): ``conv0`` -> the backbone's first conv, ``BlazeBlock_i`` ->
+    ``backbone.{i + 2}`` (back) or ``backbone1.{i + 2}`` / ``backbone2.{i -
+    11}`` (front), ``FinalBlazeBlock_0`` -> ``final``, the heads by name."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(tp: str, p: Mapping) -> None:
+        sd[f"{tp}.weight"] = f2t_conv(p["kernel"])
+        sd[f"{tp}.bias"] = _t(p["bias"])
+
+    def block(tp: str, p: Mapping) -> None:
+        conv(f"{tp}.convs.0", p["Conv_0"])
+        conv(f"{tp}.convs.1", p["Conv_1"])
+
+    if back_model:
+        conv("backbone.0", params["conv0"])
+        for i in range(31):
+            block(f"backbone.{i + 2}", params[f"BlazeBlock_{i}"])
+        block("final", params["FinalBlazeBlock_0"])
+    else:
+        conv("backbone1.0", params["conv0"])
+        for i in range(11):
+            block(f"backbone1.{i + 2}", params[f"BlazeBlock_{i}"])
+        for i in range(5):
+            block(f"backbone2.{i}", params[f"BlazeBlock_{11 + i}"])
+    for head in ("classifier_8", "classifier_16", "regressor_8",
+                 "regressor_16"):
+        conv(head, params[head])
     return sd
 
 

@@ -185,6 +185,37 @@ def test_ensemble_matches_jax_engine(engines):
         assert (t.numpy()[0][~valid] == 0).all()
 
 
+def test_ensemble_batch_rect_offsets_match_jax(golden):
+    """B = 2 (the golden image and its mirror), rect letterbox, 64 x 48 raw
+    crops and the extraction offsets: the port's fused batch against the
+    JAX engine's, on golden weights."""
+    kw = dict(detector="yolov5s", embedder="mobile_facenet", rect=True,
+              max_det=MAX_DET)
+    jeng = JFaceEngine(JEngineConfig(**kw))
+    jeng.variables = golden["det"]
+    jeng.embed_vars = golden["embed"]
+    teng = FaceEngine(EngineConfig(**kw), device="cpu")
+    teng.load_state_dict(yolov5_face_state_dict(golden["det"], "yolov5s"))
+    teng.load_embed_state_dict(mobile_facenet_state_dict(golden["embed"]))
+    img = cv2.imread(IMG)
+    batch = np.stack([img, np.ascontiguousarray(img[:, ::-1])])
+    call = dict(det_thres=0.3, crop_size=(64, 48),
+                embed_offsets=JC.EXTRACTION_OFFSETS)
+    ref = jeng.detect_embed_classify_batch(batch, **call)
+    got = teng.detect_embed_classify_batch(batch, **call)
+    valid = np.asarray(ref.det.valid)
+    np.testing.assert_array_equal(got.det.valid.numpy(), valid)
+    assert (valid.sum(1) >= 3).all()
+    np.testing.assert_array_equal(got.det.boxes.numpy()[valid],
+                                  np.asarray(ref.det.boxes)[valid])
+    assert tuple(got.crops.shape) == (2, MAX_DET, 64, 48, 3)
+    # pixel values to 255: two f32 ulps there
+    np.testing.assert_allclose(got.crops.numpy(), np.asarray(ref.crops),
+                               rtol=0, atol=3.1e-5)
+    np.testing.assert_allclose(got.embeddings.numpy(),
+                               np.asarray(ref.embeddings), rtol=0, atol=1e-5)
+
+
 def test_staged_entry_points_match_jax(engines):
     jeng, teng = engines
     rng = np.random.RandomState(13)

@@ -34,12 +34,14 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
-    # ops, models, core, utils and their modules were all imported
+    # ops, models, core, utils, pipelines and their modules were all
+    # imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 21, out.stdout
+    assert n >= 24, out.stdout
     names = out.stdout.split("NAMES ")[1].split()
     for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
-                "models.embedders"):
+                "models.embedders", "models.blazeface", "pipelines",
+                "pipelines.similarity"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 
@@ -53,3 +55,21 @@ def test_engine_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FaceEngine(EngineConfig(), device="cuda")
     assert FaceEngine(EngineConfig(), device="cpu").device.type == "cpu"
+
+
+def test_similarity_entry_points_raise_without_cuda(monkeypatch):
+    import numpy as np
+
+    from face_detection_and_recognition_tpu_torch.pipelines import \
+        similarity as S
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    e = np.eye(4, dtype=np.float32)
+    refs = [S.ClassReference("a", e[0], 0.5)]
+    for call in (lambda: S.topk_similar(e, e, k=2),
+                 lambda: S.topk_similar(e, e, k=2, use_pallas=True),
+                 lambda: S.filter_embeddings(e, refs),
+                 lambda: S.SimilarFaceFilter(lambda p: e)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert S.topk_similar(e, e, k=2, device="cpu")[1].shape == (4, 2)

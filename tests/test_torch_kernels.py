@@ -1,5 +1,6 @@
-"""The plain versions of the port's two CUDA kernels against the Pallas
-kernels they replace (interpret mode, CPU), and the wrappers' CPU path.
+"""The plain versions of the port's CUDA kernels against the Pallas kernels
+they replace (interpret mode, CPU) and the JAX package's jnp paths, and the
+wrappers' CPU path.
 
 The kernels themselves run only on the card; ``chip_smoke.py`` holds each
 against its plain version there."""
@@ -14,7 +15,8 @@ import torch
 
 from face_detection_and_recognition_tpu.ops import nms as JN
 from face_detection_and_recognition_tpu.ops.pallas_kernels import (
-    candidate_rows_gather_pallas, nms_fixpoint_pallas)
+    candidate_rows_gather_pallas, nms_fixpoint_pallas, topk_gallery_pallas,
+    weighted_blend_nms_pallas)
 from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
 from tests.test_nms import random_boxes
 
@@ -99,10 +101,159 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     torch.testing.assert_close(ck.rows_gather(levels, idx),
                                ck.rows_gather_plain(levels, idx),
                                rtol=0, atol=0)
+    q = torch.from_numpy(rng.normal(0, 1, (3, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (50, 8)).astype(np.float32))
+    for got, ref in zip(ck.topk_gallery(q, g, 4),
+                        ck.topk_gallery_plain(q, g, 4)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    sd, sv = (torch.from_numpy(a)[None] for a in _blend_case(rng, 32))
+    for got, ref in zip(ck.blend_nms(sd, sv, 0.3, 8),
+                        ck.blend_nms_plain(sd, sv, 0.3, 8)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     # the CPU path launches nothing and builds nothing
     assert ck.LAUNCHES == {"nms_fixpoint": 0, "rows_gather": 0,
-                           "crop_resize": 0}
+                           "crop_resize": 0, "topk_gallery": 0,
+                           "blend_nms": 0}
     assert ck._LIB == []
+    # the wrapper's k cap holds on every device
+    with pytest.raises(ValueError, match="outside"):
+        ck.topk_gallery(q, g, ck.TOPK_MAX_K + 1)
+
+
+# ---------------- B4: streaming gallery top-k ----------------
+
+
+def _gallery_case(rng, n, m, d, negative=False, dup=False):
+    q = rng.normal(0, 1, (n, d)).astype(np.float32)
+    g = rng.normal(0, 1, (m, d)).astype(np.float32)
+    if negative:  # every score below 0: pad rows (0) must not displace them
+        q = np.abs(q)
+        g = -np.abs(g)
+    if dup:  # exact ties: the smaller gallery index must come first
+        g[m // 2] = g[3]
+        g[m - 1] = g[3]
+        g[m // 3] = g[m // 4]
+    return q, g
+
+
+# (n, m, d, k, block_m, case): several block sizes, M not a block
+# multiple, negative scores, M < k, exact ties
+TOPK_CASES = [
+    (8, 1024, 32, 8, 256, {}),
+    (5, 1000, 24, 5, 128, {"dup": True}),
+    (4, 300, 16, 5, 64, {"dup": True}),
+    (2, 100, 8, 4, 64, {"negative": True}),
+    (3, 3, 16, 5, 64, {}),
+    (6, 777, 40, 1, 512, {"dup": True}),
+]
+
+
+@pytest.mark.parametrize("n,m,d,k,block_m,case", TOPK_CASES)
+def test_topk_gallery_plain_equals_pallas(n, m, d, k, block_m, case):
+    q, g = _gallery_case(np.random.RandomState(n * m), n, m, d, **case)
+    ref_s, ref_i = topk_gallery_pallas(q, g, k=k, block_m=block_m,
+                                       interpret=True)
+    got_s, got_i = ck.topk_gallery_plain(torch.from_numpy(q),
+                                         torch.from_numpy(g), k, chunk=256)
+    assert got_i.dtype == torch.int32 and tuple(got_s.shape) == (n, k)
+    # decisions exactly; scores are d-term f32 sums in another order
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=1e-6,
+                               atol=1e-5)
+    if m < k:  # the tail of the Pallas kernel: (-1e30, 0)
+        assert (got_s.numpy()[:, m:] == np.float32(-1e30)).all()
+        assert (got_i.numpy()[:, m:] == 0).all()
+
+
+def test_topk_gallery_plain_chunks_do_not_change_it():
+    """The streaming chunk is not part of the function: any chunk gives the
+    same scores bit for bit, and the same indices."""
+    q, g = _gallery_case(np.random.RandomState(5), 4, 500, 16, dup=True)
+    q, g = torch.from_numpy(q), torch.from_numpy(g)
+    ref = ck.topk_gallery_plain(q, g, 7, chunk=500)
+    for chunk in (1, 64, 333):
+        got = ck.topk_gallery_plain(q, g, 7, chunk=chunk)
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+
+
+# ---------------- B5: weighted-blend NMS ----------------
+
+
+def _blend_case(rng, k, d=17):
+    """Score-sorted BlazeFace rows [ymin, xmin, ymax, xmax, 12 kps, score]:
+    clusters of overlapping boxes, singletons, an inverted box and invalid
+    rows."""
+    base = rng.uniform(0.1, 0.7, (k, 2)).astype(np.float32)
+    wh = rng.uniform(0.05, 0.3, (k, 2)).astype(np.float32)
+    dets = np.zeros((k, d), np.float32)
+    dets[:, 0:2] = base
+    dets[:, 2:4] = base + wh
+    dets[5] = dets[4]
+    dets[5, :4] += 0.01
+    dets[6] = dets[4]
+    dets[6, :4] += 0.02
+    dets[9, 2:4] = dets[9, 0:2] - 0.1  # inverted: self-IoU is not 1
+    dets[:, 4:d - 1] = rng.standard_normal((k, d - 5)).astype(np.float32)
+    dets[:, d - 1] = rng.uniform(0.3, 1.0, k).astype(np.float32)
+    valid = np.ones(k, bool)
+    valid[-5:] = False
+    order = np.argsort(-np.where(valid, dets[:, -1], -1e30), kind="stable")
+    return dets[order], valid[order]
+
+
+def pallas_slots(sdets, svalid, max_out):
+    """The Pallas kernel's rows and keep mask compacted into max_out slots,
+    as ``ops/nms.py`` does on the TPU (zero slots past K when K <
+    max_out)."""
+    rows, keep = weighted_blend_nms_pallas(sdets, svalid, 0.3,
+                                           interpret=True)
+    rows, keep = np.asarray(rows), np.asarray(keep)
+    order = np.argsort(np.where(keep, 0, 1), kind="stable")[:max_out]
+    order = np.pad(order, (0, max_out - len(order)))
+    valid = keep[order] & (np.arange(max_out) < len(keep))
+    return np.where(valid[:, None], rows[order], 0.0), valid
+
+
+@pytest.mark.parametrize("k,max_out,none_valid", [
+    (64, 16, False), (128, 16, False), (40, 40, False), (12, 16, False),
+    (48, 16, True)])
+def test_blend_nms_plain_equals_fori_and_pallas(k, max_out, none_valid):
+    sdets, svalid = _blend_case(np.random.RandomState(k), k)
+    if none_valid:
+        svalid[:] = False
+    got, got_v = ck.blend_nms_plain(torch.from_numpy(sdets)[None],
+                                    torch.from_numpy(svalid)[None], 0.3,
+                                    max_out)
+    got, got_v = got[0].numpy(), got_v[0].numpy()
+    assert got.shape == (max_out, 17) and got_v.shape == (max_out,)
+    # the fori loop of ops/nms.py: picks exactly, rows to f32 rounding of
+    # sums over up to k rows taken in another order
+    ref, ref_v = JN.weighted_blend_nms(jnp.asarray(sdets),
+                                       jnp.asarray(svalid), 0.3, max_out)
+    np.testing.assert_array_equal(got_v, np.asarray(ref_v))
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert (got[~got_v] == 0).all()
+    # the Pallas kernel: the same keep set, rows as its own test holds them
+    p_rows, p_keep = pallas_slots(sdets, svalid, max_out)
+    np.testing.assert_array_equal(got_v, p_keep)
+    np.testing.assert_allclose(got, p_rows, rtol=1e-5, atol=1e-5)
+    assert got_v.any() != none_valid
+
+
+def test_blend_nms_plain_nothing_valid_and_batches():
+    rng = np.random.RandomState(6)
+    cases = [_blend_case(rng, 48) for _ in range(3)]
+    sdets = torch.from_numpy(np.stack([c[0] for c in cases]))
+    svalid = torch.from_numpy(np.stack([c[1] for c in cases]))
+    svalid[1] = False
+    out, ov = ck.blend_nms_plain(sdets, svalid, 0.3, 16)
+    assert not ov[1].any() and (out[1] == 0).all()
+    for i in (0, 2):  # each image of the batch as it is alone
+        one, one_v = ck.blend_nms_plain(sdets[i:i + 1], svalid[i:i + 1],
+                                        0.3, 16)
+        torch.testing.assert_close(out[i], one[0], rtol=0, atol=0)
+        torch.testing.assert_close(ov[i], one_v[0], rtol=0, atol=0)
 
 
 def test_kernel_module_imports_without_nvcc():
