@@ -11,13 +11,20 @@ seconds:
    versions, the kernels of the paths;
 2. build: ``csrc/*.cu`` through one nvcc call (cold, or found built);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the main paths' shapes (B = 8 frames, K = 1024 candidates, the three
-   yolov5s levels at 640 x 640; 64 crop slots a frame at 112 x 112 and
-   227 x 227; 512 queries against a 524,288 x 512 gallery, k = 5; 896
-   BlazeFace rows a frame, 16 slots); each must be exactly equal. The
-   gallery top-k is also held to the default search path (matrix product
-   and stable top-k). Prints kernel, plain and library times and the
-   bound;
+   at the main paths' shapes; each must be exactly equal. B1: B = 8 frames,
+   K = 1024 candidates. B2, the fused candidate gather + decode: f32 and
+   bf16 maps in three level layouts (yolov5s's P5 at 640 x 640 and
+   640 x 384, the four-level P6 at 640 x 640), K = 1024 a frame. B3: 64 crop
+   slots a frame at 112 x 112 and 227 x 227. B4: 512 queries against a
+   524,288 x 512 gallery, k = 5, against the plain FMA chain on the whole
+   gallery. B5: 896 BlazeFace rows a frame, 16 slots. The gallery top-k is
+   also held to the default search path (matrix product and stable top-k).
+   Prints for each kernel its time between CUDA events over a loop of
+   calls, its device time a call from torch.profiler, the plain and
+   library times and the bound; for B2 also the host microseconds a call
+   and its two yardsticks (``torch.gather`` on the prebuilt concat, and
+   that gather + the plain decode); for B4 whether it beats
+   ``torch.topk(q @ g.T)`` and is within 2x its bound;
 4. main path, detect: ``FaceEngine(EngineConfig(detector="yolov5s"))`` at
    full width with weights drawn from a seeded generator, ``detect_batch``
    on 8 seeded 576 x 1024 frames (square and rect letterbox) and
@@ -49,6 +56,7 @@ the repository beside it, it fails at once.
 """
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -59,13 +67,15 @@ import torch
 from face_detection_and_recognition_tpu_torch.core.engine import (
     EngineConfig, FaceEngine, _full_f32)
 from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
-from face_detection_and_recognition_tpu_torch.utils.profiling import cuda_ms
+from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
+    FACE_ANCHORS
+from face_detection_and_recognition_tpu_torch.utils.profiling import (
+    cuda_ms, device_ms)
 
 T0 = time.time()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32, outside the tensor cores
 B, K = 8, 1024              # frames per batch, NMS candidates per frame
-LEVEL_ROWS = (19200, 4800, 1200)  # yolov5s at 640 x 640: 3 x (640/s)^2
 SEED = 0
 
 
@@ -75,6 +85,31 @@ def say(msg):
 
 def phase_end(name):
     say(f"[{name}] done at {time.time() - T0:.1f} s")
+
+
+def kernel_resources(report):
+    """(kernel, registers, static shared bytes, stack bytes) of each kernel
+    in nvcc's ``-Xptxas -v`` report."""
+    rows, name, stack = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
+            tpl = re.search(r"_kernelI(\w+?)E", mangled)  # template argument
+            if tpl:
+                code = tpl.group(1)
+                name += "<%s>" % {"Lb0": "false", "Lb1": "true", "h": "uint8",
+                                  "f": "float"}.get(code, code)
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            stack = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), int(m.group(2) or 0), stack))
+            name = None
+    return rows
 
 
 def nms_inputs(gen):
@@ -106,6 +141,7 @@ def check_nms(gen):
     # the detect path's option set: +1 px IoU, suppress at IoU >= 0.3
     args = (boxes, valid, 0.3, True, False, "union")
     ms = cuda_ms(lambda: ck.nms_fixpoint(*args), 50)
+    dev_ms, _ = device_ms(lambda: ck.nms_fixpoint(*args), 50)
     plain_ms = cuda_ms(lambda: ck.nms_fixpoint_plain(*args), 5)
     # IoU of every pair i < j: 2 max, 2 min, 2 sub, 2 add, 2 clamp, 1 mul
     # (intersection), add, sub, add eps (union), div, compare = 16 ops;
@@ -116,50 +152,122 @@ def check_nms(gen):
         name="nms_fixpoint", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/nms.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:90",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
                   else "operations"),
         library_ms=None)
 
 
-def check_gather(gen):
-    levels32 = [torch.randn((B, n, 16), generator=gen).cuda()
-                for n in LEVEL_ROWS]
-    obj = torch.cat([m[..., 4] for m in levels32], 1)
-    # candidate indices as the detect path makes them: the top K rows by
-    # sigmoid objectness, stable among ties
+# B2's level layouts: yolov5s-face's P5 at the square and rect letterbox
+# sizes, and the P6 layout of yolov5s6-face (four levels) at 640 x 640
+FACE_ANCHORS_P6 = (((6.0, 7.0), (9.0, 11.0), (13.0, 16.0)),
+                   ((18.0, 23.0), (26.0, 33.0), (37.0, 47.0)),
+                   ((54.0, 67.0), (77.0, 104.0), (112.0, 154.0)),
+                   ((174.0, 238.0), (258.0, 355.0), (445.0, 568.0)))
+DECODE_LAYOUTS = (("P5 640x640", FACE_ANCHORS, (8, 16, 32), (640, 640)),
+                  ("P5 640x384", FACE_ANCHORS, (8, 16, 32), (640, 384)),
+                  ("P6 640x640", FACE_ANCHORS_P6, (8, 16, 32, 64), (640, 640)))
+CONF = 0.4  # YoloV5FaceConfig.conf_thres
+
+
+def decode_inputs(gen, anchors, strides, wh, dtype):
+    """Raw maps of one layout (w, h) and their top-K rows by sigmoid
+    objectness, stable among ties, as the detect path ranks them. Every
+    97th objectness logit is saturated (a tie at 1.0), the rest are
+    N(-7, 3), so that a part of the K candidates passes CONF."""
+    w, h = wh
+    levels = []
+    for anc, s in zip(anchors, strides):
+        m = torch.randn((B, len(anc) * (h // s) * (w // s), 16),
+                        generator=gen) * 3
+        m[..., 4] -= 7.0
+        m[:, ::97, 4] = 30.0
+        levels.append(m.to(dtype).cuda())
+    obj = torch.cat([m[..., 4] for m in levels], 1).float()
     idx = torch.sort(torch.sigmoid(obj), dim=1, descending=True,
                      stable=True).indices[:, :K].to(torch.int32).contiguous()
-    result = None
-    for dtype in (torch.float32, torch.bfloat16):
-        levels = [m.to(dtype) for m in levels32]
-        got = ck.rows_gather(levels, idx)
-        ref = ck.rows_gather_plain(levels, idx)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        say(f"  rows_gather {dtype}: [{B}, {K}, 16] from levels {LEVEL_ROWS},"
-            f" max abs err {err}")
-        if not torch.equal(got, ref):
-            raise AssertionError("rows_gather differs from its plain version")
-        if dtype == torch.float32:  # the detect path's maps are f32
+    return levels, idx
+
+
+def max_ulps(a, b):
+    """The largest distance in float32 ulps between two f32 tensors."""
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def host_us(fn, iters=1000):
+    """Host microseconds per call of ``fn``, the calls issued back to back
+    (the device keeps up, so this is the cost of issuing one)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sec = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return sec / iters * 1e6
+
+
+def check_decode(gen):
+    """B2, the fused candidate gather + decode, against its plain version
+    bit for bit: f32 and bf16 maps, in each of the three layouts. Timed on
+    the detect path's own case, P5 640x640 f32 maps."""
+    result, err = None, 0.0
+    for name, anchors, strides, wh in DECODE_LAYOUTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            levels, idx = decode_inputs(gen, anchors, strides, wh, dtype)
+            args = (levels, idx, anchors, strides, wh, CONF)
+            got = ck.candidate_decode(*args)
+            ref = ck.candidate_decode_plain(*args)
+            torch.cuda.synchronize()
+            e = max(float((g.float() - r.float()).abs().max())
+                    for g, r in zip(got, ref))
+            err = max(err, e)
+            say(f"  rows_gather (gather + decode) {name} {dtype}: [{B}, {K}]"
+                f" from levels {[m.shape[1] for m in levels]}, "
+                f"{int(got[2].sum())} valid; max abs err {e}, pred "
+                f"{max_ulps(got[0], ref[0])} ulps, boxes "
+                f"{max_ulps(got[1], ref[1])} ulps, valid equal "
+                f"{torch.equal(got[2], ref[2])}")
+            if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                raise AssertionError("candidate_decode differs from its "
+                                     "plain version")
+            if result is not None or dtype != torch.float32:
+                continue
+            def kernel():
+                return ck.candidate_decode(*args)
             flat = torch.cat(levels, 1)
             idx3 = idx.long()[..., None].expand(B, K, 16)
-            ms = cuda_ms(lambda: ck.rows_gather(levels, idx), 200)
-            plain_ms = cuda_ms(lambda: ck.rows_gather_plain(levels, idx), 50)
-            # one library call on the prebuilt concat (the port never calls it)
-            library_ms = cuda_ms(lambda: torch.gather(flat, 1, idx3), 200)
-            # the selected rows read once, the indices read, the rows written
-            nbytes = B * K * (16 * 4 + 4 + 16 * 4)
+            ms = cuda_ms(kernel, 200)
+            dev_ms, _ = device_ms(kernel, 50)
+            us = host_us(kernel)
+            plain_ms = cuda_ms(lambda: ck.candidate_decode_plain(*args), 50)
+            # yardsticks, never called by the port: no single PyTorch call
+            # computes the fused function; one gather on the prebuilt
+            # concat, and that gather followed by the plain decode
+            gather_ms = cuda_ms(lambda: torch.gather(flat, 1, idx3), 200)
+            gather_decode_ms = cuda_ms(lambda: ck.decode_candidates_plain(
+                torch.gather(flat, 1, idx3), idx, anchors, strides, wh,
+                CONF), 50)
+            say(f"  rows_gather: {ms:.5f} ms a call between events, "
+                f"{dev_ms:.5f} ms on the device (profiler), {us:.1f} us of "
+                f"host a call; torch.gather {gather_ms:.5f} ms, torch.gather"
+                f" + plain decode {gather_decode_ms:.5f} ms")
+            # the selected raw rows and the indices read once; the decoded
+            # rows, boxes and valid bytes written once
+            nbytes = B * K * (16 * 4 + 4 + 16 * 4 + 16 + 1)
             result = dict(
                 name="rows_gather", route="cuda",
                 source="face_detection_and_recognition_tpu_torch/csrc/"
                        "rows_gather.cu",
                 replaces="face_detection_and_recognition_tpu/ops/"
                          "pallas_kernels.py:545",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                ms=ms, device_ms=dev_ms, host_us=us, plain_ms=plain_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                library_ms=library_ms)
+                library_ms=None, gather_ms=gather_ms,
+                gather_decode_ms=gather_decode_ms)
+    result["max_abs_err"] = err
     return result
 
 
@@ -232,6 +340,7 @@ def check_crop(gen, frames):
     hw = CROP_HW[1]
     args = (frames, boxes, valid, hw, True)
     ms = cuda_ms(lambda: ck.crop_resize(*args), 50)
+    dev_ms, _ = device_ms(lambda: ck.crop_resize(*args), 20)
     plain_ms = cuda_ms(lambda: ck.crop_resize_plain(*args), 5)
     # the library call: one grid_sample over the f32 NCHW frames, the K
     # crops stacked along the grid's rows, at the same sample coordinates
@@ -267,7 +376,7 @@ def check_crop(gen, frames):
         name="crop_resize", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/crop_resize.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:420",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=library_ms)
 
@@ -292,9 +401,10 @@ def close_ranks(s, tol=TOPK_TOL):
 
 
 def check_topk(gen):
-    """B4 against its plain version (bit for bit) and against the default
-    search path (a full-f32 matrix product and a stable top-k) at the
-    similarity path's shape: unit queries against a unit gallery."""
+    """B4 against its plain version (the FMA chain, bit for bit, on the full
+    gallery) and against the default search path (a full-f32 matrix product
+    and a stable top-k) at the similarity path's shape: unit queries
+    against a unit gallery."""
     from face_detection_and_recognition_tpu_torch.pipelines.similarity \
         import _f32_matmul, _topk_stable
 
@@ -305,12 +415,19 @@ def check_topk(gen):
     g[TOPK_M - 1] = g[12345]  # an exact tie: the smaller index first
     q[7] = g[12345]
     got = ck.topk_gallery(q, g, TOPK_K)
-    ref = ck.topk_gallery_plain(q, g, TOPK_K)
     torch.cuda.synchronize()
+    # the plain version once, timed between events: it takes seconds
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = ck.topk_gallery_plain(q, g, TOPK_K)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
     err = float((got[0] - ref[0]).abs().max())
     say(f"  topk_gallery [{TOPK_N}, {TOPK_D}] x [{TOPK_M}, {TOPK_D}], "
-        f"k {TOPK_K}: max abs err {err}, indices equal "
-        f"{torch.equal(got[1], ref[1])}")
+        f"k {TOPK_K}, against the plain FMA chain on the whole gallery: max "
+        f"abs err {err}, indices equal {torch.equal(got[1], ref[1])}")
     if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
         raise AssertionError("topk_gallery differs from its plain version")
     if int(got[1][7, 0]) != 12345 or int(got[1][7, 1]) != TOPK_M - 1:
@@ -330,23 +447,32 @@ def check_topk(gen):
         f"{int(far.sum())} ranks more than {TOPK_TOL} from a neighbour")
     if mism or serr > TOPK_TOL:
         raise AssertionError("topk_gallery disagrees with the matmul path")
-    ms = cuda_ms(lambda: ck.topk_gallery(q, g, TOPK_K), 5)
-    plain_ms = cuda_ms(lambda: ck.topk_gallery_plain(q, g, TOPK_K), 1)
-    library_ms = cuda_ms(library, 5)
-    # every score is D multiplies and D adds; queries and gallery read
-    # once, scores and indices written once
+    ms = cuda_ms(lambda: ck.topk_gallery(q, g, TOPK_K), 10)
+    dev_ms, _ = device_ms(lambda: ck.topk_gallery(q, g, TOPK_K), 10)
+    library_ms = cuda_ms(library, 10)
+    with _f32_matmul():  # the product alone, for scale: cuBLAS's f32 rate
+        matmul_ms = cuda_ms(lambda: q @ g.T, 10)
+    # every score is D multiply-adds; queries and gallery read once, scores
+    # and indices written once
     ops = 2 * TOPK_N * TOPK_M * TOPK_D
     nbytes = (TOPK_N + TOPK_M) * TOPK_D * 4 + TOPK_N * TOPK_K * 8
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    met = ms < library_ms and ms <= 2 * bound_ms
+    say(f"  topk_gallery: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), "
+        f"torch.topk(q @ g.T) {library_ms:.3f} ms, q @ g.T alone "
+        f"{matmul_ms:.3f} ms ({ops / matmul_ms / 1e9:.1f} TFLOP/s), bound "
+        f"{bound_ms:.3f} ms; target (faster than the library call, within "
+        f"2x the bound) {'met' if met else 'missed'}")
     return dict(
         name="topk_gallery", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/"
                "topk_gallery.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:186",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
                   else "operations"),
-        library_ms=library_ms)
+        library_ms=library_ms, matmul_ms=matmul_ms)
 
 
 BLEND_B, BLEND_K, BLEND_OUT = 8, 896, 16  # 8 frames of BlazeFace anchors
@@ -412,6 +538,7 @@ def check_blend(gen):
         if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
             raise AssertionError("blend_nms differs from its plain version")
     ms = cuda_ms(lambda: ck.blend_nms(sd, sv, 0.3, BLEND_OUT), 50)
+    dev_ms, _ = device_ms(lambda: ck.blend_nms(sd, sv, 0.3, BLEND_OUT), 50)
     plain_ms = cuda_ms(lambda: ck.blend_nms_plain(sd, sv, 0.3, BLEND_OUT), 2)
     ious, taken = blend_work(sd, sv, 0.3, BLEND_OUT)
     # an IoU: 2 max, 2 min, 2 sub, 2 clamp, 1 mul, the other box's area
@@ -429,7 +556,7 @@ def check_blend(gen):
         name="blend_nms", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/blend_nms.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:689",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
                   else "operations"),
@@ -666,6 +793,10 @@ def main():
     lib = ck.build_library()
     say(f"  {'built' if cold else 'found'} {lib.name} in "
         f"{time.time() - t:.1f} s")
+    for name, regs, smem, stack in kernel_resources(
+            ck.ptxas_report().read_text()):
+        say(f"  ptxas: {name}: {regs} registers, {smem} bytes of static "
+            f"shared memory, {stack}-byte stack frame")
     phase_end("build")
 
     say(f"[kernels] against their plain versions on {card}")
@@ -673,14 +804,15 @@ def main():
     rng = np.random.RandomState(SEED)
     frames = rng.randint(0, 256, (B, 576, 1024, 3), np.uint8)
     singles = rng.randint(0, 256, (3, 540, 720, 3), np.uint8)
-    kernels = [check_nms(gen), check_gather(gen),
+    kernels = [check_nms(gen), check_decode(gen),
                check_crop(gen, torch.from_numpy(frames).cuda()),
                check_topk(torch.Generator(device="cuda").manual_seed(SEED)),
                check_blend(gen)]
     for k in kernels:
-        say(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain "
-            f"{k['plain_ms']:.4f} ms, library {k['library_ms']}, bound "
-            f"{k['bound_ms']:.5f} ms ({k['bound_by']})")
+        say(f"  {k['name']}: kernel {k['ms']:.5f} ms (device "
+            f"{k['device_ms']:.5f} ms), plain {k['plain_ms']:.4f} ms, "
+            f"library {k['library_ms']}, bound {k['bound_ms']:.5f} ms "
+            f"({k['bound_by']})")
     phase_end("kernels")
 
     say("[main path: detect] yolov5s-face FaceEngine on the card")

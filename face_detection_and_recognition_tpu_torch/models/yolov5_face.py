@@ -4,9 +4,9 @@ ShuffleNetV2 graph (yolov5n, yolov5n-0.5).
 The counterpart of ``models/yolov5_face.py`` in the JAX package. The network
 walks the same graph table and returns the same raw head maps
 [B, na, ny, nx, no]; ``yolov5_face_detect_maps`` selects the top candidates,
-gathers their rows (``rows_gather``), decodes them and runs greedy +1 px-IoU
-NMS (``nms_fixpoint``). The two kernels run as CUDA kernels on CUDA tensors
-and as their plain versions on the CPU.
+gathers and decodes their rows in one pass (``candidate_decode``) and runs
+greedy +1 px-IoU NMS (``nms_fixpoint``). The two kernels run as CUDA kernels
+on CUDA tensors and as their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -16,8 +16,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.boxes import xywh2xyxy
-from ..ops.cuda_kernels import nms_fixpoint, rows_gather
+from ..ops.cuda_kernels import candidate_decode, nms_fixpoint
 from ..ops.nms import sort_by_score
 from .layers import (C3, SPP, ConvBN, ShuffleV2Block, StemBlock,
                      make_divisible_torch)
@@ -264,55 +263,20 @@ class YoloV5FaceConfig:
     max_det: int = 300
 
 
-def _nms_candidate_rows(p: torch.Tensor, cand_valid: torch.Tensor,
-                        cfg: YoloV5FaceConfig
+def _nms_candidate_rows(p: torch.Tensor, boxes: torch.Tensor,
+                        cand_valid: torch.Tensor, cfg: YoloV5FaceConfig
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """NMS over decoded candidate rows [B, K, 16] sorted by score desc:
-    xywh -> xyxy, the +1 px-IoU >= thres suppression, and a max_det-sliced,
-    score-ordered output block."""
-    boxes = xywh2xyxy(p[..., :4])
+    """NMS over decoded candidate rows [B, K, 16] sorted by score desc,
+    with their xyxy ``boxes``: the +1 px-IoU >= thres suppression, and a
+    max_det-sliced, score-ordered output block."""
     cls_conf = p[..., 15:].amax(-1, keepdim=True)
-    rows = torch.cat([boxes, p[..., 4:5], p[..., 5:15], cls_conf], -1)
-    keep = nms_fixpoint(boxes.contiguous(), cand_valid.contiguous(),
-                        cfg.iou_thres, plus1=True, strict=False)
+    rows = torch.cat([boxes, p[..., 4:15], cls_conf], -1)
+    keep = nms_fixpoint(boxes, cand_valid, cfg.iou_thres, plus1=True,
+                        strict=False)
     # push suppressed rows to the end, keep score order among kept
     _, _, out_valid, out = sort_by_score(rows[..., 4], keep, rows,
                                          top=cfg.max_det)
     return out, out_valid
-
-
-def _candidate_grid_params(idx: torch.Tensor,
-                           anchors: Sequence[Sequence[Tuple[float, float]]],
-                           strides: Sequence[int],
-                           input_size: Tuple[int, int]):
-    """(grid_xy, stride, anchor_wh) of flat anchor indices ``idx`` [B, K],
-    by integer arithmetic over the level layout (levels concatenated, each
-    row-major over [na, ny, nx], as ``decode_heads`` orders them)."""
-    w, h = input_size
-    gx = torch.zeros_like(idx)
-    gy = torch.zeros_like(idx)
-    f32 = dict(dtype=torch.float32, device=idx.device)
-    stride_o = torch.zeros(idx.shape, **f32)
-    aw = torch.zeros(idx.shape, **f32)
-    ah = torch.zeros(idx.shape, **f32)
-    offset = 0
-    for anc, s in zip(anchors, strides):
-        ny, nx = h // s, w // s
-        block = len(anc) * ny * nx
-        r = idx - offset
-        in_lvl = (r >= 0) & (r < block)
-        a = r // (ny * nx)
-        cell = r % (ny * nx)
-        gy = torch.where(in_lvl, cell // nx, gy)
-        gx = torch.where(in_lvl, cell % nx, gx)
-        stride_o = torch.where(in_lvl, float(s), stride_o)
-        for j, (ajw, ajh) in enumerate(anc):
-            hit = in_lvl & (a == j)
-            aw = torch.where(hit, float(ajw), aw)
-            ah = torch.where(hit, float(ajh), ah)
-        offset += block
-    grid = torch.stack([gx, gy], -1).float()
-    return grid, stride_o[..., None], torch.stack([aw, ah], -1)
 
 
 def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
@@ -322,9 +286,9 @@ def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
     """Candidates-first decode + NMS: the top ``cfg.max_candidates`` rows by
     objectness, then grid/anchor decode, box conversion and NMS on [B, K].
 
-    maps: per-level [B, na, ny, nx, no]. Returns dets [B, max_det, 16] rows
-    [x1, y1, x2, y2, obj, lmk x10, cls_conf] in input pixels, sorted by obj,
-    and valid [B, max_det]."""
+    maps: per-level [B, na, ny, nx, no]; anchors and strides as tuples.
+    Returns dets [B, max_det, 16] rows [x1, y1, x2, y2, obj, lmk x10,
+    cls_conf] in input pixels, sorted by obj, and valid [B, max_det]."""
     b, no = maps[0].shape[0], maps[0].shape[-1]
     maps_flat = [m.reshape(b, -1, no) for m in maps]
     n = sum(mf.shape[1] for mf in maps_flat)
@@ -335,19 +299,12 @@ def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
     obj = torch.cat([mf[..., 4] for mf in maps_flat], 1).float()
     idx = torch.sort(torch.sigmoid(obj), dim=1, descending=True,
                      stable=True).indices[:, :k].to(torch.int32)
-    cand = rows_gather(maps_flat, idx.contiguous()).float()
     # input dims from the maps (level 0 is h/s0 x w/s0), so rect letterbox
     # inputs decode on their own grid
     in_size = (maps[0].shape[3] * strides[0], maps[0].shape[2] * strides[0])
-    grid, stride, anc = _candidate_grid_params(idx, anchors, strides, in_size)
-
-    # decode exactly as decode_heads (same op order and dtypes)
-    y = torch.cat([torch.sigmoid(cand[..., :5]), cand[..., 5:15],
-                   torch.sigmoid(cand[..., 15:])], -1)
-    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
-    wh = (y[..., 2:4] * 2.0) ** 2 * anc
-    lmk = (y[..., 5:15].reshape(b, k, 5, 2) * anc[..., None, :]
-           + grid[..., None, :] * stride[..., None])
-    pred = torch.cat([xy, wh, y[..., 4:5], lmk.reshape(b, k, 10),
-                      y[..., 15:]], -1)
-    return _nms_candidate_rows(pred, pred[..., 4] >= cfg.conf_thres, cfg)
+    # gather + decode exactly as decode_heads (same op order and dtypes),
+    # with the xyxy boxes and the obj >= conf_thres mask
+    pred, boxes, cand_valid = candidate_decode(
+        maps_flat, idx.contiguous(), anchors, strides, in_size,
+        cfg.conf_thres)
+    return _nms_candidate_rows(pred, boxes, cand_valid, cfg)

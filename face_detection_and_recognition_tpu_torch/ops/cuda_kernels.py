@@ -29,10 +29,12 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .boxes import xywh2xyxy
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0,
@@ -71,7 +73,9 @@ def library_path() -> Path:
 
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` with one nvcc call unless the library for these
-    sources is already built. Returns its path."""
+    sources is already built. Returns its path; ptxas's report of each
+    kernel's registers, shared memory and stack frame is kept beside it
+    (``ptxas_report``)."""
     out = library_path()
     if out.is_file():
         return out
@@ -83,11 +87,17 @@ def build_library() -> Path:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        ptxas_report().write_text(res.stderr)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def ptxas_report() -> Path:
+    """Where ``build_library`` keeps nvcc's ``-Xptxas -v`` output."""
+    return library_path().with_suffix(".ptxas.txt")
 
 
 def _lib():
@@ -99,9 +109,10 @@ def _lib():
         lib.nms_fixpoint_launch.argtypes = [p, p, p, p, i, i, ctypes.c_float,
                                             i, i, i, p]
         lib.nms_fixpoint_launch.restype = i
-        lib.rows_gather_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i,
-                                           i, i, p]
-        lib.rows_gather_launch.restype = i
+        lib.candidate_decode_launch.argtypes = [p, p, p, p, p, i, p, p, p,
+                                                p, i, i, i, ctypes.c_float,
+                                                p]
+        lib.candidate_decode_launch.restype = i
         lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
                                            i, i, p]
         lib.crop_resize_launch.restype = i
@@ -124,7 +135,8 @@ def _check(err: int, name: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -216,7 +228,9 @@ def nms_fixpoint(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
     return keep
 
 
-# ---------------- B2: candidate-row gather ----------------
+# ---------------- B2: candidate gather + decode ----------------
+
+MAX_LEVELS, MAX_ANCHORS = 4, 3  # the largest layout candidate_decode takes
 
 
 def rows_gather_plain(maps_flat: Sequence[torch.Tensor],
@@ -228,45 +242,174 @@ def rows_gather_plain(maps_flat: Sequence[torch.Tensor],
     return torch.take_along_dim(flat, idx.long()[..., None], dim=1)
 
 
-def rows_gather(maps_flat: Sequence[torch.Tensor],
-                idx: torch.Tensor) -> torch.Tensor:
-    """Gather candidate rows across up to four detect levels without building
-    their concat (``csrc/rows_gather.cu``). The port of
-    ``candidate_rows_gather_pallas``; exact for every dtype.
+def _candidate_grid_params(idx: torch.Tensor,
+                           anchors: Sequence[Sequence[Tuple[float, float]]],
+                           strides: Sequence[int],
+                           input_size: Tuple[int, int]):
+    """(grid_xy, stride, anchor_wh) of flat anchor indices ``idx`` [B, K],
+    by integer arithmetic over the level layout (levels concatenated, each
+    row-major over [na, ny, nx], as ``decode_heads`` orders them)."""
+    w, h = input_size
+    gx = torch.zeros_like(idx)
+    gy = torch.zeros_like(idx)
+    f32 = dict(dtype=torch.float32, device=idx.device)
+    stride_o = torch.zeros(idx.shape, **f32)
+    aw = torch.zeros(idx.shape, **f32)
+    ah = torch.zeros(idx.shape, **f32)
+    offset = 0
+    for anc, s in zip(anchors, strides):
+        ny, nx = h // s, w // s
+        block = len(anc) * ny * nx
+        r = idx - offset
+        in_lvl = (r >= 0) & (r < block)
+        a = r // (ny * nx)
+        cell = r % (ny * nx)
+        gy = torch.where(in_lvl, cell // nx, gy)
+        gx = torch.where(in_lvl, cell % nx, gx)
+        stride_o = torch.where(in_lvl, float(s), stride_o)
+        for j, (ajw, ajh) in enumerate(anc):
+            hit = in_lvl & (a == j)
+            aw = torch.where(hit, float(ajw), aw)
+            ah = torch.where(hit, float(ajh), ah)
+        offset += block
+    grid = torch.stack([gx, gy], -1).float()
+    return grid, stride_o[..., None], torch.stack([aw, ah], -1)
 
-    maps_flat: per-level [B, n_l, no] of one dtype, rows a multiple of 16
-    bytes; idx: [B, K] int32 global row indices. Returns [B, K, no]."""
-    maps_flat = list(maps_flat)
+
+def decode_candidates_plain(cand: torch.Tensor, idx: torch.Tensor,
+                            anchors: Sequence[Sequence[Tuple[float, float]]],
+                            strides: Sequence[int],
+                            input_size: Tuple[int, int], conf_thres: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Decode gathered raw candidate rows ``cand`` [B, K, no] f32 of flat
+    row indices ``idx`` as ``decode_heads`` does (same operation order and
+    dtypes): the JAX package's ``_candidate_grid_params`` and candidate
+    decode. Returns what ``candidate_decode_plain`` returns."""
+    b, k = idx.shape
+    grid, stride, anc = _candidate_grid_params(idx, anchors, strides,
+                                               input_size)
+    y = torch.cat([torch.sigmoid(cand[..., :5]), cand[..., 5:15],
+                   torch.sigmoid(cand[..., 15:])], -1)
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    wh = (y[..., 2:4] * 2.0) ** 2 * anc
+    lmk = (y[..., 5:15].reshape(b, k, 5, 2) * anc[..., None, :]
+           + grid[..., None, :] * stride[..., None])
+    pred = torch.cat([xy, wh, y[..., 4:5], lmk.reshape(b, k, 10),
+                      y[..., 15:]], -1)
+    return pred, xywh2xyxy(pred[..., :4]), pred[..., 4] >= conf_thres
+
+
+def candidate_decode_plain(maps_flat: Sequence[torch.Tensor],
+                           idx: torch.Tensor,
+                           anchors: Sequence[Sequence[Tuple[float, float]]],
+                           strides: Sequence[int],
+                           input_size: Tuple[int, int], conf_thres: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Gather the candidate rows ``idx`` of the raw head maps and decode
+    them: the function of ``candidate_rows_gather_pallas`` followed by the
+    JAX package's ``_candidate_grid_params`` and candidate decode.
+
+    maps_flat: per-level [B, n_l, no] f32 or bf16 raw maps; idx: [B, K]
+    int flat row indices; input_size: (w, h). Returns (pred [B, K, no] f32
+    rows [cx, cy, w, h, obj, lmk x10, cls...] in input pixels, boxes
+    [B, K, 4] f32 xyxy, valid [B, K] bool: obj >= conf_thres)."""
+    return decode_candidates_plain(rows_gather_plain(maps_flat, idx).float(),
+                                   idx, anchors, strides, input_size,
+                                   conf_thres)
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_layout(anchors: Tuple, strides: Tuple, input_size: Tuple):
+    """(rows per level, the kernel's constant struct, its address) of one
+    level layout, built once per (anchors, strides, input size); the cache
+    keeps the struct alive for the address."""
+    import ctypes
+
+    na = len(anchors[0])
+    if not 1 <= len(strides) <= MAX_LEVELS or len(anchors) != len(strides) \
+            or not 1 <= na <= MAX_ANCHORS \
+            or any(len(a) != na for a in anchors):
+        raise ValueError(f"candidate_decode: 1 to {MAX_LEVELS} levels of 1 "
+                         f"to {MAX_ANCHORS} anchors each, got {anchors} for "
+                         f"strides {strides}")
+
+    class Layout(ctypes.Structure):  # csrc/rows_gather.cu DecodeLayout
+        _fields_ = [("n_levels", ctypes.c_int), ("na", ctypes.c_int),
+                    ("rows", ctypes.c_int * MAX_LEVELS),
+                    ("nx", ctypes.c_int * MAX_LEVELS),
+                    ("cells", ctypes.c_int * MAX_LEVELS),
+                    ("stride", ctypes.c_float * MAX_LEVELS),
+                    ("anchor", ctypes.c_float * (MAX_LEVELS * MAX_ANCHORS
+                                                 * 2))]
+
+    w, h = input_size
+    lay = Layout(n_levels=len(strides), na=na)
+    rows = []
+    for lv, (anc, s) in enumerate(zip(anchors, strides)):
+        ny, nx = h // s, w // s
+        rows.append(na * ny * nx)
+        lay.rows[lv], lay.nx[lv], lay.cells[lv] = rows[-1], nx, ny * nx
+        lay.stride[lv] = float(s)
+        for j, (aw, ah) in enumerate(anc):
+            lay.anchor[(lv * MAX_ANCHORS + j) * 2] = aw
+            lay.anchor[(lv * MAX_ANCHORS + j) * 2 + 1] = ah
+    return tuple(rows), lay, ctypes.addressof(lay)
+
+
+def candidate_decode(maps_flat: Sequence[torch.Tensor], idx: torch.Tensor,
+                     anchors: Tuple, strides: Tuple, input_size: Tuple,
+                     conf_thres: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather and decode the top-K candidate rows of every image in one
+    launch (``csrc/rows_gather.cu``), reading the per-level maps in place.
+    The port of ``candidate_rows_gather_pallas`` fused with the decode
+    around it; equal bit for bit to ``candidate_decode_plain``.
+
+    maps_flat: up to 4 per-level [B, n_l, no] maps of one dtype (f32 or
+    bf16), contiguous, n_l = na * (h // s) * (w // s), no a multiple of 4
+    and at least 16; idx: [B, K] int32 flat row indices. ``anchors``,
+    ``strides`` and ``input_size`` (w, h) are tuples: the layout is cached
+    by them. Returns (pred [B, K, no] f32, boxes [B, K, 4] f32 xyxy,
+    valid [B, K] bool)."""
     if idx.device.type == "cpu":
-        return rows_gather_plain(maps_flat, idx)
-    _require_cuda("rows_gather", idx, *maps_flat)
-    if not 1 <= len(maps_flat) <= 4:
-        raise ValueError(f"rows_gather: 1 to 4 levels, got {len(maps_flat)}")
+        return candidate_decode_plain(maps_flat, idx, anchors, strides,
+                                      input_size, conf_thres)
+    rows, _, layout = _decode_layout(anchors, strides, input_size)
     m0 = maps_flat[0]
-    b, no, dtype = m0.shape[0], m0.shape[-1], m0.dtype
-    for m in maps_flat:
-        if m.dim() != 3 or m.shape[0] != b or m.shape[-1] != no \
-                or m.dtype != dtype:
-            raise ValueError("rows_gather: levels must be [B, n_l, no] of "
-                             "one B, no and dtype")
-        if m.data_ptr() % 16:
-            raise ValueError("rows_gather: level base not 16-byte aligned")
-    row_bytes = no * m0.element_size()
-    if row_bytes % 16:
-        raise ValueError(f"rows_gather: a row of {row_bytes} bytes is not a "
-                         "multiple of 16")
-    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != b:
-        raise ValueError("rows_gather: idx must be [B, K] int32")
+    b, no, dtype, dev = m0.shape[0], m0.shape[-1], m0.dtype, idx.get_device()
+    if len(maps_flat) != len(rows) or no % 4 or no < 16 \
+            or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"candidate_decode: {len(rows)} f32 or bf16 levels "
+                         f"of rows with a multiple of 4 (>= 16) columns "
+                         f"expected, got {len(maps_flat)} of {no} {dtype}")
+    for m, n in zip(maps_flat, rows):
+        if m.shape != (b, n, no) or m.dtype != dtype \
+                or m.get_device() != dev or not m.is_contiguous() \
+                or m.data_ptr() % 16:
+            raise ValueError(f"candidate_decode: level {tuple(m.shape)} "
+                             f"{m.dtype} on {m.device} is not a contiguous, "
+                             f"16-byte aligned [{b}, {n}, {no}] {dtype} map "
+                             f"on {idx.device}")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != b \
+            or not idx.is_contiguous():
+        raise ValueError("candidate_decode: idx must be contiguous [B, K] "
+                         "int32")
     k = idx.shape[1]
-    out = torch.empty((b, k, no), dtype=dtype, device=m0.device)
-    ptrs = [m.data_ptr() for m in maps_flat] + [0] * (4 - len(maps_flat))
-    rows = [m.shape[1] for m in maps_flat] + [0] * (4 - len(maps_flat))
-    err = _lib().rows_gather_launch(
-        *ptrs, *rows, len(maps_flat), idx.data_ptr(), out.data_ptr(), b, k,
-        row_bytes // 16, _stream(idx))
-    _check(err, "rows_gather")
+    if b * k * no >= 2 ** 33:  # the kernel's thread index is an int
+        raise ValueError(f"candidate_decode: B * K = {b * k} too large")
+    pred = torch.empty(b, k, no, dtype=torch.float32, device=idx.device)
+    boxes = torch.empty(b, k, 4, dtype=torch.float32, device=idx.device)
+    valid = torch.empty(b, k, dtype=torch.bool, device=idx.device)
+    ptrs = [m.data_ptr() for m in maps_flat] + [0] * (4 - len(rows))
+    err = _lib().candidate_decode_launch(
+        *ptrs, layout, int(dtype == torch.bfloat16), idx.data_ptr(),
+        pred.data_ptr(), boxes.data_ptr(), valid.data_ptr(), b, k, no,
+        conf_thres, _stream(idx))
+    _check(err, "candidate_decode")
     LAUNCHES["rows_gather"] += 1
-    return out
+    return pred, boxes, valid
 
 
 # ---------------- B3: crop + bilinear resize ----------------
@@ -403,14 +546,15 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
 # ---------------- B4: streaming gallery top-k ----------------
 
 TOPK_MAX_K = 16        # the largest k that topk_gallery takes
-_TOPK_TILE = 64        # queries of a CTA, gallery rows of a tile
+_TOPK_TILE = 128       # queries of a CTA, gallery rows of a tile
 
 
 @functools.lru_cache(maxsize=None)
 def _topk_ctas(device_index: int) -> int:
-    """Launch-1 CTAs to aim for on a card: four a streaming
-    multiprocessor."""
-    return 4 * torch.cuda.get_device_properties(
+    """Launch-1 CTAs to aim for on a card: two a streaming multiprocessor,
+    as many as fit at once (~100 KB of shared memory and 256 threads of at
+    most 128 registers each), so that one wave covers the card."""
+    return 2 * torch.cuda.get_device_properties(
         device_index).multi_processor_count
 
 
@@ -418,8 +562,9 @@ def topk_gallery_plain(queries: torch.Tensor, gallery: torch.Tensor, k: int,
                        chunk: int = 65536
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k best inner products of each query, the function of
-    ``topk_gallery_pallas``: scores summed from 0 over d = 0 .. D-1, each
-    product and each sum rounded once; order (score desc, index asc); a
+    ``topk_gallery_pallas``: each score is the chain
+    ``acc = fma(q[d], g[d], acc)`` from acc = 0 over d = 0 .. D-1, every
+    step rounded once (``_fma_f32``); order (score desc, index asc); a
     score must beat the empty slot's -1e30 to enter, and an empty slot
     reads (-1e30, 0). The gallery streams through in ``chunk``-row pieces,
     each merged into the running list by a stable sort (the running list
@@ -434,10 +579,8 @@ def topk_gallery_plain(queries: torch.Tensor, gallery: torch.Tensor, k: int,
     for m0 in range(0, gallery.shape[0], chunk):
         gt = gallery[m0:m0 + chunk].t().contiguous()         # [D, mc]
         acc = torch.zeros((n, gt.shape[1]), dtype=torch.float32, device=dev)
-        prod = torch.empty_like(acc)
         for j in range(d):
-            torch.mul(queries[:, j:j + 1], gt[j], out=prod)
-            acc.add_(prod)
+            acc = _fma_f32(queries[:, j:j + 1], gt[j], acc)
         idx = torch.arange(m0, m0 + gt.shape[1], device=dev).expand_as(acc)
         s, i = torch.cat([run_s, acc], 1), torch.cat([run_i, idx], 1)
         order = torch.sort(s, dim=1, descending=True, stable=True).indices
@@ -467,15 +610,16 @@ def topk_gallery(queries: torch.Tensor, gallery: torch.Tensor, k: int
                          f"{tuple(queries.shape)} {queries.dtype} and "
                          f"{tuple(gallery.shape)} {gallery.dtype}")
     (n, d), m = queries.shape, gallery.shape[0]
-    q_tiles = -(-n // _TOPK_TILE)
-    # grid.y holds the query tiles; the kernel's row offsets are int32
-    if q_tiles > 65535 or m >= 2 ** 31 - 2 ** 20:
+    # the kernel's row offsets are int32
+    if n >= 2 ** 31 - 2 ** 20 or m >= 2 ** 31 - 2 ** 20:
         raise ValueError(f"topk_gallery: N = {n} or M = {m} too large")
-    tiles = -(-m // _TOPK_TILE)
+    # grid.x holds the query tiles, so the tiles of one gallery chunk run
+    # side by side; grid.y the chunks, one CTA list a query each
+    q_tiles, tiles = -(-n // _TOPK_TILE), -(-m // _TOPK_TILE)
     chunks = max(1, min(tiles, -(-_topk_ctas(queries.device.index)
-                                    // max(q_tiles, 1))))
+                                    // q_tiles)))
     per_chunk = max(1, -(-tiles // chunks))
-    n_parts = 4 * max(1, -(-tiles // per_chunk))
+    n_parts = max(1, -(-tiles // per_chunk))
     part_s = torch.empty((n, n_parts, k), dtype=torch.float32,
                          device=queries.device)
     part_i = torch.empty((n, n_parts, k), dtype=torch.int32,

@@ -7,11 +7,13 @@ Builds the engines with seeded weights, as ``chip_smoke.py`` does, and for
 one batch of 8 seeded 576x1024 frames prints
 
 - the device time of each yolov5s detect stage (frame upload, preprocess,
-  network, candidates-first decode + NMS, postprocess), between CUDA events;
+  network, candidates-first decode + NMS, postprocess), between CUDA events,
+  and for ``decode+nms`` also its device time and the device operations
+  (kernels, copies, memsets) it launches, from torch.profiler;
 - the device time of each ensemble stage (detect, 112x112 crops,
   MobileFaceNet, 227x227 crops, the age/gender heads) with every NMS
   survivor live, as ``chip_smoke.py`` drives it;
-- the device time of each BlazeFace detect stage (preprocess, network,
+- the same stages of each BlazeFace detect (preprocess, network,
   decode + blend NMS, postprocess), back and front;
 - ``topk_similar`` of 512 queries against a 524,288 x 512 gallery on both
   search paths: the host's normalisation and copy, and the device's search;
@@ -54,6 +56,31 @@ def cuda_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = ITERS):
+    """(device milliseconds, device operations) per call of ``fn``: each
+    kernel, copy or memset that it puts on the card, at its mean self time
+    from torch.profiler over ``iters`` calls after one warm-up, times its
+    count a call, so that a launch whose record the profiler misses lowers
+    no sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_call = [(e.self_device_time_total / e.count, round(e.count / iters))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count]
+    total_us = sum(us * n for us, n in per_call)
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total_us / 1e3, sum(n for _, n in per_call)
+
+
 def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
     """Device milliseconds of each stage of ``eng.detect_batch`` (square
     letterbox, the engine's own thresholds), each timed alone on the same
@@ -73,6 +100,8 @@ def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
         hw = tuple(x.shape[1:3])
         dets, valid = eng._decode(raw, hw)
         out["decode+nms"] = cuda_ms(lambda: eng._decode(raw, hw))
+        out["decode+nms, profiler"], out["decode+nms device ops"] = \
+            device_ms(lambda: eng._decode(raw, hw))
         out["postprocess"] = cuda_ms(lambda: eng._postprocess(
             dets, valid, (w, h), side, dt, at))
         out["detect_batch"] = cuda_ms(lambda: eng.detect_batch(frames))
@@ -174,7 +203,7 @@ def main() -> None:
     frames = np.random.RandomState(0).randint(0, 256, (B, H, W, 3), np.uint8)
     print(f"stage device ms, B={B} frames {H}x{W}, square 640x640:")
     for name, ms in detect_stages(eng, frames).items():
-        print(f"  {name:<13} {ms:9.4f}")
+        print(f"  {name:<22} {ms:9.4f}")
     ens = FaceEngine(EngineConfig(detector="yolov5s",
                                   embedder="mobile_facenet",
                                   with_age_gender=True))
@@ -182,14 +211,14 @@ def main() -> None:
     print(f"ensemble stage device ms, B={B} frames {H}x{W}, every NMS "
           f"survivor live, k_live={k_live} of {ens.cfg.max_det} slots:")
     for name, ms in stages.items():
-        print(f"  {name:<13} {ms:9.4f}")
+        print(f"  {name:<22} {ms:9.4f}")
     blaze = FaceEngine(EngineConfig(detector="blazeface-back"))
     for detector in ("blazeface-back", "blazeface-front"):
         beng = (blaze if detector == "blazeface-back"
                 else FaceEngine(EngineConfig(detector=detector)))
         print(f"{detector} stage device ms, B={B} frames {H}x{W}:")
         for name, ms in detect_stages(beng, frames).items():
-            print(f"  {name:<13} {ms:9.4f}")
+            print(f"  {name:<22} {ms:9.4f}")
     print("topk_similar, 512 queries x 524288 x 512 gallery, k=5, ms:")
     for name, ms in similarity_stages().items():
         print(f"  {name:<24} {ms:9.3f}")

@@ -17,6 +17,8 @@ from face_detection_and_recognition_tpu.ops import nms as JN
 from face_detection_and_recognition_tpu.ops.pallas_kernels import (
     candidate_rows_gather_pallas, nms_fixpoint_pallas, topk_gallery_pallas,
     weighted_blend_nms_pallas)
+from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
+    FACE_ANCHORS
 from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
 from tests.test_nms import random_boxes
 
@@ -98,9 +100,10 @@ def test_wrappers_take_plain_path_on_cpu(rng):
                               strict=False).numpy())
     levels = [torch.from_numpy(m) for m in _levels(rng, 1, hw=64)]
     idx = torch.arange(0, 250, 3, dtype=torch.int32)[None]
-    torch.testing.assert_close(ck.rows_gather(levels, idx),
-                               ck.rows_gather_plain(levels, idx),
-                               rtol=0, atol=0)
+    args = (levels, idx, FACE_ANCHORS, (8, 16, 32), (64, 64), 0.4)
+    for got, ref in zip(ck.candidate_decode(*args),
+                        ck.candidate_decode_plain(*args)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     q = torch.from_numpy(rng.normal(0, 1, (3, 8)).astype(np.float32))
     g = torch.from_numpy(rng.normal(0, 1, (50, 8)).astype(np.float32))
     for got, ref in zip(ck.topk_gallery(q, g, 4),
@@ -175,6 +178,32 @@ def test_topk_gallery_plain_chunks_do_not_change_it():
         got = ck.topk_gallery_plain(q, g, 7, chunk=chunk)
         torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
         torch.testing.assert_close(got[1], ref[1], rtol=0, atol=0)
+
+
+def test_topk_gallery_plain_is_the_fma_chain():
+    """Every score of the plain version is the float32 FMA chain from 0 over
+    d = 0 .. D-1: float32 rounding, step by step, of a float64 chain whose
+    products are exact, each step checked against ``_fma_f32`` (so no step
+    is a double-rounding case). Bit for bit, at every listed rank."""
+    rng = np.random.RandomState(11)
+    q = rng.normal(0, 1, (3, 48)).astype(np.float32)
+    g = rng.normal(0, 1, (40, 48)).astype(np.float32)
+    k = ck.TOPK_MAX_K
+    s, i = ck.topk_gallery_plain(torch.from_numpy(q), torch.from_numpy(g), k)
+    s, i = s.numpy(), i.numpy()
+    for n in range(q.shape[0]):
+        for r in range(k):
+            row = g[i[n, r]]
+            acc = np.float32(0.0)
+            for d in range(q.shape[1]):
+                # a float32 product is exact in float64 (24 + 24 bits)
+                step = np.float32(np.float64(q[n, d]) * np.float64(row[d])
+                                  + np.float64(acc))
+                fma = ck._fma_f32(*(torch.tensor(v) for v in
+                                    (q[n, d], row[d], acc)))
+                assert step.view(np.int32) == fma.numpy().view(np.int32)
+                acc = step
+            assert acc.view(np.int32) == s[n, r].view(np.int32), (n, r)
 
 
 # ---------------- B5: weighted-blend NMS ----------------

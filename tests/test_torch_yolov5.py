@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from face_detection_and_recognition_tpu.models import yolov5_face as JY
+from face_detection_and_recognition_tpu.ops.boxes import xywh2xyxy as jxyxy
 from face_detection_and_recognition_tpu.ops import preprocess as JP
 from face_detection_and_recognition_tpu.utils.checkpoint import load_variables
 from face_detection_and_recognition_tpu_torch.models import yolov5_face as TY
+from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
 from face_detection_and_recognition_tpu_torch.utils.weights import \
     yolov5_face_state_dict
 
@@ -88,6 +90,67 @@ def test_detect_maps_equals_jax(rng, hw):
     # ... with boxes, scores and landmarks to f32 decode precision
     np.testing.assert_allclose(got_d.numpy()[ref_v], ref_d[ref_v],
                                rtol=1e-5, atol=1e-3)
+
+
+def _jax_candidate_decode(maps_flat, idx, anchors, strides, in_size):
+    """The JAX package's candidate path: the gather,
+    ``_candidate_grid_params`` and the decode of ``yolov5_face_detect_maps``
+    (JAX ``models/yolov5_face.py:504-530``)."""
+    b, k = idx.shape
+    flat = jnp.concatenate(maps_flat, axis=1)
+    cand = jnp.take_along_axis(flat, idx[..., None], axis=1)
+    cand = cand.astype(jnp.float32)
+    grid, stride, anc = JY._candidate_grid_params(idx, anchors, strides,
+                                                  in_size)
+    y = jnp.concatenate([jax.nn.sigmoid(cand[..., :5]), cand[..., 5:15],
+                         jax.nn.sigmoid(cand[..., 15:])], axis=-1)
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    wh = (y[..., 2:4] * 2.0) ** 2 * anc
+    lmk = (y[..., 5:15].reshape(b, k, 5, 2) * anc[..., None, :]
+           + grid[..., None, :] * stride[..., None])
+    return jnp.concatenate(
+        [xy, wh, y[..., 4:5], lmk.reshape(b, k, 10), y[..., 15:]], axis=-1)
+
+
+@pytest.mark.parametrize("levels", [3, 4])
+@pytest.mark.parametrize("hw", [(256, 256), (128, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_candidate_decode_plain_equals_jax(levels, hw, dtype):
+    """B2's plain version (gather + grid params + decode, the function the
+    fused kernel computes) against the JAX package's candidate path, on
+    seeded maps with saturated logits: the P5 layout (strides 8/16/32) and
+    the P6 one (8/16/32/64), square and rect, f32 and bf16 maps."""
+    h, w = hw
+    strides = (8, 16, 32, 64)[:levels]
+    anchors = JY.FACE_ANCHORS if levels == 3 else JY.FACE_ANCHORS_P6
+    rng = np.random.RandomState(levels * 1000 + h)
+    maps = []
+    for s in strides:
+        m = rng.normal(0, 3, (2, 3 * (h // s) * (w // s), 16))
+        m[..., 4] -= 2.0  # about a third of the rows pass conf_thres 0.4
+        m[:, ::5, 4] = 25.0  # sigmoid scores tie at 1.0
+        maps.append(jnp.asarray(m.astype(np.float32), getattr(jnp, dtype)))
+    obj = jnp.concatenate([m[..., 4] for m in maps], 1).astype(jnp.float32)
+    # every row, ranked as the detect path ranks its candidates
+    _, idx = jax.lax.top_k(jax.nn.sigmoid(obj), obj.shape[1])
+    idx = np.array(idx, np.int32)
+    ref = np.asarray(_jax_candidate_decode(maps, jnp.asarray(idx), anchors,
+                                           strides, (w, h)))
+    # bf16 values cross over through f32 exactly
+    tmaps = [torch.from_numpy(np.array(m.astype(jnp.float32)))
+             .to(getattr(torch, dtype)) for m in maps]
+    pred, boxes, valid = ck.candidate_decode_plain(
+        tmaps, torch.from_numpy(idx), anchors, strides, (w, h), 0.4)
+    assert pred.dtype == torch.float32 and pred.shape == (*idx.shape, 16)
+    # which rows pass the threshold: decisions, exactly
+    np.testing.assert_array_equal(valid.numpy(), ref[..., 4] >= 0.4)
+    assert 0 < valid.sum() < valid.numel()
+    # pixels to 1e-4: XLA's and ATen's f32 sigmoids may differ by an ulp,
+    # which (2 y)^2 * anchor (up to 568 px) makes a few ulps of a w or h
+    # near 1,000 px, where one ulp is 6e-5: hence also 1e-6 relative
+    np.testing.assert_allclose(pred.numpy(), ref, rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(boxes.numpy(), np.asarray(jxyxy(ref[..., :4])),
+                               rtol=1e-6, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["yolov5n", "yolov5n-0.5"])
