@@ -11,11 +11,15 @@ seconds:
    versions, the kernels of the paths;
 2. build: ``csrc/*.cu`` through one nvcc call (cold, or found built);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the main paths' shapes; each must be exactly equal. B1: B = 8 frames,
-   K = 1024 candidates. B2, the fused candidate gather + decode: f32 and
-   bf16 maps in three level layouts (yolov5s's P5 at 640 x 640 and
-   640 x 384, the four-level P6 at 640 x 640), K = 1024 a frame. B3: 64 crop
-   slots a frame at 112 x 112 and 227 x 227. B4: 512 queries against a
+   at the main paths' shapes; each must be exactly equal. B1, in each of
+   its three option sets: B = 8 frames of K = 1024 candidates, K = 1000
+   (not a multiple of 32), B = 1, and K = 8192 (the cap). B2, the fused
+   candidate gather + decode: f32 and bf16 maps in three level layouts
+   (yolov5s's P5 at 640 x 640 and 640 x 384, the four-level P6 at
+   640 x 640), K = 1024 a frame. B3: 64 crop slots a frame at 112 x 112,
+   227 x 227 and 45 x 31 (odd rows of 93 floats), both box semantics,
+   uint8 and f32 frames, with the epilogue off, clip only, and clip + the
+   age/gender mean. B4: 512 queries against a
    524,288 x 512 gallery, k = 5, against the plain FMA chain on the whole
    gallery. B5: 896 BlazeFace rows a frame, 16 slots. The gallery top-k is
    also held to the default search path (matrix product and stable top-k).
@@ -28,7 +32,9 @@ seconds:
 4. main path, detect: ``FaceEngine(EngineConfig(detector="yolov5s"))`` at
    full width with weights drawn from a seeded generator, ``detect_batch``
    on 8 seeded 576 x 1024 frames (square and rect letterbox) and
-   ``detect_image`` on 3 single frames;
+   ``detect_image`` on 3 single frames; then, after the path's counts are
+   read, B1 alone on the candidates that path hands it (checked against
+   the plain version, timed, its kept boxes a frame printed);
 5. main path, ensemble: the yolov5s + mobile_facenet + age/gender engine,
    ``detect_embed_classify_batch`` on the same 8 frames with every NMS
    survivor a live slot, then ``embed_crops``, ``classify_crops_age_gender``
@@ -69,8 +75,10 @@ from face_detection_and_recognition_tpu_torch.core.engine import (
 from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
 from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
     FACE_ANCHORS
+from face_detection_and_recognition_tpu_torch.ops.preprocess import \
+    AGE_GENDER
 from face_detection_and_recognition_tpu_torch.utils.profiling import (
-    cuda_ms, device_ms)
+    cuda_ms, detect_nms_inputs, device_ms, device_ops)
 
 T0 = time.time()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -87,6 +95,9 @@ def phase_end(name):
     say(f"[{name}] done at {time.time() - T0:.1f} s")
 
 
+TEMPLATE_ARGS = {"h": "uint8", "f": "float", "Lb0E": "false", "Lb1E": "true"}
+
+
 def kernel_resources(report):
     """(kernel, registers, static shared bytes, stack bytes) of each kernel
     in nvcc's ``-Xptxas -v`` report."""
@@ -96,11 +107,13 @@ def kernel_resources(report):
         if m:
             mangled = m.group(1)
             name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
-            tpl = re.search(r"_kernelI(\w+?)E", mangled)  # template argument
-            if tpl:
-                code = tpl.group(1)
-                name += "<%s>" % {"Lb0": "false", "Lb1": "true", "h": "uint8",
-                                  "f": "float"}.get(code, code)
+            rest = mangled.split("_kernelI", 1)[1:]  # template arguments
+            if rest:
+                args, rest = [], rest[0]
+                while (t := re.match(r"h|f|L[bi](\d+)E", rest)):
+                    args.append(TEMPLATE_ARGS.get(t.group(0), t.group(1)))
+                    rest = rest[t.end():]
+                name += "<%s>" % ", ".join(args)
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and name:
@@ -112,51 +125,113 @@ def kernel_resources(report):
     return rows
 
 
-def nms_inputs(gen):
+NMS_OPTION_SETS = ((False, True, "union"), (True, False, "union"),
+                   (True, False, "min"))
+
+
+def nms_inputs(gen, b=B, k=K):
     """Score-sorted pixel boxes on a 640 canvas with duplicate boxes and
     invalid rows, as the detect path hands them to the NMS."""
-    xy = torch.rand((B, K, 2), generator=gen) * 600
-    wh = torch.rand((B, K, 2), generator=gen) * 80 + 4
+    xy = torch.rand((b, k, 2), generator=gen) * 600
+    wh = torch.rand((b, k, 2), generator=gen) * 80 + 4
     boxes = torch.cat([xy, xy + wh], -1)
     boxes[:, 100:140] = boxes[:, 0:40]            # identical boxes
-    valid = torch.rand((B, K), generator=gen) > 0.1
+    valid = torch.rand((b, k), generator=gen) > 0.1
     return boxes.cuda(), valid.cuda()
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the f32 operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else \
+        "operations"
+
+
+def nms_work(boxes, valid, keep):
+    """(operations, bytes) that greedy NMS needs on these inputs: the IoU
+    of each kept box with each later valid box (2 max, 2 min, 2 sub, 2 add,
+    2 clamp, 1 mul for the intersection, add, sub, add eps for the union,
+    div, compare: 16 ops) and the areas (5 ops) of the valid boxes; the
+    valid boxes and every valid flag read, the keep mask written."""
+    v = valid.int()
+    later = v.flip(1).cumsum(1).flip(1) - v   # valid rows after each row
+    pairs = int((later * keep.int()).sum())
+    n_valid = int(v.sum())
+    return 16 * pairs + 5 * n_valid, 16 * n_valid + 2 * valid.numel()
+
+
 def check_nms(gen):
+    """B1 against its plain version in every option set: the kernel row
+    (B = 8, K = 1024), K = 1000 (a ragged last block), B = 1, and K = 8192
+    (the cap: 256 blocks, 64 KB of staged rows)."""
     boxes, valid = nms_inputs(gen)
+    extra = torch.Generator().manual_seed(SEED + 10)
+    cases = [(f"B={B} K={K}", boxes, valid),
+             (f"B={B} K=1000", *nms_inputs(extra, B, 1000)),
+             (f"B=1 K={K}", *nms_inputs(extra, 1, K)),
+             ("B=1 K=8192", *nms_inputs(extra, 1, 8192))]
     err = 0.0
-    for plus1, strict, mode in ((False, True, "union"), (True, False, "union"),
-                                (True, False, "min")):
-        got = ck.nms_fixpoint(boxes, valid, 0.3, plus1, strict, mode)
-        ref = ck.nms_fixpoint_plain(boxes, valid, 0.3, plus1, strict, mode)
-        torch.cuda.synchronize()
-        mism = int((got != ref).sum())
-        err = max(err, float((got.int() - ref.int()).abs().max()))
-        say(f"  nms_fixpoint plus1={plus1} strict={strict} mode={mode}: "
-            f"kept {int(got.sum())} of {int(valid.sum())}, "
-            f"mismatches {mism}")
-        if mism:
-            raise AssertionError("nms_fixpoint differs from its plain version")
+    for case, bx, vd in cases:
+        for plus1, strict, mode in NMS_OPTION_SETS:
+            got = ck.nms_fixpoint(bx, vd, 0.3, plus1, strict, mode)
+            ref = ck.nms_fixpoint_plain(bx, vd, 0.3, plus1, strict, mode)
+            torch.cuda.synchronize()
+            mism = int((got != ref).sum())
+            err = max(err, float((got.int() - ref.int()).abs().max()))
+            say(f"  nms_fixpoint {case} plus1={plus1} strict={strict} "
+                f"mode={mode}: kept {int(got.sum())} of {int(vd.sum())}, "
+                f"mismatches {mism}")
+            if mism:
+                raise AssertionError("nms_fixpoint differs from its plain "
+                                     "version")
     # the detect path's option set: +1 px IoU, suppress at IoU >= 0.3
     args = (boxes, valid, 0.3, True, False, "union")
     ms = cuda_ms(lambda: ck.nms_fixpoint(*args), 50)
-    dev_ms, _ = device_ms(lambda: ck.nms_fixpoint(*args), 50)
+    ops = device_ops(lambda: ck.nms_fixpoint(*args), 50)
+    dev_ms = sum(t * n for t, n in ops.values())
+    phases = {re.search(r"\w+_kernel", name).group(0): t
+              for name, (t, _) in ops.items() if "_kernel" in name}
+    say(f"  nms_fixpoint B={B} K={K} device ms by kernel: {phases}")
     plain_ms = cuda_ms(lambda: ck.nms_fixpoint_plain(*args), 5)
-    # IoU of every pair i < j: 2 max, 2 min, 2 sub, 2 add, 2 clamp, 1 mul
-    # (intersection), add, sub, add eps (union), div, compare = 16 ops;
-    # areas 5 ops a box. Bytes: boxes in, valid in, keep out.
-    ops = B * (K * (K - 1) // 2 * 16 + 5 * K)
-    nbytes = B * K * (16 + 1 + 1)
+    big = cases[-1][1:] + (0.3, True, False, "union")
+    big_ms = cuda_ms(lambda: ck.nms_fixpoint(*big), 20)
+    ops, nbytes = nms_work(boxes, valid, ck.nms_fixpoint(*args))
+    bound_ms, bound_by = bound(ops, nbytes)
+    # the bound over every pair i < j of all K rows, as earlier runs gave it
+    all_pairs_ms = B * (K * (K - 1) // 2 * 16 + 5 * K) / F32_OPS_PER_S * 1e3
+    say(f"  nms_fixpoint B={B} K={K}: {ms:.5f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}; all {K} x {K} pairs: {all_pairs_ms:.6f} ms); "
+        f"B=1 K=8192: {big_ms:.5f} ms")
     return dict(
         name="nms_fixpoint", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/nms.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:90",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
-                  else "operations"),
-        library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        k8192_ms=big_ms, phase_ms=phases)
+
+
+def check_nms_on_path(eng, frames):
+    """B1 on the candidates that the detect path hands it for ``frames``:
+    against its plain version, timed, and its keep counts."""
+    args, kwargs = detect_nms_inputs(eng, frames)
+    with torch.inference_mode():
+        got = ck.nms_fixpoint(*args, **kwargs)
+        ref = ck.nms_fixpoint_plain(*args, **kwargs)
+        if not torch.equal(got, ref):
+            raise AssertionError("nms_fixpoint differs from its plain version"
+                                 " on the detect path's candidates")
+        ms = cuda_ms(lambda: ck.nms_fixpoint(*args, **kwargs), 200)
+        dev_ms, _ = device_ms(lambda: ck.nms_fixpoint(*args, **kwargs), 50)
+    bound_ms, bound_by = bound(*nms_work(args[0], args[1], got))
+    say(f"  nms_fixpoint on the detect path's candidates "
+        f"{tuple(args[0].shape)}: valid a frame {args[1].sum(1).tolist()}, "
+        f"kept {got.sum(1).tolist()}; {ms:.5f} ms between events, "
+        f"{dev_ms:.5f} ms device, bound {bound_ms:.6f} ms ({bound_by})")
+    return dict(path_ms=ms, path_device_ms=dev_ms, path_bound_ms=bound_ms,
+                path_kept=got.sum(1).tolist(),
+                path_valid=args[1].sum(1).tolist())
 
 
 # B2's level layouts: yolov5s-face's P5 at the square and rect letterbox
@@ -257,6 +332,7 @@ def check_decode(gen):
             # the selected raw rows and the indices read once; the decoded
             # rows, boxes and valid bytes written once
             nbytes = B * K * (16 * 4 + 4 + 16 * 4 + 16 + 1)
+            bound_ms, bound_by = bound(0, nbytes)
             result = dict(
                 name="rows_gather", route="cuda",
                 source="face_detection_and_recognition_tpu_torch/csrc/"
@@ -264,7 +340,7 @@ def check_decode(gen):
                 replaces="face_detection_and_recognition_tpu/ops/"
                          "pallas_kernels.py:545",
                 ms=ms, device_ms=dev_ms, host_us=us, plain_ms=plain_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, gather_ms=gather_ms,
                 gather_decode_ms=gather_decode_ms)
     result["max_abs_err"] = err
@@ -316,35 +392,78 @@ def crop_read_bytes(img, boxes, valid, out_hw, clamp):
     return float(covered.sum()) * c * img.element_size()
 
 
+CROP_ODD_HW = (45, 31)          # rows of 93 floats: odd spans
+CROP_EPILOGUES = ((False, None), (True, None), (True, AGE_GENDER.mean))
+
+
+def crop_heads(n_slots, out_hw, c=3):
+    """(CTA spans, spans whose first float is not 16-byte aligned) of a
+    launch with this many slots, as csrc/crop_resize.cu tiles the output
+    (rows of about 2048 pixels a CTA)."""
+    oh, ow = out_hw
+    rows = max(1, min(oh, 2048 // ow))
+    r0 = np.arange(0, oh, rows)
+    offs = (np.arange(n_slots)[:, None] * oh + r0[None]) * ow * c
+    return offs.size, int((offs % 4 != 0).sum())
+
+
 def check_crop(gen, frames):
     """B3 against its plain version: both box semantics, both crop sizes of
-    the ensemble, uint8 frames (the engine's) and f32 frames once."""
+    the ensemble and an odd one, uint8 frames (the engine's) and f32 frames
+    stretched past [0, 255], each with the epilogue off, clip only and clip
+    + the age/gender mean."""
     boxes, valid = crop_inputs(gen, frames)
-    cases = [(hw, clamp, frames) for hw in CROP_HW for clamp in (True, False)]
-    cases.append(((112, 112), True, frames.float()))
+    f32 = frames.float() * 1.5 - 100.0
     err = 0.0
-    for hw, clamp, img in cases:
-        got = ck.crop_resize(img, boxes, valid, hw, clamp)
-        ref = ck.crop_resize_plain(img, boxes, valid, hw, clamp)
-        torch.cuda.synchronize()
-        e = float((got - ref).abs().max())
-        err = max(err, e)
-        say(f"  crop_resize {hw[0]}x{hw[1]} clamp={clamp} {img.dtype}: "
-            f"[{B}, {CROP_K}] boxes, {int(valid.sum())} live, "
-            f"max abs err {e}")
-        if not torch.equal(got, ref):
-            raise AssertionError("crop_resize differs from its plain version")
-        if bool((got[~valid] != 0).any()):
-            raise AssertionError("crop_resize wrote an invalid slot")
-    # timed on the 227 x 227 age/gender crops, the larger of the path's two
+    for hw in CROP_HW + (CROP_ODD_HW,):
+        spans, heads = crop_heads(B * CROP_K, hw)
+        for clamp in (True, False):
+            for img in (frames, f32):
+                for clip, mean in CROP_EPILOGUES:
+                    got = ck.crop_resize(img, boxes, valid, hw, clamp, clip,
+                                         mean)
+                    ref = ck.crop_resize_plain(img, boxes, valid, hw, clamp,
+                                               clip, mean)
+                    torch.cuda.synchronize()
+                    e = float((got - ref).abs().max())
+                    err = max(err, e)
+                    say(f"  crop_resize {hw[0]}x{hw[1]} clamp={clamp} "
+                        f"{img.dtype} clip={clip} mean={mean is not None}: "
+                        f"[{B}, {CROP_K}] boxes, {int(valid.sum())} live, "
+                        f"{heads} of {spans} spans with a head; max abs err "
+                        f"{e}")
+                    if not torch.equal(got, ref):
+                        raise AssertionError("crop_resize differs from its "
+                                             "plain version")
+                    dead = torch.zeros(3, device=got.device) if mean is None \
+                        else -torch.tensor(mean, device=got.device)
+                    if not bool((got[~valid] == dead).all()):
+                        raise AssertionError("crop_resize: an invalid slot "
+                                             "is not 0 - mean")
+    # timed on the 227 x 227 age/gender crops as the ensemble runs them
+    # (clamp, uint8, clip and mean fused), the larger of the path's two
     hw = CROP_HW[1]
-    args = (frames, boxes, valid, hw, True)
+    base = (frames, boxes, valid, hw, True)
+    args = base + (True, AGE_GENDER.mean)
+    mean_t = torch.tensor(AGE_GENDER.mean, device=frames.device)
+
+    def unfused():  # what the engine ran before the epilogue was fused
+        out = ck.crop_resize(*base)
+        out.clamp_(0.0, 255.0)
+        out -= mean_t
+        return out
+
+    if not torch.equal(unfused(), ck.crop_resize(*args)):
+        raise AssertionError("the fused epilogue differs from the passes")
     ms = cuda_ms(lambda: ck.crop_resize(*args), 50)
+    bare_ms = cuda_ms(lambda: ck.crop_resize(*base), 50)
+    unfused_ms = cuda_ms(unfused, 50)
     dev_ms, _ = device_ms(lambda: ck.crop_resize(*args), 20)
     plain_ms = cuda_ms(lambda: ck.crop_resize_plain(*args), 5)
     # the library call: one grid_sample over the f32 NCHW frames, the K
     # crops stacked along the grid's rows, at the same sample coordinates
-    # (zero padding reads 0 only where the weight is 0 here)
+    # (zero padding reads 0 only where the weight is 0 here); it computes
+    # the crop alone, without the clip and the mean
     y0, _, wy, _, _ = ck._crop_taps(boxes[..., 1], boxes[..., 3],
                                     frames.shape[1], hw[0], True)
     x0, _, wx, _, _ = ck._crop_taps(boxes[..., 0], boxes[..., 2],
@@ -364,21 +483,26 @@ def check_crop(gen, frames):
     lib_out = library().reshape(B, 3, CROP_K, hw[0], hw[1]) \
         .permute(0, 2, 3, 4, 1)
     lib_err = float((torch.where(valid[..., None, None, None], lib_out, 0.0)
-                     - ck.crop_resize(*args)).abs().max())
+                     - ck.crop_resize(*base)).abs().max())
     say(f"  grid_sample {hw[0]}x{hw[1]} against the kernel: max abs err "
         f"{lib_err:.3g} (its own rounding of the coordinates)")
-    # every output slot written once (zeros included), the box regions of
-    # the live slots read once, boxes and valid read
+    # every output slot written once (invalid slots included), the box
+    # regions of the live slots read once, boxes and valid read
     nbytes = (B * CROP_K * hw[0] * hw[1] * 3 * 4
               + crop_read_bytes(frames, boxes, valid, hw, True)
               + B * CROP_K * (16 + 1))
+    bound_ms, bound_by = bound(0, nbytes)
+    say(f"  crop_resize {hw[0]}x{hw[1]}: {ms:.5f} ms with clip + mean "
+        f"fused, {bare_ms:.5f} ms without the epilogue, {unfused_ms:.5f} ms "
+        f"as crop + clamp_ + -= (the passes it replaces); bound "
+        f"{bound_ms:.5f} ms; {int(valid.sum())} of {B * CROP_K} slots live")
     return dict(
         name="crop_resize", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/crop_resize.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:420",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=library_ms)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        no_epilogue_ms=bare_ms, unfused_ms=unfused_ms)
 
 
 TOPK_N, TOPK_M, TOPK_D, TOPK_K = 512, 524288, 512, 5  # the similarity path
@@ -456,7 +580,7 @@ def check_topk(gen):
     # and indices written once
     ops = 2 * TOPK_N * TOPK_M * TOPK_D
     nbytes = (TOPK_N + TOPK_M) * TOPK_D * 4 + TOPK_N * TOPK_K * 8
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    bound_ms, bound_by = bound(ops, nbytes)
     met = ms < library_ms and ms <= 2 * bound_ms
     say(f"  topk_gallery: {ms:.3f} ms ({ops / ms / 1e9:.1f} TFLOP/s), "
         f"torch.topk(q @ g.T) {library_ms:.3f} ms, q @ g.T alone "
@@ -469,10 +593,8 @@ def check_topk(gen):
                "topk_gallery.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:186",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
-                  else "operations"),
-        library_ms=library_ms, matmul_ms=matmul_ms)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        matmul_ms=matmul_ms)
 
 
 BLEND_B, BLEND_K, BLEND_OUT = 8, 896, 16  # 8 frames of BlazeFace anchors
@@ -552,15 +674,13 @@ def check_blend(gen):
               + BLEND_B * BLEND_OUT * (17 * 4 + 1))
     say(f"  blend_nms bound: {ious} IoUs, {taken} taken rows, {nbytes} bytes"
         f" read and written, {ops} operations")
+    bound_ms, bound_by = bound(ops, nbytes)
     return dict(
         name="blend_nms", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/blend_nms.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:689",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
-        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S > ops / F32_OPS_PER_S
-                  else "operations"),
-        library_ms=None)
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def check_reference(name, fn, x):
@@ -796,7 +916,8 @@ def main():
     for name, regs, smem, stack in kernel_resources(
             ck.ptxas_report().read_text()):
         say(f"  ptxas: {name}: {regs} registers, {smem} bytes of static "
-            f"shared memory, {stack}-byte stack frame")
+            f"shared memory, {stack}-byte stack frame"
+            + ("" if stack == 0 else " (a stack frame: local memory)"))
     phase_end("build")
 
     say(f"[kernels] against their plain versions on {card}")
@@ -858,6 +979,7 @@ def main():
     for name in ("nms_fixpoint", "rows_gather"):
         if detect_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
+    kernels[0].update(check_nms_on_path(engines[False], frames))
     phase_end("main path: detect")
 
     say("[main path: ensemble] yolov5s + mobile_facenet + age/gender")

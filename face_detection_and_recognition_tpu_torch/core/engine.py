@@ -23,7 +23,7 @@ from ..models import registry
 from ..models.age_gender import labels_from_probs, make_age_gender
 from ..models.embedders import get_embedder, preprocess_crops
 from ..ops import preprocess as P
-from ..ops.crop import crop_and_resize, pad_boxes
+from ..ops.crop import crop_and_resize, crop_for_net, pad_boxes
 from ..ops.geometry import rect_letterbox_size, resize_bilinear
 from ..ops.platform import resolve_device
 from .detections import Detections, PostProcessedDetection, postprocess_detections
@@ -233,8 +233,9 @@ class FaceEngine:
         """Raw BGR crops [B, K, oh, ow, 3] of the [B, K, 4] boxes, zero in
         the invalid slots. The kernel reads the uint8 frames and writes the
         invalid slots without reading; exact bilinear cannot leave
-        [0, 255], so the clip is the JAX engine's contract, kept."""
-        return crop_and_resize(frames, boxes, size, valid).clamp_(0.0, 255.0)
+        [0, 255], so the clip (fused into the kernel's store) is the JAX
+        engine's contract, kept."""
+        return crop_for_net(frames, boxes, size, valid, clip=True)
 
     @staticmethod
     def _ag_crops(frames: torch.Tensor, boxes: torch.Tensor,
@@ -242,14 +243,11 @@ class FaceEngine:
                   clip: bool = False) -> torch.Tensor:
         """227x227 age/gender crops of ``boxes`` padded by +-5 px, BGR mean
         subtracted (``clip``: clipped to [0, 255] first, as the ensemble
-        is)."""
+        is), both in the crop kernel's store. Invalid slots hold
+        ``-mean``."""
         h, w = frames.shape[-3:-1]
-        crops = crop_and_resize(frames, pad_boxes(boxes, AG_PAD, (w, h)),
-                                AG_HW, valid)
-        if clip:
-            crops.clamp_(0.0, 255.0)
-        crops -= torch.tensor(P.AGE_GENDER.mean, device=crops.device)
-        return crops
+        return crop_for_net(frames, pad_boxes(boxes, AG_PAD, (w, h)), AG_HW,
+                            valid, clip=clip, mean=P.AGE_GENDER.mean)
 
     @staticmethod
     def _live_slots(valid: torch.Tensor) -> int:

@@ -8,8 +8,8 @@ GEMM); here there is one per box semantics, ``ops.cuda_kernels.crop_resize``,
 which launches the CUDA kernel for CUDA tensors and runs its plain version
 for CPU tensors.
 
-Both functions take one frame [H, W, C] with boxes [K, 4] (and valid [K]),
-or a batch [B, H, W, C] with [B, K, 4] (and [B, K]).
+The crop functions take one frame [H, W, C] with boxes [K, 4] (and valid
+[K]), or a batch [B, H, W, C] with [B, K, 4] (and [B, K]).
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ def extraction_crop_region(box, w: int, h: int):
 
 
 def _crop(img: torch.Tensor, boxes, out_hw: Tuple[int, int],
-          valid: Optional[torch.Tensor], clamp: bool) -> torch.Tensor:
+          valid: Optional[torch.Tensor], clamp: bool, clip: bool = False,
+          mean: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
     single = img.dim() == 3
     if single:
         img = img[None]
@@ -52,7 +53,7 @@ def _crop(img: torch.Tensor, boxes, out_hw: Tuple[int, int],
     if img.dtype not in (torch.uint8, torch.float32):
         img = img.float()
     out = crop_resize(img.contiguous(), boxes.contiguous(),
-                      valid.contiguous(), tuple(out_hw), clamp)
+                      valid.contiguous(), tuple(out_hw), clamp, clip, mean)
     return out[0] if single else out
 
 
@@ -77,6 +78,17 @@ def crop_and_resize_padded(img: torch.Tensor, boxes,
     ``pad`` semantics (the out-of-bounds region is placed into a zero
     canvas before resizing)."""
     return _crop(img, boxes, out_hw, valid, clamp=False)
+
+
+def crop_for_net(img: torch.Tensor, boxes, out_hw: Tuple[int, int],
+                 valid: Optional[torch.Tensor] = None, clip: bool = True,
+                 mean: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
+    """``crop_and_resize`` followed by what the engine does to crops
+    before a net reads them, fused into the kernel's store: ``clip`` clamps
+    to [0, 255], then ``mean`` (one float a channel) is subtracted. Equal
+    bit for bit to the three steps run apart; invalid slots come out as
+    ``-mean`` (0 without a mean)."""
+    return _crop(img, boxes, out_hw, valid, clamp=True, clip=clip, mean=mean)
 
 
 def pad_boxes(boxes: torch.Tensor, offsets: Tuple[float, float, float, float],

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,7 +114,7 @@ def _lib():
                                                 p]
         lib.candidate_decode_launch.restype = i
         lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
-                                           i, i, p]
+                                           i, i, i, p, p]
         lib.crop_resize_launch.restype = i
         lib.topk_gallery_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                             p]
@@ -467,16 +467,20 @@ def _crop_taps(b0: torch.Tensor, b1: torch.Tensor, n: int, n_out: int,
 
 def crop_resize_plain(img: torch.Tensor, boxes: torch.Tensor,
                       valid: torch.Tensor, out_hw: Tuple[int, int],
-                      clamp: bool = True) -> torch.Tensor:
+                      clamp: bool = True, clip: bool = False,
+                      mean: Optional[Sequence[float]] = None
+                      ) -> torch.Tensor:
     """The gather arithmetic of ``crop_and_resize`` (``clamp=True``) or
     ``crop_and_resize_padded`` (``clamp=False``) of the JAX package's
     ``ops/crop.py``, batched over frames and boxes. The sample coordinate
     is ``fma((o + 0.5) * len, rcp(n_out), lo) - 0.5``, the form XLA
     compiles the JAX source's ``lo + (o + 0.5) * len / n_out - 0.5`` into
-    on the CPU.
+    on the CPU. The epilogue follows, in this order: ``clip`` clamps every
+    value to [0, 255], ``mean`` (C floats) is subtracted.
 
     img: [B, H, W, C] uint8 or float; boxes: [B, K, 4] f32 xyxy pixels;
-    valid: [B, K] bool. Returns [B, K, oh, ow, C] f32, invalid slots 0."""
+    valid: [B, K] bool. Returns [B, K, oh, ow, C] f32; invalid slots
+    sample 0, so they come out as 0, or as ``-mean`` with a mean."""
     b, h, w, c = img.shape
     oh, ow = out_hw
     boxes = boxes.float()
@@ -498,21 +502,30 @@ def crop_resize_plain(img: torch.Tensor, boxes: torch.Tensor,
     top = tap(y0, iy0, x0, ix0) * wx0 + tap(y0, iy0, x1, ix1) * wx1
     bot = tap(y1, iy1, x0, ix0) * wx0 + tap(y1, iy1, x1, ix1) * wx1
     out = top * wy0 + bot * wy1
-    return torch.where(valid[..., None, None, None], out, 0.0)
+    out = torch.where(valid[..., None, None, None], out, 0.0)
+    if clip:
+        out = out.clamp(0.0, 255.0)
+    if mean is not None:
+        out = out - torch.tensor(mean, dtype=torch.float32, device=out.device)
+    return out
 
 
 def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
-                out_hw: Tuple[int, int], clamp: bool = True) -> torch.Tensor:
+                out_hw: Tuple[int, int], clamp: bool = True,
+                clip: bool = False, mean: Optional[Sequence[float]] = None
+                ) -> torch.Tensor:
     """Crop and bilinearly resize K boxes from each of B frames in one
-    launch (``csrc/crop_resize.cu``). The port of ``crop_gemm_pallas``;
+    launch (``csrc/crop_resize.cu``), with the optional clip and mean
+    subtraction applied as it stores. The port of ``crop_gemm_pallas``;
     equal bit for bit to ``crop_resize_plain``.
 
     img: [B, H, W, C] uint8 or float32 NHWC, C <= 4; boxes: [B, K, 4]
     float32 xyxy pixels; valid: [B, K] bool; ``clamp`` picks the box
-    semantics (True: clamp to the frame, False: zero pad). Returns
-    [B, K, oh, ow, C] float32, invalid slots 0."""
+    semantics (True: clamp to the frame, False: zero pad); ``clip`` and
+    ``mean`` (C floats) as in ``crop_resize_plain``. Returns
+    [B, K, oh, ow, C] float32, invalid slots 0 (``-mean`` with a mean)."""
     if img.device.type == "cpu":
-        return crop_resize_plain(img, boxes, valid, out_hw, clamp)
+        return crop_resize_plain(img, boxes, valid, out_hw, clamp, clip, mean)
     _require_cuda("crop_resize", img, boxes, valid)
     if img.dim() != 4 or img.dtype not in (torch.uint8, torch.float32) \
             or not 1 <= img.shape[-1] <= 4:
@@ -532,12 +545,18 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
     if oh < 1 or not 1 <= ow <= 2048 or k > 65535 or b > 65535:
         raise ValueError(f"crop_resize: out {oh}x{ow}, B {b}, K {k} out of "
                          "range (ow <= 2048, B and K <= 65535)")
+    if mean is not None and len(mean) != c:
+        raise ValueError(f"crop_resize: {len(mean)} means for {c} channels")
     out = torch.empty((b, k, oh, ow, c), dtype=torch.float32,
                       device=img.device)
-    err = _lib().crop_resize_launch(
+    import ctypes
+
+    lib = _lib()
+    c_mean = None if mean is None else (ctypes.c_float * c)(*mean)
+    err = lib.crop_resize_launch(
         img.data_ptr(), int(img.dtype == torch.uint8), boxes.data_ptr(),
         valid.data_ptr(), out.data_ptr(), b, k, h, w, c, oh, ow, int(clamp),
-        _stream(img))
+        int(clip), c_mean, _stream(img))
     _check(err, "crop_resize")
     LAUNCHES["crop_resize"] += 1
     return out

@@ -10,6 +10,8 @@ one batch of 8 seeded 576x1024 frames prints
   network, candidates-first decode + NMS, postprocess), between CUDA events,
   and for ``decode+nms`` also its device time and the device operations
   (kernels, copies, memsets) it launches, from torch.profiler;
+- the NMS kernel (B1) alone on the candidates that the detect path hands
+  it for these frames, and the boxes it keeps a frame;
 - the device time of each ensemble stage (detect, 112x112 crops,
   MobileFaceNet, 227x227 crops, the age/gender heads) with every NMS
   survivor live, as ``chip_smoke.py`` drives it;
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.engine import AG_HW, EngineConfig, FaceEngine
-from ..ops.cuda_kernels import topk_gallery
+from ..ops.cuda_kernels import nms_fixpoint, topk_gallery
 from ..pipelines.similarity import (_f32_matmul, _topk_stable,
                                    normalize_rows, topk_similar)
 
@@ -56,29 +58,41 @@ def cuda_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = ITERS):
-    """(device milliseconds, device operations) per call of ``fn``: each
-    kernel, copy or memset that it puts on the card, at its mean self time
-    from torch.profiler over ``iters`` calls after one warm-up, times its
-    count a call, so that a launch whose record the profiler misses lowers
-    no sum."""
+def device_ops(fn, iters: int = ITERS) -> dict:
+    """{name: (mean device ms, count a call)} of each kernel, copy or
+    memset that ``fn`` puts on the card, from torch.profiler over
+    ``iters`` calls after one warm-up. A profiler session that records no
+    device operation at all (seen now and then on an H100) is run again,
+    up to three sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_call = [(e.self_device_time_total / e.count, round(e.count / iters))
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.count]
-    total_us = sum(us * n for us, n in per_call)
-    if total_us <= 0:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops = {e.key: (e.self_device_time_total / e.count / 1e3,
+                       round(e.count / iters))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.count}
+        if ops:
+            return ops
+    return {}
+
+
+def device_ms(fn, iters: int = ITERS):
+    """(device milliseconds, device operations) per call of ``fn``: each
+    operation's mean self time times its count a call, so that a launch
+    whose record the profiler misses lowers no sum."""
+    ops = device_ops(fn, iters).values()
+    total_ms = sum(ms * n for ms, n in ops)
+    if total_ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / 1e3, sum(n for _, n in per_call)
+    return total_ms, sum(n for _, n in ops)
 
 
 def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
@@ -105,6 +119,43 @@ def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
         out["postprocess"] = cuda_ms(lambda: eng._postprocess(
             dets, valid, (w, h), side, dt, at))
         out["detect_batch"] = cuda_ms(lambda: eng.detect_batch(frames))
+    return out
+
+
+def detect_nms_inputs(eng: FaceEngine, frames: np.ndarray):
+    """(args, kwargs) of the ``nms_fixpoint`` call that the yolov5 decode
+    makes in one ``eng.detect_batch(frames)``: the candidates' boxes
+    [B, K, 4], their valid mask and the IoU options, as the path hands
+    them over."""
+    from ..models import yolov5_face
+
+    seen = []
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return nms_fixpoint(*args, **kwargs)
+
+    yolov5_face.nms_fixpoint = capture
+    try:
+        with torch.inference_mode():
+            eng.detect_batch(frames)
+    finally:
+        yolov5_face.nms_fixpoint = nms_fixpoint
+    return seen[0]
+
+
+def nms_stage(eng: FaceEngine, frames: np.ndarray) -> dict:
+    """B1 alone on the detect path's own candidates: milliseconds between
+    CUDA events and of device time, the valid candidates and the kept boxes
+    a frame."""
+    args, kwargs = detect_nms_inputs(eng, frames)
+    with torch.inference_mode():
+        keep = nms_fixpoint(*args, **kwargs)
+        out = {"nms (B1)": cuda_ms(lambda: nms_fixpoint(*args, **kwargs)),
+               "nms (B1), profiler": device_ms(
+                   lambda: nms_fixpoint(*args, **kwargs))[0]}
+    out["valid a frame"] = args[1].sum(1).tolist()
+    out["kept a frame"] = keep.sum(1).tolist()
     return out
 
 
@@ -204,6 +255,8 @@ def main() -> None:
     print(f"stage device ms, B={B} frames {H}x{W}, square 640x640:")
     for name, ms in detect_stages(eng, frames).items():
         print(f"  {name:<22} {ms:9.4f}")
+    for name, v in nms_stage(eng, frames).items():
+        print(f"  {name:<22} {v if isinstance(v, list) else f'{v:9.4f}'}")
     ens = FaceEngine(EngineConfig(detector="yolov5s",
                                   embedder="mobile_facenet",
                                   with_age_gender=True))

@@ -136,3 +136,87 @@ def test_crop_wrapper_takes_plain_path_on_cpu(case):
             torch.from_numpy(valid), (16, 16), False)
     assert torch.equal(ck.crop_resize(*args), ck.crop_resize_plain(*args))
     assert ck.LAUNCHES == before
+
+
+# ---------------- the fused epilogue: clip, then mean ----------------
+
+AG_MEAN = (78.4263377603, 87.7689143744, 114.895847746)  # AGE_GENDER.mean
+EPILOGUES = [(True, None), (True, AG_MEAN), (False, AG_MEAN)]
+
+
+def _frames_for(case, dtype):
+    """The case's frames; float frames are stretched past [0, 255] so that
+    the clip has values to cut on both sides."""
+    frames = case[0]
+    if dtype == np.uint8:
+        return frames
+    return frames.astype(np.float32) * np.float32(1.5) - np.float32(100.0)
+
+
+@pytest.mark.parametrize("clip,mean", EPILOGUES)
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("clamp", [True, False])
+def test_crop_epilogue_equals_unfused(case, clamp, dtype, clip, mean):
+    """crop_resize_plain with the epilogue equals the crop, the clamp and
+    the mean subtraction run apart, as the engine ran them, bit for bit;
+    also at 7 x 13, whose rows (39 floats) are odd."""
+    _, boxes, valid = case
+    img = torch.from_numpy(_frames_for(case, dtype))
+    args = (img, torch.from_numpy(boxes), torch.from_numpy(valid))
+    for out_hw in ((7, 13), (24, 24)):
+        ref = ck.crop_resize_plain(*args, out_hw, clamp)
+        if clip:
+            ref.clamp_(0.0, 255.0)
+        if mean is not None:
+            ref -= torch.tensor(mean)
+        got = ck.crop_resize_plain(*args, out_hw, clamp, clip, mean)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert torch.equal(got, ref)
+        if dtype == np.float32 and clip:  # the clip did cut values
+            raw = ck.crop_resize_plain(*args, out_hw, clamp)
+            assert bool((raw < 0).any()) and bool((raw > 255).any())
+            lo = -torch.tensor(mean) if mean is not None else torch.zeros(3)
+            assert bool((got >= lo).all()) and bool((got <= 255 + lo).all())
+
+
+@pytest.mark.parametrize("clamp", [True, False])
+def test_crop_epilogue_invalid_slots_hold_minus_mean(case, clamp):
+    """An invalid slot samples 0, so after clip and mean it holds -mean,
+    what the engine's crop -> clamp_ -> -= sequence left there."""
+    frames, boxes, valid = case
+    args = (torch.from_numpy(frames), torch.from_numpy(boxes),
+            torch.from_numpy(valid), (9, 11), clamp)
+    got = ck.crop_resize_plain(*args, clip=True, mean=AG_MEAN)
+    want = -torch.tensor(AG_MEAN, dtype=torch.float32)
+    assert (~valid).any()
+    assert torch.equal(got[torch.from_numpy(~valid)],
+                       want.expand_as(got[torch.from_numpy(~valid)]))
+    assert torch.equal(ck.crop_resize_plain(*args, clip=True)[
+        torch.from_numpy(~valid)].abs().max(), torch.tensor(0.0))
+
+
+def test_crop_for_net_is_crop_clamp_subtract(case):
+    """The engine's fused entry point equals crop_and_resize followed by
+    the clamp and the mean subtraction, on one frame and on the batch."""
+    frames, boxes, valid = case
+    img, bx, vd = (torch.from_numpy(a) for a in (frames, boxes, valid))
+    for sl in (slice(None), 0):
+        ref = TC.crop_and_resize(img[sl], bx[sl], (20, 16), vd[sl])
+        ref = ref.clamp_(0.0, 255.0) - torch.tensor(AG_MEAN)
+        got = TC.crop_for_net(img[sl], bx[sl], (20, 16), vd[sl], clip=True,
+                              mean=AG_MEAN)
+        assert torch.equal(got, ref)
+
+
+def test_crop_wrapper_epilogue_takes_plain_path_on_cpu(case):
+    """On CPU tensors the wrapper runs the plain version, epilogue and
+    all: nothing is built and nothing launched."""
+    frames, boxes, valid = case
+    before = dict(ck.LAUNCHES)
+    lib_before = list(ck._LIB)
+    args = (torch.from_numpy(frames), torch.from_numpy(boxes),
+            torch.from_numpy(valid), (13, 7), True)
+    for clip, mean in EPILOGUES:
+        assert torch.equal(ck.crop_resize(*args, clip, mean),
+                           ck.crop_resize_plain(*args, clip, mean))
+    assert ck.LAUNCHES == before and ck._LIB == lib_before

@@ -60,6 +60,146 @@ def test_nms_plain_equals_pallas_and_jnp(rng, plus1, strict, mode):
     assert not keep[~svalid].any()
 
 
+# ---------------- B1: the blocked sweep of csrc/nms.cu ----------------
+
+SWEEP_WARPS = 8  # nms_sweep_kernel's CTA: 256 threads
+
+
+def _overlap_words(boxes, thr, plus1, strict, mode, rng):
+    """Phase 1 of csrc/nms.cu in numpy float32, the IoU in the kernel's
+    operation order: [K, W] uint32 words, bit j of word w of row i set when
+    j = 32 w + bit > i overlaps row i. The words left of the diagonal are
+    never written by the kernel: they hold noise here, which the sweep
+    must never read."""
+    k = boxes.shape[0]
+    n_words = (k + 31) // 32
+    off = np.float32(1.0 if plus1 else 0.0)
+    x1, y1, x2, y2 = (boxes[:, c] for c in range(4))
+    iw = np.maximum(np.minimum(x2[:, None], x2[None]) -
+                    np.maximum(x1[:, None], x1[None]) + off, np.float32(0))
+    ih = np.maximum(np.minimum(y2[:, None], y2[None]) -
+                    np.maximum(y1[:, None], y1[None]) + off, np.float32(0))
+    inter = iw * ih
+    area = (x2 - x1 + off) * (y2 - y1 + off)
+    if mode == "min":
+        denom = np.minimum(area[:, None], area[None])
+    else:
+        denom = area[:, None] + area[None] - inter
+        if plus1:
+            denom = denom + np.float32(1e-16)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = inter / denom
+    hit = (iou > np.float32(thr)) if strict else (iou >= np.float32(thr))
+    hit = np.triu(hit, 1)
+    bits = np.zeros((k, n_words * 32), bool)
+    bits[:, :k] = hit
+    words = (bits.reshape(k, n_words, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+    noise = rng.randint(0, 2 ** 32, (k, n_words), dtype=np.uint64)
+    left = np.arange(n_words)[None] < (np.arange(k) // 32)[:, None]
+    return np.where(left, noise.astype(np.uint32), words)
+
+
+def _blocked_sweep(words, valid):
+    """Phase 2 of csrc/nms.cu: blocks of 32 rows, the block's removed word
+    resolved against its 32 diagonal words by the unrolled recurrence, then
+    the kept rows' words right of the diagonal ORed into removed as the
+    CTA's threads split them: warp g over rows g, g + 8, g + 16, g + 24,
+    lane over words blk + 1 + lane + 32 m, one OR a (warp, word)."""
+    k, n_words = words.shape
+    full = 0xFFFFFFFF
+    removed = []
+    for w in range(n_words):
+        bits = sum(1 << b for b in range(32)
+                   if w * 32 + b < k and valid[w * 32 + b])
+        removed.append(~bits & full)
+    keep = np.zeros(k, bool)
+    for blk in range(n_words):
+        # the block's loads: rows < K, words blk .. W-1
+        rows = {l: words[blk * 32 + l] for l in range(min(32, k - blk * 32))}
+        r = removed[blk]
+        for l in range(32):
+            if not (r >> l) & 1:
+                r |= int(rows[l][blk])
+        kept = ~r & full
+        for l in range(min(32, k - blk * 32)):
+            keep[blk * 32 + l] = (kept >> l) & 1
+        if kept:
+            for g in range(SWEEP_WARPS):
+                for w in range(blk + 1, n_words):
+                    acc = 0
+                    for l in range(g, 32, SWEEP_WARPS):
+                        if (kept >> l) & 1:
+                            acc |= int(rows[l][w])
+                    removed[w] |= acc
+    return keep
+
+
+def _chain_boxes(k):
+    """Boxes 8 px apart on a row of 20 px boxes: each overlaps its
+    neighbours (IoU >= 0.43 in every option set) but not the box two along
+    (<= 0.24), so suppression runs down the chain and the keep mask
+    alternates across every 32-row block boundary."""
+    x = 8.0 * np.arange(k, dtype=np.float32)
+    return np.stack([x, np.zeros(k, np.float32), x + 20.0,
+                     np.full(k, 20.0, np.float32)], -1)
+
+
+def _sweep_case(name, rng):
+    """(boxes [B, K, 4], valid [B, K]), score-sorted."""
+    if name == "k1000":  # K not a multiple of 32
+        boxes = random_boxes(rng, 1000, size=600.0)[None]
+        valid = rng.uniform(size=(1, 1000)) > 0.1
+    elif name == "chains":  # suppression chains across block boundaries
+        boxes = np.stack([_chain_boxes(100), _chain_boxes(100)[::-1].copy()])
+        valid = np.ones((2, 100), bool)
+        valid[0, [31, 64, 65]] = False
+    elif name == "identical":  # groups of identical boxes, interleaved
+        base = random_boxes(rng, 10, size=200.0)
+        boxes = np.stack([base[rng.randint(0, 10, 70)] for _ in range(8)])
+        valid = rng.uniform(size=(8, 70)) > 0.1
+    elif name == "all_invalid":
+        boxes = np.stack([random_boxes(rng, 33, size=100.0)
+                          for _ in range(8)])
+        valid = np.zeros((8, 33), bool)
+    else:  # "b8": 8 images of overlapping boxes with duplicates
+        boxes = np.stack([random_boxes(rng, 200, size=150.0)
+                          for _ in range(8)])
+        boxes[:, 40:60] = boxes[:, 0:20]
+        valid = rng.uniform(size=(8, 200)) > 0.2
+    return boxes.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("plus1,strict,mode", OPTION_SETS)
+@pytest.mark.parametrize("case", ["k1000", "chains", "identical",
+                                  "all_invalid", "b8"])
+def test_nms_blocked_sweep_model_equals_plain_and_jnp(case, plus1, strict,
+                                                      mode):
+    """A numpy model of the kernel's two phases (32-row blocks, the
+    diagonal word resolved in registers, kept rows ORed into removed) keeps
+    exactly what nms_fixpoint_plain and the JAX package's greedy_nms_mask
+    keep, never reading a word left of the diagonal."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    boxes, valid = _sweep_case(case, rng)
+    plain = ck.nms_fixpoint_plain(torch.from_numpy(boxes),
+                                  torch.from_numpy(valid), 0.3, plus1,
+                                  strict, mode).numpy()
+    k = boxes.shape[1]
+    scores = np.linspace(1.0, 0.01, k, dtype=np.float32)  # already sorted
+    for b in range(boxes.shape[0]):
+        words = _overlap_words(boxes[b], 0.3, plus1, strict, mode, rng)
+        model = _blocked_sweep(words, valid[b])
+        np.testing.assert_array_equal(model, plain[b])
+        ref = np.asarray(JN.greedy_nms_mask(boxes[b], scores, valid[b], 0.3,
+                                            plus1=plus1, strict=strict,
+                                            mode=mode))
+        np.testing.assert_array_equal(model, ref)
+    if case == "chains":  # the chain really alternates across blocks
+        assert plain[1, 30:36].tolist() == [True, False] * 3
+    if case == "all_invalid":
+        assert not plain.any()
+
+
 def _levels(rng, b, hw=256):
     """Head maps of a yolov5 P5 net at hw x hw: 3 anchors x (hw/s)^2 rows of
     16 per level, flattened, with saturated logits for ties."""
