@@ -21,7 +21,14 @@ seconds:
    uint8 and f32 frames, with the epilogue off, clip only, and clip + the
    age/gender mean. B4: 512 queries against a
    524,288 x 512 gallery, k = 5, against the plain FMA chain on the whole
-   gallery. B5: 896 BlazeFace rows a frame, 16 slots. The gallery top-k is
+   gallery. B5, the standalone entry point: 896 BlazeFace rows a frame,
+   16 slots; 10 rows; nothing valid; K = 2048; K = 2048 at D = 32 (rows
+   read from L2); 40 slots (past the first chunk of 32 picks). B5, the
+   fused entry point (decode, sigmoid, threshold, sort, blend NMS): seeded
+   raw heads of both nets at B = 8 with ties at sigmoid 1.0 and an
+   inverted box, nothing above the threshold, every anchor above it, and
+   (in phase 7) the nets' own heads on the path's frames. The gallery
+   top-k is
    also held to the default search path (matrix product and stable top-k).
    Prints for each kernel its time between CUDA events over a loop of
    calls, its device time a call from torch.profiler, the plain and
@@ -46,8 +53,12 @@ seconds:
 7. main path, BlazeFace: ``FaceEngine(EngineConfig(detector=...))`` for
    ``blazeface-back`` (256 x 256) and ``blazeface-front`` (128 x 128) at
    full width, ``detect_batch`` on the same 8 frames and ``detect_image``
-   on the 3 single frames; prints the anchors above the score threshold
-   and the blend NMS's picks a frame.
+   on the 3 single frames. After the path's counts are read, on the
+   path's raw heads: the anchors above the score threshold and the blend
+   NMS's picks a frame, the fused kernel against its plain version and
+   timed alone, and the engine's fused stage bit for bit against the ops
+   layer's route (``decode_boxes`` + ``weighted_blend_nms``, the
+   standalone B5, which no engine calls).
    Each main path zeroes the launch counts just before it and reads them
    just after; every kernel of the path must have launched, and every
    output must be finite and of the contract's shape;
@@ -641,27 +652,64 @@ def blend_work(sdets, svalid, thr, max_out):
     return ious, taken
 
 
+def same_bits(a, b):
+    """Equal tensors, float32 ones compared bit for bit."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def singleton_rows(gen, k):
+    """K score-sorted rows of boxes that overlap no other: every row is a
+    slot of its own, so max_out > 32 slots run past the kernel's first
+    chunk of picks."""
+    dets = torch.zeros((1, k, 17))
+    dets[0, :, 0] = dets[0, :, 1] = torch.arange(k, dtype=torch.float32)
+    dets[0, :, 2:4] = dets[0, :, 0:2] + 0.5
+    dets[0, :, 4:16] = torch.randn((k, 12), generator=gen)
+    dets[0, :, 16] = torch.linspace(1.0, 0.5, k)
+    return dets.cuda(), torch.ones((1, k), dtype=torch.bool).cuda()
+
+
+def wide_rows(gen, b, k, d):
+    """``blend_inputs`` rows widened to D columns (random coords inserted
+    before the score): at K = 2048 and D = 32 the rows exceed the
+    kernel's shared-memory budget, so the blend reads them from L2."""
+    sd, sv = blend_inputs(gen, b, k)
+    extra = torch.rand((b, k, d - 17), generator=gen).cuda()
+    return torch.cat([sd[..., :16], extra, sd[..., 16:]], -1), sv
+
+
 def check_blend(gen):
-    """B5 against its plain version, bit for bit: the detect shape (8
-    frames of 896 rows), fewer rows than slots, and nothing valid."""
+    """B5's standalone entry point against its plain version, bit for bit:
+    the BlazeFace shape (8 frames of 896 rows), fewer rows than slots,
+    nothing valid, K = 2048 (the cap; 139 KB of rows staged), K = 2048 at
+    D = 32 (rows read from L2), and 40 slots (past the first chunk of 32
+    picks)."""
     sd, sv = blend_inputs(gen, BLEND_B, BLEND_K)
-    small = blend_inputs(gen, 2, 10)
-    cases = [(sd, sv), small, (sd, torch.zeros_like(sv))]
+    cases = [(sd, sv, BLEND_OUT), (*blend_inputs(gen, 2, 10), BLEND_OUT),
+             (sd, torch.zeros_like(sv), BLEND_OUT),
+             (*blend_inputs(gen, 2, 2048), BLEND_OUT),
+             (*wide_rows(gen, 2, 2048, 32), BLEND_OUT),
+             (*singleton_rows(gen, 100), 40)]
     err = 0.0
-    for d, v in cases:
-        got = ck.blend_nms(d, v, 0.3, BLEND_OUT)
-        ref = ck.blend_nms_plain(d, v, 0.3, BLEND_OUT)
+    for d, v, m in cases:
+        got = ck.blend_nms(d, v, 0.3, m)
+        ref = ck.blend_nms_plain(d, v, 0.3, m)
         torch.cuda.synchronize()
         e = float((got[0] - ref[0]).abs().max())
         err = max(err, e)
-        say(f"  blend_nms [{d.shape[0]}, {d.shape[1]}, 17]: "
+        say(f"  blend_nms {list(d.shape)} max_out={m}: "
             f"{int(v.sum())} valid rows, {int(got[1].sum())} picks, "
             f"max abs err {e}")
-        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        if not (same_bits(got[0], ref[0]) and same_bits(got[1], ref[1])):
             raise AssertionError("blend_nms differs from its plain version")
-    ms = cuda_ms(lambda: ck.blend_nms(sd, sv, 0.3, BLEND_OUT), 50)
+    ms = cuda_ms(lambda: ck.blend_nms(sd, sv, 0.3, BLEND_OUT), 200)
     dev_ms, _ = device_ms(lambda: ck.blend_nms(sd, sv, 0.3, BLEND_OUT), 50)
     plain_ms = cuda_ms(lambda: ck.blend_nms_plain(sd, sv, 0.3, BLEND_OUT), 2)
+    big = cases[3]
+    k2048_ms = cuda_ms(lambda: ck.blend_nms(*big[:2], 0.3, BLEND_OUT), 50)
     ious, taken = blend_work(sd, sv, 0.3, BLEND_OUT)
     # an IoU: 2 max, 2 min, 2 sub, 2 clamp, 1 mul, the other box's area
     # (2 sub, 1 mul), add, sub, div, compare = 15; a taken row: a multiply
@@ -673,14 +721,185 @@ def check_blend(gen):
     nbytes = (BLEND_B * BLEND_K + int(sv.sum()) * 16 + taken * (17 - 4) * 4
               + BLEND_B * BLEND_OUT * (17 * 4 + 1))
     say(f"  blend_nms bound: {ious} IoUs, {taken} taken rows, {nbytes} bytes"
-        f" read and written, {ops} operations")
+        f" read and written, {ops} operations; B=2 K=2048: {k2048_ms:.5f} ms")
     bound_ms, bound_by = bound(ops, nbytes)
     return dict(
         name="blend_nms", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/blend_nms.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:689",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        k2048_ms=k2048_ms)
+
+
+# (net, scale, score threshold) of the two BlazeFace detectors
+BLAZE_NETS = (("back", 256.0, 0.65), ("front", 128.0, 0.75))
+BLAZE_CLIP, BLAZE_IOU = 100.0, 0.3
+
+
+def blaze_heads(gen, b, thr, case="ties"):
+    """Raw BlazeFace heads [B, 896, 16], [B, 896, 1] on the card: box
+    offsets in input pixels, logits spread around the score threshold with
+    every 97th at +150 (ties at sigmoid 1.0) and every 101st at -150, and
+    anchor 10 an inverted box at +150. "none" puts every logit below the
+    threshold, "all" every one above it."""
+    logit = float(np.log(thr / (1 - thr)))
+    boxes = torch.randn((b, 896, 16), generator=gen) * 6
+    boxes[..., 2:4] = torch.rand((b, 896, 2), generator=gen) * 20 + 10
+    boxes[:, 10, 2:4] = -20.0
+    noise = torch.randn((b, 896, 1), generator=gen) * 1.5
+    scores = logit + noise
+    if case == "none":
+        scores = logit - 0.01 - noise.abs()
+    elif case == "all":
+        scores = logit + 0.01 + noise.abs()
+    if case != "none":
+        scores[:, ::97] = 150.0
+        scores[:, 10] = 150.0
+    if case == "ties":
+        scores[:, 5::101] = -150.0
+    return boxes.cuda(), scores.cuda()
+
+
+def blaze_args(raw_boxes, raw_scores, anchors, scale, thr):
+    return (raw_boxes, raw_scores, anchors, scale, BLAZE_CLIP, thr,
+            BLAZE_IOU, BLEND_OUT)
+
+
+def blaze_work(args):
+    """(operations, bytes) that BlazeFace's postprocess needs on these
+    inputs: the clip, sigmoid (counted as 4) and threshold of every score,
+    the decode of each valid row (3 operations a column, 4 more for the box
+    corners), n log2 n comparisons to sort a frame's n valid rows, and the
+    blend NMS's IoUs and blends (``check_blend``); every input byte read
+    once and the slots written."""
+    from face_detection_and_recognition_tpu_torch.models.blazeface import \
+        decode_boxes
+    from face_detection_and_recognition_tpu_torch.ops.nms import \
+        sort_by_score
+
+    raw_boxes, raw_scores, anchors, scale, clip, thr, iou, max_out = args
+    scores = torch.sigmoid(raw_scores[..., 0].clamp(-clip, clip))
+    dets = torch.cat([decode_boxes(raw_boxes, anchors, scale),
+                      scores[..., None]], -1)
+    valid = scores >= thr
+    _, _, sv, sd = sort_by_score(scores, valid, dets)
+    ious, taken = blend_work(sd, sv, iou, max_out)
+    nv = valid.sum(1).double()
+    sort_ops = int((nv * torch.log2(nv.clamp(min=2))).sum())
+    b, n = valid.shape
+    ops = (b * n * 7 + int(nv.sum()) * (16 * 3 + 4) + sort_ops + ious * 15
+           + taken * 17 * 3 + b * max_out * 17)
+    nbytes = sum(t.numel() * 4 for t in (raw_boxes, raw_scores, anchors)) \
+        + b * max_out * (17 * 4 + 1)
+    return ops, nbytes
+
+
+def check_fused_case(label, args):
+    """The fused entry point against its plain version on ``args``, bit
+    for bit. Returns the max abs difference (0)."""
+    got = ck.blaze_decode_blend(*args)
+    ref = ck.blaze_decode_blend_plain(*args)
+    torch.cuda.synchronize()
+    e = float((got[0] - ref[0]).abs().max())
+    scores = torch.sigmoid(args[1][..., 0].clamp(-BLAZE_CLIP, BLAZE_CLIP))
+    say(f"  blaze_decode_blend {label}: valid anchors a frame "
+        f"{(scores >= args[5]).sum(1).tolist()}, picks "
+        f"{got[1].sum(1).tolist()}, max abs err {e}")
+    if not (same_bits(got[0], ref[0]) and same_bits(got[1], ref[1])):
+        raise AssertionError(f"blaze_decode_blend differs from its plain "
+                             f"version ({label})")
+    return e
+
+
+def check_blaze_decode(gen):
+    """B5's fused entry point (decode, sigmoid, threshold, sort, blend NMS,
+    reorder) against its plain version, bit for bit, for both nets at
+    B = 8: seeded heads with ties at sigmoid 1.0 and an inverted box,
+    nothing above the threshold, every anchor above it. Timed on the back
+    net's seeded heads."""
+    from face_detection_and_recognition_tpu_torch.models.blazeface import \
+        generate_anchors
+
+    anchors = torch.from_numpy(generate_anchors()).cuda()
+    err, timed = 0.0, None
+    for net, scale, thr in BLAZE_NETS:
+        for case in ("ties", "none", "all"):
+            args = blaze_args(*blaze_heads(gen, B, thr, case), anchors,
+                              scale, thr)
+            err = max(err, check_fused_case(f"{net} B={B} {case}", args))
+            if timed is None:
+                timed = args
+    ms = cuda_ms(lambda: ck.blaze_decode_blend(*timed), 200)
+    dev_ms, _ = device_ms(lambda: ck.blaze_decode_blend(*timed), 50)
+    plain_ms = cuda_ms(lambda: ck.blaze_decode_blend_plain(*timed), 2)
+    ops, nbytes = blaze_work(timed)
+    bound_ms, bound_by = bound(ops, nbytes)
+    say(f"  blaze_decode_blend back B={B}: {ms:.5f} ms, device "
+        f"{dev_ms:.5f} ms; bound: "
+        f"{ops} operations, {nbytes} bytes, {bound_ms:.6f} ms ({bound_by})")
+    return dict(
+        name="blaze_decode_blend", route="cuda",
+        source="face_detection_and_recognition_tpu_torch/csrc/blend_nms.cu",
+        replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:689",
+        fuses="face_detection_and_recognition_tpu/models/blazeface.py:144",
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_blaze_on_path(engines, frames):
+    """On the raw heads that each BlazeFace net gives for ``frames``: the
+    fused kernel against its plain version, and the engine's fused stage
+    against the ops layer's route to the same rows (``decode_boxes``, the
+    sigmoid and threshold, ``ops.nms.weighted_blend_nms``: the standalone
+    B5), both bit for bit; the fused kernel timed on the back net's."""
+    from face_detection_and_recognition_tpu_torch.models.blazeface import (
+        BlazeFaceConfig, decode_boxes, generate_anchors)
+    from face_detection_and_recognition_tpu_torch.ops.nms import \
+        weighted_blend_nms
+
+    anchors = torch.from_numpy(generate_anchors()).cuda()
+    out = {}
+    for name, eng in engines.items():
+        cfg = BlazeFaceConfig(back_model=name == "blazeface-back",
+                              **eng.cfg.detector_overrides)
+        with torch.inference_mode():
+            x = eng._preprocess(eng._frames(frames))
+            raw_boxes, raw_scores = eng._network(x)
+            args = blaze_args(raw_boxes, raw_scores, anchors, cfg.scale,
+                              cfg.min_score_thresh)
+            check_fused_case(f"on the {name} path's heads", args)
+            dets, valid = eng._decode((raw_boxes, raw_scores),
+                                      tuple(x.shape[1:3]))
+            scores = torch.sigmoid(raw_scores[..., 0].clamp(
+                -cfg.score_clipping_thresh, cfg.score_clipping_thresh))
+            above = scores >= cfg.min_score_thresh
+            rows = torch.cat([decode_boxes(raw_boxes, anchors, cfg.scale),
+                              scores[..., None]], -1)
+            ops_dets, ops_valid = weighted_blend_nms(
+                rows, above, cfg.min_suppression_threshold, cfg.max_faces)
+            ops_dets = ops_dets[..., [1, 0, 3, 2] + list(range(4, 17))]
+            if name == "blazeface-back":
+                out["path_ms"] = cuda_ms(
+                    lambda: ck.blaze_decode_blend(*args), 200)
+                out["path_device_ms"] = device_ms(
+                    lambda: ck.blaze_decode_blend(*args), 50)[0]
+                out["path_bound_ms"] = bound(*blaze_work(args))[0]
+        if not (same_bits(dets, ops_dets) and torch.equal(valid, ops_valid)):
+            raise AssertionError(f"{name}: the fused stage and the ops "
+                                 "layer's route differ")
+        above = above.sum(1)
+        say(f"  {name}: anchors above {cfg.min_score_thresh} a frame "
+            f"{above.tolist()} of 896; blend NMS picks "
+            f"{valid.sum(1).tolist()}, equal bit for bit through the fused "
+            "kernel and through decode_boxes + weighted_blend_nms")
+        if not bool(((above > 0) & (above < 896)).all()):
+            raise AssertionError("every or no anchor passes: the blend NMS "
+                                 "would have nothing to do")
+    say(f"  blaze_decode_blend on the back path's heads: "
+        f"{out['path_ms']:.5f} ms between events, {out['path_device_ms']:.5f}"
+        f" ms device, bound {out['path_bound_ms']:.6f} ms")
+    return out
 
 
 def check_reference(name, fn, x):
@@ -835,30 +1054,15 @@ def run_similarity(emb, card):
 
 def run_blazeface(frames, singles, card):
     """The BlazeFace main path: the back (256 x 256) and front (128 x 128)
-    detectors on the 8 frames and on single frames. Returns the launch
-    counts of this path alone."""
-    from face_detection_and_recognition_tpu_torch.models.blazeface import \
-        BlazeFaceConfig
-
+    detectors on the 8 frames and on single frames, through the engine's
+    entry points alone. Returns the launch counts of this path alone, and
+    the engines."""
     t = time.time()
     engines = {name: FaceEngine(EngineConfig(detector=name, seed=SEED))
                for name in ("blazeface-back", "blazeface-front")}
     say(f"  engines built in {time.time() - t:.1f} s")
     ck.reset_launches()
     for name, eng in engines.items():
-        cfg = BlazeFaceConfig(back_model=name == "blazeface-back",
-                              **eng.cfg.detector_overrides)
-        with torch.inference_mode():
-            raw = eng._network(eng._preprocess(eng._frames(frames)))[1]
-        raw = raw[..., 0].clamp(-cfg.score_clipping_thresh,
-                                cfg.score_clipping_thresh)
-        above = (torch.sigmoid(raw) >= cfg.min_score_thresh).sum(1)
-        picks = eng.detect_batch(frames, 0.0, 0.0).valid.sum(1)
-        say(f"  {name}: anchors above {cfg.min_score_thresh} a frame "
-            f"{above.tolist()} of 896; blend NMS picks {picks.tolist()}")
-        if not bool(((above > 0) & (above < 896)).all()):
-            raise AssertionError("every or no anchor passes: the blend NMS "
-                                 "would have nothing to do")
         eng.detect_batch(frames)
         torch.cuda.synchronize()
         t = time.time()
@@ -904,7 +1108,8 @@ def main():
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
     say(f"  kernels: {sorted(ck.LAUNCHES)} (B1 NMS keep mask, B2 candidate"
         " row gather, B3 crop + bilinear resize, B4 gallery top-k, B5"
-        " weighted-blend NMS), CUDA C++ for sm_90a")
+        " weighted-blend NMS: standalone, and fused with BlazeFace's decode),"
+        " CUDA C++ for sm_90a")
     phase_end("environment")
 
     say("[build]")
@@ -928,7 +1133,7 @@ def main():
     kernels = [check_nms(gen), check_decode(gen),
                check_crop(gen, torch.from_numpy(frames).cuda()),
                check_topk(torch.Generator(device="cuda").manual_seed(SEED)),
-               check_blend(gen)]
+               check_blend(gen), check_blaze_decode(gen)]
     for k in kernels:
         say(f"  {k['name']}: kernel {k['ms']:.5f} ms (device "
             f"{k['device_ms']:.5f} ms), plain {k['plain_ms']:.4f} ms, "
@@ -1007,8 +1212,10 @@ def main():
     say("[main path: blazeface] BlazeFace back and front FaceEngines")
     blaze_launches, blaze = run_blazeface(frames, singles, card)
     say(f"  launches on the blazeface path: {blaze_launches}")
-    if blaze_launches["blend_nms"] <= 0:
-        raise AssertionError("kernel blend_nms never launched on the path")
+    if blaze_launches["blaze_decode_blend"] <= 0:
+        raise AssertionError("kernel blaze_decode_blend never launched on "
+                             "the path")
+    kernels[-1].update(check_blaze_on_path(blaze, frames))
     phase_end("main path: blazeface")
 
     say("[reference] the card against the CPU")
@@ -1029,7 +1236,8 @@ def main():
     phase_end("reference")
 
     # each path's counts were zeroed just before it and read just after;
-    # launches is their sum, launches_by_path keeps them apart
+    # launches is their sum, launches_by_path keeps them apart (blend_nms,
+    # the standalone B5, is on no main path: the engine calls the fused one)
     for k in kernels:
         by_path = {"detect": detect_launches[k["name"]],
                    "ensemble": ensemble_launches[k["name"]],

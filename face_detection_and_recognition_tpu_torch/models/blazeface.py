@@ -8,7 +8,8 @@ loads as it is. Anchors come from the MediaPipe SSD anchor options: both
 models have the same 896 unit-sized anchors (16x16 cells x 2 + 8x8 cells x 6).
 
 Decode, score sigmoid, threshold and the weighted-blend NMS run on the
-device over fixed-size tensors: [B, max_faces, 17] rows and a validity mask.
+device in one kernel launch, over fixed-size tensors: [B, max_faces, 17]
+rows and a validity mask.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.nms import weighted_blend_nms
+from ..ops.boxes import decode_boxes  # re-exported beside the model
+from ..ops.cuda_kernels import blaze_decode_blend
 from .layers import BlazeBlock, FinalBlazeBlock
 
 _FRONT_BLOCKS = ((24, 1), (28, 1), (32, 2), (36, 1), (42, 1), (48, 2),
@@ -160,42 +162,18 @@ class BlazeFaceNet(nn.Module):
         return self
 
 
-def decode_boxes(raw_boxes: torch.Tensor, anchors: torch.Tensor,
-                 scale: float) -> torch.Tensor:
-    """Anchor decode: [..., 896, 16] rows [ymin, xmin, ymax, xmax, kp0x,
-    kp0y, ... kp5x, kp5y] in normalized units."""
-    ax, ay = anchors[:, 0], anchors[:, 1]
-    aw, ah = anchors[:, 2], anchors[:, 3]
-    x_c = raw_boxes[..., 0] / scale * aw + ax
-    y_c = raw_boxes[..., 1] / scale * ah + ay
-    w = raw_boxes[..., 2] / scale * aw
-    h = raw_boxes[..., 3] / scale * ah
-    cols = [y_c - h / 2.0, x_c - w / 2.0, y_c + h / 2.0, x_c + w / 2.0]
-    for k in range(6):
-        off = 4 + k * 2
-        cols.append(raw_boxes[..., off] / scale * aw + ax)
-        cols.append(raw_boxes[..., off + 1] / scale * ah + ay)
-    return torch.stack(cols, dim=-1)
-
-
 def blazeface_postprocess(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
                           anchors: torch.Tensor, cfg: BlazeFaceConfig
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode, clip and sigmoid the scores, threshold, weighted-blend NMS.
+    """Decode, clip and sigmoid the scores, threshold, weighted-blend NMS:
+    one launch of the fused kernel on the card, its plain chain of torch
+    ops on the CPU (``ops/cuda_kernels.blaze_decode_blend``).
 
     Returns dets [B, max_faces, 17] rows [xmin, ymin, xmax, ymax, kps...,
     conf] (the wrapper contract's column order) and valid [B, max_faces]."""
-    boxes = decode_boxes(raw_boxes, anchors, cfg.scale)
-    clipped = raw_scores[..., 0].clamp(-cfg.score_clipping_thresh,
-                                       cfg.score_clipping_thresh)
-    scores = torch.sigmoid(clipped)
-    mask = scores >= cfg.min_score_thresh
-    dets = torch.cat([boxes, scores[..., None]], -1)            # [B, 896, 17]
-    out, out_valid = weighted_blend_nms(dets, mask,
-                                        cfg.min_suppression_threshold,
-                                        cfg.max_faces)
-    # [ymin, xmin, ymax, xmax, ...] -> [xmin, ymin, xmax, ymax, ...]
-    return out[..., [1, 0, 3, 2] + list(range(4, 17))], out_valid
+    return blaze_decode_blend(raw_boxes, raw_scores, anchors, cfg.scale,
+                              cfg.score_clipping_thresh, cfg.min_score_thresh,
+                              cfg.min_suppression_threshold, cfg.max_faces)
 
 
 def make_blazeface(cfg: BlazeFaceConfig, generator: torch.Generator,

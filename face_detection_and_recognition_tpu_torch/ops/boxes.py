@@ -1,5 +1,6 @@
 """Box arithmetic: format conversion and batched IoU, as ``ops/boxes.py`` of
-the JAX package computes them (same operation order, so the same f32
+the JAX package computes them, and BlazeFace's anchor decode, as its
+``models/blazeface.py`` does (same operation order, so the same f32
 results)."""
 from __future__ import annotations
 
@@ -32,3 +33,21 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor, plus1: bool = False,
     union = box_area(a, plus1)[..., :, None] + \
         box_area(b, plus1)[..., None, :] - inter
     return inter / (union + eps) if eps else inter / union
+
+
+def decode_boxes(raw_boxes: torch.Tensor, anchors: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """BlazeFace's anchor decode: [..., 896, 16] rows [ymin, xmin, ymax,
+    xmax, kp0x, kp0y, ... kp5x, kp5y] in normalized units."""
+    ax, ay = anchors[:, 0], anchors[:, 1]
+    aw, ah = anchors[:, 2], anchors[:, 3]
+    x_c = raw_boxes[..., 0] / scale * aw + ax
+    y_c = raw_boxes[..., 1] / scale * ah + ay
+    w = raw_boxes[..., 2] / scale * aw
+    h = raw_boxes[..., 3] / scale * ah
+    cols = [y_c - h / 2.0, x_c - w / 2.0, y_c + h / 2.0, x_c + w / 2.0]
+    for k in range(6):
+        off = 4 + k * 2
+        cols.append(raw_boxes[..., off] / scale * aw + ax)
+        cols.append(raw_boxes[..., off + 1] / scale * ah + ay)
+    return torch.stack(cols, dim=-1)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -29,7 +30,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .boxes import xywh2xyxy
+from .boxes import decode_boxes, xywh2xyxy
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -38,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0,
-            "topk_gallery": 0, "blend_nms": 0}
+            "topk_gallery": 0, "blend_nms": 0, "blaze_decode_blend": 0}
 
 _LIB = []  # the loaded library, once built
 
@@ -122,6 +123,10 @@ def _lib():
         lib.blend_nms_launch.argtypes = [p, p, p, p, i, i, i, ctypes.c_float,
                                          i, p]
         lib.blend_nms_launch.restype = i
+        f = ctypes.c_float
+        lib.blaze_decode_blend_launch.argtypes = [p, p, p, p, p, i, i, f, f, f,
+                                                  f, i, p]
+        lib.blaze_decode_blend_launch.restype = i
         lib.kernels_error_string.argtypes = [i]
         lib.kernels_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
@@ -719,9 +724,9 @@ def blend_nms_plain(sdets: torch.Tensor, svalid: torch.Tensor,
 def blend_nms(sdets: torch.Tensor, svalid: torch.Tensor, iou_thres: float,
               max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted-blend NMS of every image in one launch, one CTA an image
-    (``csrc/blend_nms.cu``). The port of ``weighted_blend_nms_pallas``, to
-    the function of the f32 fori loop; equal bit for bit to
-    ``blend_nms_plain``.
+    (``csrc/blend_nms.cu``, the standalone entry point). The port of
+    ``weighted_blend_nms_pallas``, to the function of the f32 fori loop;
+    equal bit for bit to ``blend_nms_plain``.
 
     sdets: [B, K, D] f32 score-sorted rows (score in col D-1, D >= 5,
     K <= ``BLEND_MAX_ROWS``); svalid: [B, K] bool. Returns (rows
@@ -748,4 +753,82 @@ def blend_nms(sdets: torch.Tensor, svalid: torch.Tensor, iou_thres: float,
         _stream(sdets))
     _check(err, "blend_nms")
     LAUNCHES["blend_nms"] += 1
+    return out, out_valid
+
+
+BLAZE_MAX_ANCHORS = 1024  # the anchor cap of blaze_decode_blend
+
+
+def blaze_decode_blend_plain(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
+                             anchors: torch.Tensor, scale: float,
+                             score_clip: float, score_thres: float,
+                             iou_thres: float, max_out: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BlazeFace's postprocess as a chain of torch ops: the anchor decode,
+    the clipped sigmoid score, the threshold, the stable sort by score, the
+    weighted-blend NMS (``blend_nms_plain``) and the column reorder to
+    ``[xmin, ymin, xmax, ymax, 12 kps, conf]``. The function of the JAX
+    package's ``blazeface_postprocess``.
+
+    raw_boxes: [B, N, 16] f32; raw_scores: [B, N, 1] f32; anchors: [N, 4]
+    f32 rows (x, y, w, h). Returns (dets [B, max_out, 17], valid
+    [B, max_out])."""
+    from .nms import sort_by_score  # it imports this module
+
+    boxes = decode_boxes(raw_boxes, anchors, scale)
+    scores = torch.sigmoid(raw_scores[..., 0].clamp(-score_clip, score_clip))
+    dets = torch.cat([boxes, scores[..., None]], -1)
+    _, _, svalid, sdets = sort_by_score(scores, scores >= score_thres, dets)
+    out, out_valid = blend_nms_plain(sdets, svalid, iou_thres, max_out)
+    # [ymin, xmin, ymax, xmax, ...] -> [xmin, ymin, xmax, ymax, ...]
+    return out[..., [1, 0, 3, 2] + list(range(4, 17))], out_valid
+
+
+def blaze_decode_blend(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
+                       anchors: torch.Tensor, scale: float, score_clip: float,
+                       score_thres: float, iou_thres: float, max_out: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BlazeFace's whole postprocess, every frame in one launch
+    (``csrc/blend_nms.cu``, the fused entry point): decode, clip and
+    sigmoid, threshold, sort and weighted-blend NMS, the rows written in the
+    contract's column order. The port of ``weighted_blend_nms_pallas`` with
+    the decode around it; equal bit for bit to ``blaze_decode_blend_plain``.
+
+    raw_boxes: [B, N, 16] f32 and anchors [N, 4] f32, both contiguous and
+    16-byte aligned; raw_scores: [B, N, 1] f32; N <= ``BLAZE_MAX_ANCHORS``;
+    ``scale`` a power of two, on every device (the kernel's division by it
+    is exact only then). Returns (dets [B, max_out, 17] f32, valid
+    [B, max_out] bool)."""
+    if not (scale > 0 and math.frexp(scale)[0] == 0.5):
+        raise ValueError(f"blaze_decode_blend: scale {scale} is not a power "
+                         "of two")
+    if raw_boxes.device.type == "cpu":
+        return blaze_decode_blend_plain(raw_boxes, raw_scores, anchors, scale,
+                                        score_clip, score_thres, iou_thres,
+                                        max_out)
+    _require_cuda("blaze_decode_blend", raw_boxes, raw_scores, anchors)
+    b, n = raw_boxes.shape[:2]
+    if any(t.dtype != torch.float32 for t in (raw_boxes, raw_scores, anchors)) \
+            or raw_boxes.shape != (b, n, 16) \
+            or raw_scores.shape != (b, n, 1) or anchors.shape != (n, 4):
+        raise ValueError(f"blaze_decode_blend: f32 [B, N, 16], [B, N, 1] and "
+                         f"[N, 4] expected, got {tuple(raw_boxes.shape)}, "
+                         f"{tuple(raw_scores.shape)} and "
+                         f"{tuple(anchors.shape)}")
+    if n > BLAZE_MAX_ANCHORS or raw_boxes.data_ptr() % 16 \
+            or anchors.data_ptr() % 16:
+        raise ValueError(f"blaze_decode_blend: N = {n} (at most "
+                         f"{BLAZE_MAX_ANCHORS}), or boxes or anchors not "
+                         "16-byte aligned")
+    out = torch.empty((b, max_out, 17), dtype=torch.float32,
+                      device=raw_boxes.device)
+    out_valid = torch.empty((b, max_out), dtype=torch.bool,
+                            device=raw_boxes.device)
+    err = _lib().blaze_decode_blend_launch(
+        raw_boxes.data_ptr(), raw_scores.data_ptr(), anchors.data_ptr(),
+        out.data_ptr(), out_valid.data_ptr(), b, n, float(scale),
+        float(score_clip), float(score_thres), float(iou_thres), int(max_out),
+        _stream(raw_boxes))
+    _check(err, "blaze_decode_blend")
+    LAUNCHES["blaze_decode_blend"] += 1
     return out, out_valid

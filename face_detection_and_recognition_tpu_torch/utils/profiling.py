@@ -16,10 +16,12 @@ one batch of 8 seeded 576x1024 frames prints
   MobileFaceNet, 227x227 crops, the age/gender heads) with every NMS
   survivor live, as ``chip_smoke.py`` drives it;
 - the same stages of each BlazeFace detect (preprocess, network,
-  decode + blend NMS, postprocess), back and front;
+  decode + blend NMS, postprocess), back and front; their ``decode+nms``
+  is one launch of B5's fused kernel, so its profiler time is the
+  kernel's device time and its device operations count 1;
 - ``topk_similar`` of 512 queries against a 524,288 x 512 gallery on both
   search paths: the host's normalisation and copy, and the device's search;
-- for ``detect_batch`` (yolov5s and BlazeFace back) and
+- for ``detect_batch`` (yolov5s, BlazeFace back and front) and
   ``detect_embed_classify_batch``, the kernels with the most device time,
   from ``torch.profiler``, and the device's busy and idle share of the
   window.
@@ -265,10 +267,9 @@ def main() -> None:
           f"survivor live, k_live={k_live} of {ens.cfg.max_det} slots:")
     for name, ms in stages.items():
         print(f"  {name:<22} {ms:9.4f}")
-    blaze = FaceEngine(EngineConfig(detector="blazeface-back"))
-    for detector in ("blazeface-back", "blazeface-front"):
-        beng = (blaze if detector == "blazeface-back"
-                else FaceEngine(EngineConfig(detector=detector)))
+    blaze = {name: FaceEngine(EngineConfig(detector=name))
+             for name in ("blazeface-back", "blazeface-front")}
+    for detector, beng in blaze.items():
         print(f"{detector} stage device ms, B={B} frames {H}x{W}:")
         for name, ms in detect_stages(beng, frames).items():
             print(f"  {name:<22} {ms:9.4f}")
@@ -278,7 +279,9 @@ def main() -> None:
     for label, run in (
             ("detect_batch", lambda: eng.detect_batch(frames)),
             ("blazeface-back detect_batch",
-             lambda: blaze.detect_batch(frames)),
+             lambda: blaze["blazeface-back"].detect_batch(frames)),
+            ("blazeface-front detect_batch",
+             lambda: blaze["blazeface-front"].detect_batch(frames)),
             ("detect_embed_classify_batch",
              lambda: ens.detect_embed_classify_batch(
                  frames, det_thres=0.0, bbox_area_thres=0.0))):

@@ -26,12 +26,13 @@ from face_detection_and_recognition_tpu_torch.core.engine import (EngineConfig,
                                                                    FaceEngine)
 from face_detection_and_recognition_tpu_torch.models import blazeface as TB
 from face_detection_and_recognition_tpu_torch.models import registry as TR
+from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
 from face_detection_and_recognition_tpu_torch.ops import nms as TN
 from face_detection_and_recognition_tpu_torch.ops import preprocess as TP
 from face_detection_and_recognition_tpu_torch.utils.weights import \
     blazeface_state_dict
 from tests.test_nms import random_boxes
-from tests.test_torch_kernels import pallas_slots
+from tests.test_torch_kernels import _blaze_heads, pallas_slots
 from tests.test_torch_similarity import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -153,6 +154,44 @@ def test_decode_and_postprocess_match_jax(rng, back):
     # blends over up to tens of rows, summed in another order
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("back", [False, True])
+@pytest.mark.parametrize("case", ["ties", "none", "all", "inverted"])
+def test_fused_plain_matches_jax_postprocess(rng, case, back, b):
+    """The fused kernel's plain version against the JAX package's
+    ``blazeface_postprocess``: ``_raw_heads`` (ties at sigmoid 1.0, +-150
+    logits), nothing above the threshold, every anchor above it (896 valid
+    rows against 16 slots), and a frame with an inverted box at score 1.0.
+    Valid masks exactly; rows to f32 rounding of blends summed in another
+    order, as in ``test_decode_and_postprocess_match_jax``."""
+    cfg = JB.BlazeFaceConfig(back_model=back)
+    tcfg = TB.BlazeFaceConfig(back_model=back)
+    if case == "ties":
+        raw_boxes, raw_scores = _raw_heads(rng, b, cfg.min_score_thresh)
+    else:
+        raw_boxes, raw_scores = _blaze_heads(rng, b, cfg.min_score_thresh,
+                                             case)
+    anchors = TB.generate_anchors()
+    ref, ref_v = JB.blazeface_postprocess(raw_boxes, raw_scores,
+                                          jnp.asarray(anchors), cfg)
+    got, got_v = ck.blaze_decode_blend_plain(
+        torch.from_numpy(raw_boxes), torch.from_numpy(raw_scores),
+        torch.from_numpy(anchors), tcfg.scale, tcfg.score_clipping_thresh,
+        tcfg.min_score_thresh, tcfg.min_suppression_threshold,
+        tcfg.max_faces)
+    assert tuple(got.shape) == (b, 16, 17) and tuple(got_v.shape) == (b, 16)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(ref_v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    if case == "none":
+        assert not got_v.any()
+    else:
+        assert got_v.all()
+    if case == "inverted":  # every frame keeps the inverted box as a slot
+        assert ((got[..., 2] < got[..., 0]) & (got[..., 3] < got[..., 1])
+                ).any(1).all()
 
 
 def _nms_reference_case(rng, n):

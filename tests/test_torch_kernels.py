@@ -17,6 +17,8 @@ from face_detection_and_recognition_tpu.ops import nms as JN
 from face_detection_and_recognition_tpu.ops.pallas_kernels import (
     candidate_rows_gather_pallas, nms_fixpoint_pallas, topk_gallery_pallas,
     weighted_blend_nms_pallas)
+from face_detection_and_recognition_tpu_torch.models.blazeface import \
+    generate_anchors
 from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
     FACE_ANCHORS
 from face_detection_and_recognition_tpu_torch.ops import cuda_kernels as ck
@@ -253,10 +255,15 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     for got, ref in zip(ck.blend_nms(sd, sv, 0.3, 8),
                         ck.blend_nms_plain(sd, sv, 0.3, 8)):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    raw = [torch.from_numpy(a) for a in _blaze_heads(rng, 2, 0.65)]
+    args = (*raw, torch.from_numpy(_ANCHORS), 256.0, 100.0, 0.65, 0.3, 16)
+    for got, ref in zip(ck.blaze_decode_blend(*args),
+                        ck.blaze_decode_blend_plain(*args)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     # the CPU path launches nothing and builds nothing
     assert ck.LAUNCHES == {"nms_fixpoint": 0, "rows_gather": 0,
                            "crop_resize": 0, "topk_gallery": 0,
-                           "blend_nms": 0}
+                           "blend_nms": 0, "blaze_decode_blend": 0}
     assert ck._LIB == []
     # the wrapper's k cap holds on every device
     with pytest.raises(ValueError, match="outside"):
@@ -423,6 +430,275 @@ def test_blend_nms_plain_nothing_valid_and_batches():
                                         0.3, 16)
         torch.testing.assert_close(out[i], one[0], rtol=0, atol=0)
         torch.testing.assert_close(ov[i], one_v[0], rtol=0, atol=0)
+
+
+# ---------------- B5: the picks and blends of csrc/blend_nms.cu ---------------
+
+BLEND_SLOT_CHUNK = 32  # kSlotChunk: slots picked before a blend pass
+F32 = np.float32
+_ANCHORS = generate_anchors()
+
+
+def _blaze_heads(rng, b, thr, case="ties"):
+    """Raw BlazeFace heads ([B, 896, 16], [B, 896, 1] f32): box offsets in
+    input pixels and logits spread around the score threshold, some at
+    +-150 (ties at sigmoid 1.0), as tests/test_torch_blazeface.py's
+    ``_raw_heads``. "none" puts every logit below the threshold, "all"
+    every one above it, "inverted" gives anchor 10 a box of negative width
+    and height at score 1.0, "identical" gives the two anchors of each
+    16 x 16 cell one raw row, so they decode to one box and one score."""
+    logit = np.log(thr / (1 - thr))
+    raw_boxes = rng.normal(0, 6, (b, 896, 16)).astype(F32)
+    raw_boxes[..., 2:4] = rng.uniform(10, 30, (b, 896, 2))
+    noise = rng.normal(0, 1.5, (b, 896, 1))
+    raw_scores = (logit + noise).astype(F32)
+    raw_scores[:, ::97] = 150.0
+    raw_scores[:, 5::101] = -150.0
+    if case == "none":
+        raw_scores = (logit - 0.01 - np.abs(noise)).astype(F32)
+    elif case == "all":
+        raw_scores = (logit + 0.01 + np.abs(noise)).astype(F32)
+        raw_scores[:, ::97] = 150.0
+    elif case == "inverted":
+        raw_boxes[:, 10, 2:4] = -20.0
+        raw_scores[:, 10] = 150.0
+    elif case == "identical":
+        raw_boxes[:, 1:512:2] = raw_boxes[:, 0:512:2]
+        raw_scores[:, 1:512:2] = raw_scores[:, 0:512:2]
+    return raw_boxes, raw_scores
+
+
+def _order_keys(scores, idx):
+    """The fused kernel's 64-bit sort keys: the complement of each f32
+    score's order bits, above its row index. Ascending keys are descending
+    scores, ties in row order."""
+    u = scores.astype(F32).view(np.uint32).astype(np.uint64)
+    ordb = np.where(u >> 31 == 1, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return ((~ordb & 0xFFFFFFFF) << 32) | idx.astype(np.uint64)
+
+
+def _bitonic(keys):
+    """The kernel's bitonic network, ascending, over the keys padded to a
+    power of two >= 32 with the largest key: at stage (k, j) element t
+    keeps the smaller of itself and t ^ j where (t & j == 0) equals
+    (t & k == 0), else the larger."""
+    n, p = len(keys), 32
+    while p < n:
+        p *= 2
+    a = np.full(p, np.iinfo(np.uint64).max, np.uint64)
+    a[:n] = keys
+    t = np.arange(p)
+    k = 2
+    while k <= p:
+        j = k // 2
+        while j:
+            other = a[t ^ j]
+            keep_min = ((t & j) == 0) == ((t & k) == 0)
+            a = np.where(keep_min == (other < a), other, a)
+            j //= 2
+        k *= 2
+    return a[:n]
+
+
+def _words(bits):
+    """A bool row mask as the kernel's 32-bit words (bit l of word w: row
+    32 w + l), Python ints."""
+    n_words = (len(bits) + 31) // 32
+    padded = np.zeros(n_words * 32, bool)
+    padded[:len(bits)] = bits
+    return [int(sum(1 << l for l in range(32) if padded[32 * w + l]))
+            for w in range(n_words)]
+
+
+def _pick_and_blend(rows, alive, thr, max_out, reorder=False,
+                    chunk=BLEND_SLOT_CHUNK):
+    """``pick_and_blend`` of csrc/blend_nms.cu on one frame, in numpy f32.
+
+    rows: [n, D] in score order, score last, cols 0:4 [ymin, xmin, ymax,
+    xmax]; alive: the rows' alive words. For each slot the first set bit of
+    the words is the pick; each word's taken bits are its alive rows whose
+    IoU with the pick (the kernel's operation order) is above ``thr``, and
+    the pick itself; they leave "alive". After a chunk of slots, each
+    (slot, column) chain walks its taken bits in ascending order, adding
+    score and coord * score one row at a time. Returns (out [max_out, D],
+    valid [max_out])."""
+    n, d = rows.shape
+    alive = list(alive)
+    x1, y1, x2, y2 = rows[:, 1], rows[:, 0], rows[:, 3], rows[:, 2]
+    area = (x2 - x1) * (y2 - y1)
+    cols = [c ^ 1 if reorder and c < 4 else c for c in range(d)]
+    out = np.zeros((max_out, d), F32)
+    out_valid = np.zeros(max_out, bool)
+    for s0 in range(0, max_out, chunk):
+        taken = []
+        for _ in range(min(chunk, max_out - s0)):
+            live = [w for w, a in enumerate(alive) if a]
+            if not live:
+                break
+            w0 = live[0]
+            first = 32 * w0 + (alive[w0] & -alive[w0]).bit_length() - 1
+            iw = np.maximum(np.minimum(x2[first], x2)
+                            - np.maximum(x1[first], x1), F32(0))
+            ih = np.maximum(np.minimum(y2[first], y2)
+                            - np.maximum(y1[first], y1), F32(0))
+            inter = iw * ih
+            with np.errstate(divide="ignore", invalid="ignore"):
+                over = inter / ((area[first] + area) - inter) > F32(thr)
+            over[first] = True
+            words = _words(over)
+            taken.append([a & t for a, t in zip(alive, words)])
+            alive = [a & ~t for a, t in zip(alive, taken[-1])]
+        for s, tw in enumerate(taken):
+            picked = [32 * w + l for w, word in enumerate(tw)
+                      for l in range(32) if word >> l & 1]
+            total, num = F32(0), np.zeros(d, F32)
+            for r in picked:
+                sc = rows[r, d - 1]
+                total = F32(total + sc)
+                num = num + rows[r] * sc
+            if len(picked) == 1:
+                v = rows[picked[0]]
+            else:
+                v = num / total
+                v[d - 1] = total / F32(len(picked))
+            out[s0 + s] = v[cols]
+            out_valid[s0 + s] = True
+        if len(taken) < min(chunk, max_out - s0):
+            break  # nothing alive: the rest stay zero
+    return out, out_valid
+
+
+def _fused_model(raw_boxes, raw_scores, anchors, scale, clip, score_thr,
+                 iou_thr, max_out):
+    """The fused entry point of csrc/blend_nms.cu, frame by frame: clip and
+    sigmoid (ATen's, which the kernel's form matches on the card), the
+    valid anchors compacted in anchor order and bitonic-sorted by
+    ``_order_keys``, each decoded into its sorted row in f32 with the
+    kernel's separate operations, then ``_pick_and_blend`` with the
+    contract's column order."""
+    outs, valids = [], []
+    sc = F32(scale)
+    for rb, rs in zip(raw_boxes, raw_scores):
+        score = torch.sigmoid(torch.from_numpy(
+            np.clip(rs[:, 0], F32(-clip), F32(clip)))).numpy()
+        idx = np.nonzero(score >= F32(score_thr))[0]
+        order = (_bitonic(_order_keys(score[idx], idx))
+                 & 0xFFFFFFFF).astype(np.int64)
+        r, a = rb[order], anchors[order]
+        xc = r[:, 0] / sc * a[:, 2] + a[:, 0]
+        yc = r[:, 1] / sc * a[:, 3] + a[:, 1]
+        hw = r[:, 2] / sc * a[:, 2] / F32(2)
+        hh = r[:, 3] / sc * a[:, 3] / F32(2)
+        cols = [yc - hh, xc - hw, yc + hh, xc + hw]
+        for k in range(6):
+            cols.append(r[:, 4 + 2 * k] / sc * a[:, 2] + a[:, 0])
+            cols.append(r[:, 5 + 2 * k] / sc * a[:, 3] + a[:, 1])
+        rows = np.stack(cols + [score[order]], -1).astype(F32)
+        out, ov = _pick_and_blend(rows, _words(np.ones(len(idx), bool)),
+                                  iou_thr, max_out, reorder=True)
+        outs.append(out)
+        valids.append(ov)
+    return np.stack(outs), np.stack(valids)
+
+
+def _assert_bits_equal(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    if got.dtype == np.float32:
+        got, ref = got.view(np.uint32), ref.view(np.uint32)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _standalone_case(case, rng):
+    """(sdets [B, K, 17], svalid [B, K], max_out), score-sorted."""
+    if case == "k2048":
+        cases = [_blend_case(rng, 2048) for _ in range(2)]
+        return np.stack([c[0] for c in cases]), \
+            np.stack([c[1] for c in cases]), 16
+    if case == "k12_max16":  # fewer rows than slots
+        sd, sv = _blend_case(rng, 12)
+        return sd[None], sv[None], 16
+    if case == "none_valid":
+        sd, sv = _blend_case(rng, 64)
+        return sd[None], np.zeros_like(sv)[None], 16
+    if case == "max40":  # more slots than a chunk: 40 picks of singletons
+        sd = np.zeros((100, 17), np.float32)
+        sd[:, 0] = sd[:, 1] = np.arange(100, dtype=np.float32)
+        sd[:, 2:4] = sd[:, 0:2] + 0.5
+        sd[:, 4:16] = rng.standard_normal((100, 12))
+        sd[:, 16] = np.linspace(1.0, 0.5, 100, dtype=np.float32)
+        return sd[None], np.ones((1, 100), bool), 40
+    # "identical_tied": groups of identical boxes, tied scores, invalid
+    # rows between the valid ones
+    sd, _ = _blend_case(rng, 300)
+    sd[:, :4] = sd[rng.randint(0, 20, 300), :4]
+    sd[:, 16] = np.sort(np.round(sd[:, 16] * 8) / 8)[::-1]
+    sv = rng.uniform(size=300) > 0.3
+    return sd[None], sv[None], 16
+
+
+@pytest.mark.parametrize("case,back", [
+    ("ties", True), ("ties", False), ("none", True), ("all", False),
+    ("all", True), ("inverted", True), ("identical", False)])
+def test_blaze_fused_model_equals_plain(case, back):
+    """A numpy model of the fused kernel (64-bit-key bitonic sort of the
+    compacted valid anchors, decode into sorted rows, the alive and taken
+    bit masks, the chains in ascending bit order) equals
+    ``blaze_decode_blend_plain`` bit for bit, and its picks and blends
+    equal ``blend_nms_plain`` on the plain chain's own sorted rows."""
+    rng = np.random.RandomState(sum(map(ord, case)) + back)
+    scale, thr = (256.0, 0.65) if back else (128.0, 0.75)
+    raw_boxes, raw_scores = _blaze_heads(rng, 2, thr, case)
+    model = _fused_model(raw_boxes, raw_scores, _ANCHORS, scale, 100.0, thr,
+                         0.3, 16)
+    plain = ck.blaze_decode_blend_plain(
+        torch.from_numpy(raw_boxes), torch.from_numpy(raw_scores),
+        torch.from_numpy(_ANCHORS), scale, 100.0, thr, 0.3, 16)
+    for m, p in zip(model, plain):
+        _assert_bits_equal(m, p.numpy())
+    n_valid = model[1].sum(1)
+    if case == "none":
+        assert not model[1].any()
+    else:
+        assert (n_valid == 16).all(), n_valid
+    if case == "inverted":  # score 1.0, the lowest anchor of its tie
+        scores = torch.sigmoid(torch.from_numpy(raw_scores[..., 0])
+                               .clamp(-100, 100))
+        assert (scores[:, 10] == scores.max(1).values).all()
+
+
+@pytest.mark.parametrize("case", ["k2048", "k12_max16", "none_valid",
+                                  "max40", "identical_tied"])
+def test_blend_core_model_equals_plain(case):
+    """The standalone entry point's model (alive words from the valid
+    bytes, then ``_pick_and_blend``) equals ``blend_nms_plain`` bit for
+    bit."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    sdets, svalid, max_out = _standalone_case(case, rng)
+    out, ov = ck.blend_nms_plain(torch.from_numpy(sdets),
+                                 torch.from_numpy(svalid), 0.3, max_out)
+    for b in range(sdets.shape[0]):
+        m_out, m_v = _pick_and_blend(sdets[b], _words(svalid[b]), 0.3,
+                                     max_out)
+        _assert_bits_equal(m_out, out[b].numpy())
+        _assert_bits_equal(m_v, ov[b].numpy())
+    if case == "none_valid":
+        assert not ov.any()
+    if case == "max40":  # the second chunk of slots ran
+        assert ov.all()
+    if case in ("k2048", "identical_tied"):  # some slots blended rows
+        assert ov.all()
+        assert not np.isin(out[..., -1].numpy(), sdets[..., -1]).all()
+
+
+def test_blaze_decode_blend_refuses_other_scales():
+    """The kernel divides by ``scale`` exactly only for a power of two; the
+    wrapper refuses any other on every device."""
+    raw = [torch.from_numpy(a) for a in
+           _blaze_heads(np.random.RandomState(1), 1, 0.65)]
+    with pytest.raises(ValueError, match="power of two"):
+        ck.blaze_decode_blend(*raw, torch.from_numpy(_ANCHORS), 200.0, 100.0,
+                              0.65, 0.3, 16)
 
 
 def test_kernel_module_imports_without_nvcc():
