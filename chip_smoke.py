@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's detect, ensemble, similarity and BlazeFace
-paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace and
+CLI + serving paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -62,7 +62,20 @@ seconds:
    Each main path zeroes the launch counts just before it and reads them
    just after; every kernel of the path must have launched, and every
    output must be finite and of the contract's shape;
-8. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+8. main path, cli + serving: a seeded smooth 576 x 1024 frame through the
+   port's JPEG route (``utils/native.py``: encoded, decoded, the round
+   trip's error bounded, the route printed); the ``detect_face`` CLI in
+   process on that JPEG (yolov5s, thresholds 0, then again with
+   ``--age-gender --embedder mobile_facenet``); then the HTTP front door of
+   ``FaceService(ServiceConfig())`` (yolov5s, MobileFaceNet, both
+   age/gender heads, 32 slots) on 127.0.0.1: ``/health``, 8 sequential
+   ``/detect`` and 8 sequential ``/ensemble`` requests, and 8 concurrent
+   ``/detect`` requests through the dynamic batcher (batches of up to 8).
+   After the path's counts are read: the CLI's printed boxes against
+   ``FaceEngine.detect_image`` on the decoded frame, and every answer
+   against the service's direct call on it; the request times (p50, max)
+   and the batcher's counts are printed;
+9. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits and both BlazeFace nets' raw heads on the card
    against the same modules on the CPU.
 
@@ -71,12 +84,18 @@ line is ``{"ok": true, "device": {...}}``. Any failure propagates: the script
 then exits non-zero and prints no result. Without a CUDA device, or without
 the repository beside it, it fails at once.
 """
+import contextlib
 import copy
+import io
 import json
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1095,6 +1114,270 @@ def run_blazeface(frames, singles, card):
     return dict(ck.LAUNCHES), engines
 
 
+IO_HW = (576, 1024)          # the serving frame: the reference's video size
+IO_QUALITY = 95
+IO_MAE = 2.0                 # round-trip bound, mean |decoded - frame|
+N_REQUESTS = 8
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def smooth_frame(seed, hw=IO_HW):
+    """A seeded BGR frame of low-frequency sinusoids (not noise), so that
+    a JPEG round trip at quality 95 loses little."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float32)
+    img = np.full((*hw, 3), 128.0, np.float32)
+    for c in range(3):
+        for _ in range(4):
+            fx, fy = rng.uniform(0.0005, 0.004, 2)
+            img[..., c] += 28 * np.sin(2 * np.pi * (fx * x + fy * y)
+                                       + rng.uniform(0, 6.28))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def printed_faces(text):
+    """The CLI's face lines -> (int boxes [N, 4], confs, suffixes)."""
+    rows = [li.split() for li in text.splitlines()
+            if li.strip().startswith("[")]
+    boxes = np.array([[int(v) for v in r[0].strip("[]").split(",")]
+                      for r in rows], np.int64).reshape(-1, 4)
+    confs = [float(r[1].split("=")[1]) for r in rows]
+    return boxes, confs, [" ".join(r[2:]) for r in rows]
+
+
+def run_cli(argv):
+    from face_detection_and_recognition_tpu_torch.cli.detect_face import main
+
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"detect_face {argv} returned {rc}")
+    return buf.getvalue(), time.time() - t
+
+
+def http(url, body=None):
+    """One request; returns (JSON answer, client ms)."""
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = json.load(r)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def in_new_thread(fn, *args):
+    """``fn(*args)`` on a thread started for it; returns its result."""
+    out = []
+    th = threading.Thread(target=lambda: out.append(fn(*args)))
+    th.start()
+    th.join(timeout=300)
+    if not out:
+        raise AssertionError("the call on a new thread did not return")
+    return out[0]
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ms_summary(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)), "max_ms": float(max(ms)),
+            "n": len(ms)}
+
+
+def check_answers(name, answers, ref):
+    """HTTP answers against the service's direct call on the same frame:
+    boxes and confs to 1e-4, embeddings to 1e-5, labels equal."""
+    for a in answers:
+        np.testing.assert_allclose(a["bboxes"], ref["bboxes"], atol=1e-4,
+                                   rtol=0, err_msg=name)
+        np.testing.assert_allclose(a["confs"], np.ravel(ref["confs"]),
+                                   atol=1e-4, rtol=0, err_msg=name)
+        if "embeddings" in ref:
+            np.testing.assert_allclose(a["embeddings"], ref["embeddings"],
+                                       atol=1e-5, rtol=0, err_msg=name)
+            if a["labels"] != ref["labels"]:
+                raise AssertionError(f"{name}: labels differ")
+
+
+def run_cli_serving(card, device="cuda"):
+    """The CLI + serving main path. Returns its launch counts and the
+    numbers to print: the JPEG route's, the CLI's, the requests'."""
+    from face_detection_and_recognition_tpu_torch.serving.http_server import \
+        serve
+    from face_detection_and_recognition_tpu_torch.serving.service import \
+        ServiceConfig
+    from face_detection_and_recognition_tpu_torch.utils import native
+
+    stats = {}
+    frame = smooth_frame(SEED + 4)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    jpg, out = str(WORK_DIR / "frame.jpg"), str(WORK_DIR / "out.jpg")
+    t = time.time()
+    route = native.io_route()
+    say(f"  JPEG route: {route} (built and bound in {time.time() - t:.2f} s)")
+    native.write_image_bgr(jpg, frame, IO_QUALITY)
+    decoded = native.read_image_bgr(jpg)
+    err = np.abs(decoded.astype(np.int64) - frame)
+    if decoded.shape != frame.shape or decoded.dtype != np.uint8 \
+            or not err.mean() < IO_MAE:
+        raise AssertionError(f"JPEG round trip off: {decoded.shape} "
+                             f"{decoded.dtype}, mean error {err.mean()}")
+    data = Path(jpg).read_bytes()
+    if native.decode_jpeg_bgr(b"not a jpeg") is not None:
+        raise AssertionError("garbage bytes decoded")
+    gray = native.decode_jpeg_bgr(native.encode_jpeg_bgr(
+        np.repeat(frame[..., 1:2], 3, axis=2), IO_QUALITY))
+    if not (gray[..., 0] == gray[..., 1]).all():
+        raise AssertionError("a gray frame did not come back gray")
+    for fn, name in ((lambda: native.decode_jpeg_bgr(data), "decode"),
+                     (lambda: native.encode_jpeg_bgr(frame, IO_QUALITY),
+                      "encode")):
+        fn()
+        t = time.perf_counter()
+        for _ in range(10):
+            fn()
+        stats[f"{name}_ms"] = (time.perf_counter() - t) / 10 * 1e3
+    stats.update(route=route, jpeg_bytes=len(data),
+                 round_trip_mae=float(err.mean()),
+                 round_trip_max=int(err.max()))
+    say(f"  {IO_HW[1]}x{IO_HW[0]} frame at quality {IO_QUALITY}: "
+        f"{len(data)} bytes, round trip mean |error| {err.mean():.3f} "
+        f"(bound {IO_MAE}), max {err.max()}; decode "
+        f"{stats['decode_ms']:.3f} ms, encode {stats['encode_ms']:.3f} ms a "
+        f"frame on {card}")
+
+    cli = ["-i", jpg, "--md", "yolov5s", "--dt", "0", "--at", "0",
+           "--no-display", "-o", out, "-d", device]
+    answers = {"detect": [], "ensemble": [], "batched": []}
+    ms = {"detect": [], "ensemble": []}
+    ck.reset_launches()
+    text1, sec1 = run_cli(cli)
+    after_cli1 = dict(ck.LAUNCHES)
+    text2, sec2 = run_cli(cli + ["--age-gender", "--embedder",
+                                 "mobile_facenet"])
+    after_cli2 = dict(ck.LAUNCHES)
+    httpd = serve(ServiceConfig(device=device), host="127.0.0.1",
+                  port=free_port(), block=False)
+    service = httpd.service
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if http(base + "/health")[0] != {"ready": True}:
+            raise AssertionError("/health is not ready")
+        before_http = dict(ck.LAUNCHES)
+        for _ in range(N_REQUESTS):
+            a, t_ms = http(base + "/detect?det_thres=0&bbox_area_thres=0",
+                           data)
+            answers["detect"].append(a)
+            ms["detect"].append(t_ms)
+        for _ in range(N_REQUESTS):
+            a, t_ms = http(base + "/ensemble", data)
+            answers["ensemble"].append(a)
+            ms["ensemble"].append(t_ms)
+        batcher = service.enable_dynamic_batching(max_batch=N_REQUESTS,
+                                                  max_delay_ms=50.0)
+        threads = [threading.Thread(target=lambda: answers["batched"].append(
+            http(base + "/detect?det_thres=0&bbox_area_thres=0", data)[0]))
+            for _ in range(N_REQUESTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if any(th.is_alive() for th in threads) \
+                or len(answers["batched"]) != N_REQUESTS:
+            raise AssertionError("a batched request did not answer")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)   # the path's counts, read here
+        http_launches = {k: launches[k] - before_http[k] for k in launches}
+        batcher.shutdown()
+        service._batcher = None       # the direct calls below run alone
+        stats["batcher"] = {"requests": batcher.requests,
+                            "dispatches": batcher.dispatches}
+        # what the path answered, against direct calls on the decoded frame
+        ref_det = service.detect_faces(decoded, 0.0, 0.0)
+        check_answers("/detect", answers["detect"] + answers["batched"],
+                      {"bboxes": ref_det[1], "confs": ref_det[2]})
+        ref_ens = service.detect_embed_classify(decoded)
+        check_answers("/ensemble", answers["ensemble"],
+                      {k: np.asarray(v) if k != "labels" else v
+                       for k, v in ref_ens.items()})
+        # why the service runs the engine on one thread of its own: the
+        # same call from a new thread each time (as ThreadingHTTPServer
+        # starts one a request), and through the service's engine thread
+        for name, call in (
+                ("a new thread each call", lambda: in_new_thread(
+                    service._detect_faces, decoded, 0.0, 0.0)),
+                ("the service's engine thread",
+                 lambda: service.detect_faces(decoded, 0.0, 0.0))):
+            t_ms = []
+            for _ in range(4):
+                t = time.perf_counter()
+                call()
+                t_ms.append((time.perf_counter() - t) * 1e3)
+            stats[f"detect_faces_ms, {name}"] = t_ms
+            say(f"  detect_faces from {name}: "
+                f"{', '.join(f'{x:.2f}' for x in t_ms)} ms")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    # the CLI's printed faces against the engine's on the decoded frame
+    eng = FaceEngine(EngineConfig(detector="yolov5s", det_thres=0.0,
+                                  bbox_area_thres=0.0, seed=0), device=device)
+    ref = eng.detect_image(decoded)
+    boxes, confs, _ = printed_faces(text1)
+    if f"{len(ref)} face(s)" not in text1 or \
+            not np.array_equal(boxes, ref.boxes.astype(np.int64)) or \
+            not np.allclose(confs, ref.bbox_confs, atol=5e-4, rtol=0):
+        raise AssertionError("the CLI's faces differ from detect_image's")
+    boxes2, _, suffix = printed_faces(text2)
+    if not np.array_equal(boxes2, boxes) or not all(
+            s.endswith("emb[512d]") and ":" in s for s in suffix):
+        raise AssertionError("--age-gender --embedder printed other faces "
+                             "or no labels")
+    drawn = native.read_image_bgr(out)
+    if drawn is None or drawn.shape != frame.shape:
+        raise AssertionError("the CLI's output image does not decode")
+    n_det = len(answers["detect"][0]["bboxes"])
+    n_ens = len(answers["ensemble"][0]["labels"])
+    stats.update(cli_s=(sec1, sec2), cli_faces=len(ref),
+                 detect=ms_summary(ms["detect"]),
+                 ensemble=ms_summary(ms["ensemble"]),
+                 detect_faces=n_det, ensemble_faces=n_ens)
+    say(f"  detect_face CLI: {len(ref)} face(s) in {sec1:.2f} s (engine "
+        f"build included), with --age-gender --embedder mobile_facenet "
+        f"{sec2:.2f} s; printed boxes equal detect_image's")
+    say(f"  launches: CLI {after_cli1}; CLI --age-gender --embedder "
+        f"{ {k: after_cli2[k] - after_cli1[k] for k in after_cli2} }; HTTP "
+        f"{http_launches}")
+    for name in ("detect", "ensemble"):
+        say(f"  HTTP /{name}: {N_REQUESTS} sequential requests of a "
+            f"{len(data)}-byte JPEG, p50 {stats[name]['p50_ms']:.2f} ms, max "
+            f"{stats[name]['max_ms']:.2f} ms a request on {card}; "
+            f"{stats[name + '_faces']} faces an answer")
+    say(f"  HTTP /detect, {N_REQUESTS} concurrent through the batcher: "
+        f"requests {stats['batcher']['requests']}, dispatches "
+        f"{stats['batcher']['dispatches']}; every answer equals the "
+        "service's direct call")
+    if stats["batcher"]["requests"] != N_REQUESTS:
+        raise AssertionError("the batcher did not serve every request")
+    for name, got in (("CLI", after_cli1), ("HTTP", http_launches)):
+        for k in ("nms_fixpoint", "rows_gather") + (
+                ("crop_resize",) if name == "HTTP" else ()):
+            if got[k] <= 0:
+                raise AssertionError(f"kernel {k} never launched in the "
+                                     f"{name} window")
+    if after_cli2["crop_resize"] - after_cli1["crop_resize"] <= 0:
+        raise AssertionError("crop_resize never launched in the CLI's "
+                             "--age-gender --embedder run")
+    return launches, stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -1218,6 +1501,13 @@ def main():
     kernels[-1].update(check_blaze_on_path(blaze, frames))
     phase_end("main path: blazeface")
 
+    say("[main path: cli + serving] JPEG route, detect_face CLI, HTTP "
+        "front door of FaceService(ServiceConfig())")
+    serving_launches, serving = run_cli_serving(card)
+    say(f"  launches on the cli + serving path: {serving_launches}")
+    say(f"  cli + serving numbers: {json.dumps(serving)}")
+    phase_end("main path: cli + serving")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -1242,7 +1532,8 @@ def main():
         by_path = {"detect": detect_launches[k["name"]],
                    "ensemble": ensemble_launches[k["name"]],
                    "similarity": similarity_launches[k["name"]],
-                   "blazeface": blaze_launches[k["name"]]}
+                   "blazeface": blaze_launches[k["name"]],
+                   "cli + serving": serving_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -30,6 +31,28 @@ from .detections import Detections, PostProcessedDetection, postprocess_detectio
 
 AG_HW = (227, 227)                  # age/gender crop size
 AG_PAD = (-5.0, -5.0, 5.0, 5.0)     # the cascade's +-5 px crop padding
+TORCH_WEIGHTS = (".pt", ".pth")     # the weight files the loaders read
+
+
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch weight file -> a flat state dict: the dict under
+    ``state_dict`` or ``model`` when there is one (a pickled module's own
+    state dict), with the ``module.`` prefix of a data-parallel save
+    stripped. The file is unpickled, which can run code: load only
+    trusted files. Orbax checkpoints, ``.caffemodel``, ``.pb`` and
+    ``.xml`` raise ``ValueError``: the port has no reader for them yet."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in TORCH_WEIGHTS:
+        raise ValueError(
+            f"{path}: the port reads torch weight files (.pt, .pth); orbax "
+            "checkpoints, .caffemodel, .pb and .xml are not supported yet")
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and key in sd:
+            sd = sd[key]
+    if hasattr(sd, "state_dict"):  # a pickled torch Module
+        sd = sd.state_dict()
+    return {k.removeprefix("module."): v for k, v in sd.items()}
 
 
 @dataclasses.dataclass
@@ -129,6 +152,41 @@ class FaceEngine:
             raise ValueError("engine built without age/gender heads "
                              "(with_age_gender=True)")
         self.ag_net.load_state_dict(state_dict)
+
+    # ---------------- weight files ----------------
+
+    def load_weights(self, path: str) -> None:
+        """Load detector weights from a torch weight file (a reference
+        yolov5-face or BlazeFace state dict, or one ``save_weights``
+        wrote): the port's modules carry the reference's names, so the
+        state dict loads as it is, less the yolov5 Detect layer's
+        ``anchors`` / ``anchor_grid`` buffers (the port keeps its anchors
+        in ``ARCHS``)."""
+        sd = read_state_dict(path)
+        sd = {k: v for k, v in sd.items()
+              if not k.endswith((".anchors", ".anchor_grid"))}
+        self.net.load_state_dict(sd)
+
+    def save_weights(self, path: str) -> None:
+        """Save the detector's state dict with ``torch.save``; reloadable
+        with ``load_weights`` (and by the JAX engine's ``.pt`` reader)."""
+        torch.save(self.net.state_dict(), path)
+
+    def load_embed_weights(self, path: str) -> None:
+        """Load embedder weights from a torch weight file (a reference
+        MobileFaceNet state dict)."""
+        if self.embed_net is None:
+            raise ValueError("engine built without an embedder")
+        self.embed_net.load_state_dict(read_state_dict(path))
+
+    def load_age_gender_weights(self, path: str) -> None:
+        """Load both age/gender heads from a torch weight file of the
+        port's ``AgeGenderNet`` (``age.*``, ``gender.*``). The reference's
+        two ``.caffemodel`` files are not read yet."""
+        if self.ag_net is None:
+            raise ValueError("engine built without age/gender heads "
+                             "(with_age_gender=True)")
+        self.ag_net.load_state_dict(read_state_dict(path))
 
     @property
     def input_size(self) -> Tuple[int, int]:

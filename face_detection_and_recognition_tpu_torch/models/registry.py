@@ -46,6 +46,10 @@ def register(spec: DetectorSpec) -> DetectorSpec:
     return spec
 
 
+def available():
+    return sorted(_REGISTRY)
+
+
 def get(name: str) -> DetectorSpec:
     if name not in _REGISTRY:
         raise KeyError(f"unknown detector '{name}'; have {sorted(_REGISTRY)}")

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
@@ -42,11 +43,21 @@ LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0,
             "topk_gallery": 0, "blend_nms": 0, "blaze_decode_blend": 0}
 
 _LIB = []  # the loaded library, once built
+# request threads reach the first build and bind, and count launches,
+# concurrently
+_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _sources() -> list:
@@ -102,35 +113,45 @@ def ptxas_report() -> Path:
 
 
 def _lib():
-    if not _LIB:
-        import ctypes
-
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nms_fixpoint_launch.argtypes = [p, p, p, p, i, i, ctypes.c_float,
-                                            i, i, i, p]
-        lib.nms_fixpoint_launch.restype = i
-        lib.candidate_decode_launch.argtypes = [p, p, p, p, p, i, p, p, p,
-                                                p, i, i, i, ctypes.c_float,
-                                                p]
-        lib.candidate_decode_launch.restype = i
-        lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
-                                           i, i, i, p, p]
-        lib.crop_resize_launch.restype = i
-        lib.topk_gallery_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            p]
-        lib.topk_gallery_launch.restype = i
-        lib.blend_nms_launch.argtypes = [p, p, p, p, i, i, i, ctypes.c_float,
-                                         i, p]
-        lib.blend_nms_launch.restype = i
-        f = ctypes.c_float
-        lib.blaze_decode_blend_launch.argtypes = [p, p, p, p, p, i, i, f, f, f,
-                                                  f, i, p]
-        lib.blaze_decode_blend_launch.restype = i
-        lib.kernels_error_string.argtypes = [i]
-        lib.kernels_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
+    """The bound kernel library, built and bound once: the first caller
+    builds under the lock, and every later one finds it."""
+    if _LIB:
+        return _LIB[0]
+    with _LOCK:
+        if not _LIB:
+            _LIB.append(_bind(build_library()))
     return _LIB[0]
+
+
+def _bind(path: Path):
+    """Load the library at ``path`` and declare its entry points."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nms_fixpoint_launch.argtypes = [p, p, p, p, i, i, ctypes.c_float,
+                                        i, i, i, p]
+    lib.nms_fixpoint_launch.restype = i
+    lib.candidate_decode_launch.argtypes = [p, p, p, p, p, i, p, p, p,
+                                            p, i, i, i, ctypes.c_float,
+                                            p]
+    lib.candidate_decode_launch.restype = i
+    lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
+                                       i, i, i, p, p]
+    lib.crop_resize_launch.restype = i
+    lib.topk_gallery_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                        p]
+    lib.topk_gallery_launch.restype = i
+    lib.blend_nms_launch.argtypes = [p, p, p, p, i, i, i, ctypes.c_float,
+                                     i, p]
+    lib.blend_nms_launch.restype = i
+    f = ctypes.c_float
+    lib.blaze_decode_blend_launch.argtypes = [p, p, p, p, p, i, i, f, f, f,
+                                              f, i, p]
+    lib.blaze_decode_blend_launch.restype = i
+    lib.kernels_error_string.argtypes = [i]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _check(err: int, name: str) -> None:
@@ -229,7 +250,7 @@ def nms_fixpoint(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
         keep.data_ptr(), b, k, float(iou_thres), int(plus1), int(strict),
         int(mode == "min"), _stream(boxes))
     _check(err, "nms_fixpoint")
-    LAUNCHES["nms_fixpoint"] += 1
+    _count("nms_fixpoint")
     return keep
 
 
@@ -413,7 +434,7 @@ def candidate_decode(maps_flat: Sequence[torch.Tensor], idx: torch.Tensor,
         pred.data_ptr(), boxes.data_ptr(), valid.data_ptr(), b, k, no,
         conf_thres, _stream(idx))
     _check(err, "candidate_decode")
-    LAUNCHES["rows_gather"] += 1
+    _count("rows_gather")
     return pred, boxes, valid
 
 
@@ -563,7 +584,7 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
         valid.data_ptr(), out.data_ptr(), b, k, h, w, c, oh, ow, int(clamp),
         int(clip), c_mean, _stream(img))
     _check(err, "crop_resize")
-    LAUNCHES["crop_resize"] += 1
+    _count("crop_resize")
     return out
 
 
@@ -655,7 +676,7 @@ def topk_gallery(queries: torch.Tensor, gallery: torch.Tensor, k: int
         part_i.data_ptr(), scores.data_ptr(), idx.data_ptr(), n, m, d, k,
         per_chunk, _stream(queries))
     _check(err, "topk_gallery")
-    LAUNCHES["topk_gallery"] += 1
+    _count("topk_gallery")
     return scores, idx
 
 
@@ -752,7 +773,7 @@ def blend_nms(sdets: torch.Tensor, svalid: torch.Tensor, iou_thres: float,
         out_valid.data_ptr(), b, k, d, float(iou_thres), int(max_out),
         _stream(sdets))
     _check(err, "blend_nms")
-    LAUNCHES["blend_nms"] += 1
+    _count("blend_nms")
     return out, out_valid
 
 
@@ -830,5 +851,5 @@ def blaze_decode_blend(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
         float(score_clip), float(score_thres), float(iou_thres), int(max_out),
         _stream(raw_boxes))
     _check(err, "blaze_decode_blend")
-    LAUNCHES["blaze_decode_blend"] += 1
+    _count("blaze_decode_blend")
     return out, out_valid

@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: it and ``chip_smoke.py`` load with
-jax, flax, orbax and cv2 made unimportable, and pull in no module of the JAX
+jax, flax, orbax, cv2, PIL and grpc made unimportable (the gRPC front door
+imports grpc inside its functions), and pull in no module of the JAX
 package; its entry points refuse to fall back to the CPU."""
 import os
 import subprocess
@@ -12,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "cv2"):
+for name in ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL", "grpc"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import face_detection_and_recognition_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
@@ -34,14 +35,17 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
-    # ops, models, core, utils, pipelines and their modules were all
-    # imported
+    # ops, models, core, utils, pipelines, cli, serving and their modules
+    # were all imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 24, out.stdout
+    assert n >= 37, out.stdout
     names = out.stdout.split("NAMES ")[1].split()
     for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
                 "models.embedders", "models.blazeface", "pipelines",
-                "pipelines.similarity"):
+                "pipelines.similarity", "utils.native", "utils.files",
+                "utils.parser", "utils.draw", "core.config", "core.inference",
+                "cli.detect_face", "serving.batcher", "serving.service",
+                "serving.http_server", "serving.grpc_server"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 
@@ -55,6 +59,20 @@ def test_engine_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FaceEngine(EngineConfig(), device="cuda")
     assert FaceEngine(EngineConfig(), device="cpu").device.type == "cpu"
+
+
+def test_service_and_cli_raise_without_cuda(monkeypatch):
+    from face_detection_and_recognition_tpu_torch.cli.detect_face import main
+    from face_detection_and_recognition_tpu_torch.serving import (
+        FaceService, ServiceConfig)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaceService(ServiceConfig(detector="yolov5n", with_embedder=False,
+                                  with_age_gender=False))
+    img = os.path.join(REPO, "tests", "data", "test2_faces_3.jpg")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-i", img, "--md", "yolov5n", "--no-display"])
 
 
 def test_similarity_entry_points_raise_without_cuda(monkeypatch):
