@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace and
-CLI + serving paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
+yolov5 family + embedders and CLI + serving paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -17,17 +17,18 @@ seconds:
    candidate gather + decode: f32 and bf16 maps in three level layouts
    (yolov5s's P5 at 640 x 640 and 640 x 384, the four-level P6 at
    640 x 640), K = 1024 a frame. B3: 64 crop slots a frame at 112 x 112,
-   227 x 227 and 45 x 31 (odd rows of 93 floats), both box semantics,
-   uint8 and f32 frames, with the epilogue off, clip only, and clip + the
-   age/gender mean. B4: 512 queries against a
+   227 x 227, 160 x 160, 128 x 128 and 45 x 31 (odd rows of 93 floats),
+   both box semantics, uint8 and f32 frames, with the epilogue off, clip
+   only, and clip + the age/gender mean. B4: 512 queries against a
    524,288 x 512 gallery, k = 5, against the plain FMA chain on the whole
    gallery. B5, the standalone entry point: 896 BlazeFace rows a frame,
-   16 slots; 10 rows; nothing valid; K = 2048; K = 2048 at D = 32 (rows
-   read from L2); 40 slots (past the first chunk of 32 picks). B5, the
-   fused entry point (decode, sigmoid, threshold, sort, blend NMS): seeded
-   raw heads of both nets at B = 8 with ties at sigmoid 1.0 and an
-   inverted box, nothing above the threshold, every anchor above it, and
-   (in phase 7) the nets' own heads on the path's frames. The gallery
+   16 slots; 10 rows; nothing valid; K = 2048; K = 1500 (two words a
+   pick warp, ragged); K = 2048 at D = 32 (rows read from L2); 40 slots
+   (past the first chunk of 32 picks). B5, the fused entry point (decode,
+   sigmoid, threshold, sort, blend NMS): seeded raw heads of both nets at
+   B = 8 with ties at sigmoid 1.0 and an inverted box, nothing above the
+   threshold, every anchor above it, NaN raw scores, 600 and 1000 anchors,
+   and (in phase 7) the nets' own heads on the path's frames. The gallery
    top-k is
    also held to the default search path (matrix product and stable top-k).
    Prints for each kernel its time between CUDA events over a loop of
@@ -62,22 +63,39 @@ seconds:
    Each main path zeroes the launch counts just before it and reads them
    just after; every kernel of the path must have launched, and every
    output must be finite and of the contract's shape;
-8. main path, cli + serving: a seeded smooth 576 x 1024 frame through the
+8. main path, yolov5 family + embedders: yolov5s6-face (four levels, gd
+   0.33, gw 0.50) ``detect_batch`` on the 8 frames square (640 x 640),
+   rect (640 x 384) and at 960 x 960; yolov5s-official (nc 80, no
+   landmarks) ``detect_batch``; yolov5s6 + FaceNet (160 x 160, 128-d) +
+   age/gender ``detect_embed_classify_batch`` with every NMS survivor
+   live; ``embed_crops`` and ``embed_faces`` through facenet-512,
+   reid-mnv2 (128 x 128) and demographics (227 x 227). Each part zeroes
+   the counts before it and reads them after; the path's counts are the
+   sums. After the counts are read, on the arguments the path handed them
+   (captured by a spy that calls the real wrapper): B2's calls, which
+   must take four levels, B1's on yolov5s6 and B3's at the path's sizes
+   (160, 128, 227) bit for bit against their plain versions, and B1 alone
+   on the official head's class-shifted candidates (coordinates up to
+   ~3.3e5), bit for bit and timed; each net's device ms on up to 512
+   crops;
+9. main path, cli + serving: a seeded smooth 576 x 1024 frame through the
    port's JPEG route (``utils/native.py``: encoded, decoded, the round
    trip's error bounded, the route printed); the ``detect_face`` CLI in
    process on that JPEG (yolov5s, thresholds 0, then again with
    ``--age-gender --embedder mobile_facenet``); then the HTTP front door of
    ``FaceService(ServiceConfig())`` (yolov5s, MobileFaceNet, both
    age/gender heads, 32 slots) on 127.0.0.1: ``/health``, 8 sequential
-   ``/detect`` and 8 sequential ``/ensemble`` requests, and 8 concurrent
-   ``/detect`` requests through the dynamic batcher (batches of up to 8).
+   ``/detect`` and 8 sequential ``/ensemble`` requests, one ``Detect``
+   through the gRPC front door, and 8 concurrent ``/detect`` requests
+   through the dynamic batcher (batches of up to 8).
    After the path's counts are read: the CLI's printed boxes against
    ``FaceEngine.detect_image`` on the decoded frame, and every answer
    against the service's direct call on it; the request times (p50, max)
    and the batcher's counts are printed;
-9. reference: the detector's raw maps, MobileFaceNet's embeddings, the
-   age/gender heads' logits and both BlazeFace nets' raw heads on the card
-   against the same modules on the CPU.
+10. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+   age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
+   and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
+   embeddings on the card against the same modules on the CPU.
 
 The line before the last is a JSON object of per-kernel numbers, and the last
 line is ``{"ok": true, "device": {...}}``. Any failure propagates: the script
@@ -108,7 +126,7 @@ from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
 from face_detection_and_recognition_tpu_torch.ops.preprocess import \
     AGE_GENDER
 from face_detection_and_recognition_tpu_torch.utils.profiling import (
-    cuda_ms, detect_nms_inputs, device_ms, device_ops)
+    captured_calls, cuda_ms, detect_nms_inputs, device_ms, device_ops)
 
 T0 = time.time()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -194,7 +212,8 @@ def nms_work(boxes, valid, keep):
 def check_nms(gen):
     """B1 against its plain version in every option set: the kernel row
     (B = 8, K = 1024), K = 1000 (a ragged last block), B = 1, and K = 8192
-    (the cap: 256 blocks, 64 KB of staged rows)."""
+    (the cap: 256 blocks, 64 KB of staged rows); then the kernel row
+    shifted by class as ``multiclass_nms`` shifts it."""
     boxes, valid = nms_inputs(gen)
     extra = torch.Generator().manual_seed(SEED + 10)
     cases = [(f"B={B} K={K}", boxes, valid),
@@ -215,6 +234,22 @@ def check_nms(gen):
             if mism:
                 raise AssertionError("nms_fixpoint differs from its plain "
                                      "version")
+    # multiclass_nms's input: the boxes shifted by class * 4096, strict
+    # IoU > 0.5, no +1 px. Classes 76-79, the largest shifts (coordinates
+    # up to ~3.3e5, where an f32 ulp is 1/32 px), and the duplicated rows
+    # in their originals' class, so that the pass has work to do
+    cls = torch.randint(76, 80, (B, K), generator=extra)
+    cls[:, 100:140] = cls[:, 0:40]
+    shifted = (boxes + (cls.float().cuda() * 4096.0)[..., None]).contiguous()
+    got = ck.nms_fixpoint(shifted, valid, 0.5, False, True, "union")
+    ref = ck.nms_fixpoint_plain(shifted, valid, 0.5, False, True, "union")
+    torch.cuda.synchronize()
+    say(f"  nms_fixpoint B={B} K={K} class-shifted (classes 76-79, up to "
+        f"{float(shifted.max()):.1f}) strict union: kept {int(got.sum())} of "
+        f"{int(valid.sum())}, mismatches {int((got != ref).sum())}")
+    if not torch.equal(got, ref):
+        raise AssertionError("nms_fixpoint differs from its plain version "
+                             "on class-shifted boxes")
     # the detect path's option set: +1 px IoU, suppress at IoU >= 0.3
     args = (boxes, valid, 0.3, True, False, "union")
     ms = cuda_ms(lambda: ck.nms_fixpoint(*args), 50)
@@ -377,7 +412,9 @@ def check_decode(gen):
     return result
 
 
-CROP_HW = ((112, 112), (227, 227))  # face crops, age/gender crops
+# face crops (MobileFaceNet), age/gender crops, FaceNet's and the reid
+# embedder's crops
+CROP_HW = ((112, 112), (227, 227), (160, 160), (128, 128))
 CROP_K = 64                          # EngineConfig.max_det slots a frame
 
 
@@ -438,10 +475,12 @@ def crop_heads(n_slots, out_hw, c=3):
 
 
 def check_crop(gen, frames):
-    """B3 against its plain version: both box semantics, both crop sizes of
-    the ensemble and an odd one, uint8 frames (the engine's) and f32 frames
-    stretched past [0, 255], each with the epilogue off, clip only and clip
-    + the age/gender mean."""
+    """B3 against its plain version: both box semantics, the crop sizes of
+    the ensembles (112, 227, 160 and 128) and an odd one, uint8 frames (the
+    engine's) and f32 frames stretched past [0, 255], each with the
+    epilogue off, clip only and clip + the age/gender mean. Timed at
+    227 x 227 with clip + mean, and at 160 x 160 and 128 x 128 with the
+    clip alone (the embedders' face crops)."""
     boxes, valid = crop_inputs(gen, frames)
     f32 = frames.float() * 1.5 - 100.0
     err = 0.0
@@ -526,13 +565,26 @@ def check_crop(gen, frames):
         f"fused, {bare_ms:.5f} ms without the epilogue, {unfused_ms:.5f} ms "
         f"as crop + clamp_ + -= (the passes it replaces); bound "
         f"{bound_ms:.5f} ms; {int(valid.sum())} of {B * CROP_K} slots live")
+    by_size = {}
+    for side in (160, 128):
+        face = (frames, boxes, valid, (side, side), True, True, None)
+        face_ms = cuda_ms(lambda: ck.crop_resize(*face), 50)
+        face_bound = bound(0, B * CROP_K * side * side * 3 * 4
+                           + crop_read_bytes(frames, boxes, valid,
+                                             (side, side), True)
+                           + B * CROP_K * (16 + 1))[0]
+        by_size[side] = (face_ms, face_bound)
+        say(f"  crop_resize {side}x{side} with clip (an embedder's face "
+            f"crops): {face_ms:.5f} ms, bound {face_bound:.5f} ms")
     return dict(
         name="crop_resize", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/crop_resize.cu",
         replaces="face_detection_and_recognition_tpu/ops/pallas_kernels.py:420",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        no_epilogue_ms=bare_ms, unfused_ms=unfused_ms)
+        no_epilogue_ms=bare_ms, unfused_ms=unfused_ms,
+        ms_160=by_size[160][0], bound_ms_160=by_size[160][1],
+        ms_128=by_size[128][0], bound_ms_128=by_size[128][1])
 
 
 TOPK_N, TOPK_M, TOPK_D, TOPK_K = 512, 524288, 512, 5  # the similarity path
@@ -703,13 +755,14 @@ def wide_rows(gen, b, k, d):
 def check_blend(gen):
     """B5's standalone entry point against its plain version, bit for bit:
     the BlazeFace shape (8 frames of 896 rows), fewer rows than slots,
-    nothing valid, K = 2048 (the cap; 139 KB of rows staged), K = 2048 at
-    D = 32 (rows read from L2), and 40 slots (past the first chunk of 32
-    picks)."""
+    nothing valid, K = 2048 (the cap; 139 KB of rows staged), K = 1500 (two
+    words a pick warp, the last one ragged), K = 2048 at D = 32 (rows read
+    from L2), and 40 slots (past the first chunk of 32 picks)."""
     sd, sv = blend_inputs(gen, BLEND_B, BLEND_K)
     cases = [(sd, sv, BLEND_OUT), (*blend_inputs(gen, 2, 10), BLEND_OUT),
              (sd, torch.zeros_like(sv), BLEND_OUT),
              (*blend_inputs(gen, 2, 2048), BLEND_OUT),
+             (*blend_inputs(gen, 2, 1500), BLEND_OUT),
              (*wide_rows(gen, 2, 2048, 32), BLEND_OUT),
              (*singleton_rows(gen, 100), 40)]
     err = 0.0
@@ -756,17 +809,18 @@ BLAZE_NETS = (("back", 256.0, 0.65), ("front", 128.0, 0.75))
 BLAZE_CLIP, BLAZE_IOU = 100.0, 0.3
 
 
-def blaze_heads(gen, b, thr, case="ties"):
-    """Raw BlazeFace heads [B, 896, 16], [B, 896, 1] on the card: box
-    offsets in input pixels, logits spread around the score threshold with
-    every 97th at +150 (ties at sigmoid 1.0) and every 101st at -150, and
-    anchor 10 an inverted box at +150. "none" puts every logit below the
-    threshold, "all" every one above it."""
+def blaze_heads(gen, b, thr, case="ties", n=896):
+    """Raw BlazeFace heads [B, n, 16], [B, n, 1] on the card: box offsets
+    in input pixels, logits spread around the score threshold with every
+    97th at +150 (ties at sigmoid 1.0) and every 101st at -150, and anchor
+    10 an inverted box at +150. "none" puts every logit below the
+    threshold, "all" every one above it, "nan" makes every 13th logit NaN
+    (and anchor 10 stays +150)."""
     logit = float(np.log(thr / (1 - thr)))
-    boxes = torch.randn((b, 896, 16), generator=gen) * 6
-    boxes[..., 2:4] = torch.rand((b, 896, 2), generator=gen) * 20 + 10
+    boxes = torch.randn((b, n, 16), generator=gen) * 6
+    boxes[..., 2:4] = torch.rand((b, n, 2), generator=gen) * 20 + 10
     boxes[:, 10, 2:4] = -20.0
-    noise = torch.randn((b, 896, 1), generator=gen) * 1.5
+    noise = torch.randn((b, n, 1), generator=gen) * 1.5
     scores = logit + noise
     if case == "none":
         scores = logit - 0.01 - noise.abs()
@@ -777,7 +831,32 @@ def blaze_heads(gen, b, thr, case="ties"):
         scores[:, 10] = 150.0
     if case == "ties":
         scores[:, 5::101] = -150.0
+    if case == "nan":
+        scores[:, 3::13] = float("nan")
     return boxes.cuda(), scores.cuda()
+
+
+def blaze_anchors(n):
+    """n anchor rows on the card: BlazeFace's 896, cut or repeated."""
+    from face_detection_and_recognition_tpu_torch.models.blazeface import \
+        generate_anchors
+
+    a = generate_anchors()
+    return torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([a] * (n // len(a) + 1))[:n])).cuda()
+
+
+def same_rows_nan(got, ref):
+    """The fused entry point's output against its plain version where NaN
+    may appear: bit for bit, else the same slots valid and the same values
+    with NaN in the same places. Returns how they matched, or None."""
+    if same_bits(got[0], ref[0]) and same_bits(got[1], ref[1]):
+        return "equal bits"
+    if torch.equal(got[1], ref[1]) and torch.equal(
+            torch.isnan(got[0]), torch.isnan(ref[0])) and torch.equal(
+            torch.nan_to_num(got[0]), torch.nan_to_num(ref[0])):
+        return "the same rows (NaN payloads differ)"
+    return None
 
 
 def blaze_args(raw_boxes, raw_scores, anchors, scale, thr):
@@ -816,16 +895,18 @@ def blaze_work(args):
 
 def check_fused_case(label, args):
     """The fused entry point against its plain version on ``args``, bit
-    for bit. Returns the max abs difference (0)."""
+    for bit (where NaN appears: equal bits, or the same rows). Returns the
+    max abs difference (0)."""
     got = ck.blaze_decode_blend(*args)
     ref = ck.blaze_decode_blend_plain(*args)
     torch.cuda.synchronize()
-    e = float((got[0] - ref[0]).abs().max())
+    e = float(torch.nan_to_num(got[0] - ref[0]).abs().max())
     scores = torch.sigmoid(args[1][..., 0].clamp(-BLAZE_CLIP, BLAZE_CLIP))
+    how = same_rows_nan(got, ref)
     say(f"  blaze_decode_blend {label}: valid anchors a frame "
         f"{(scores >= args[5]).sum(1).tolist()}, picks "
-        f"{got[1].sum(1).tolist()}, max abs err {e}")
-    if not (same_bits(got[0], ref[0]) and same_bits(got[1], ref[1])):
+        f"{got[1].sum(1).tolist()}, max abs err {e}; {how}")
+    if how is None:
         raise AssertionError(f"blaze_decode_blend differs from its plain "
                              f"version ({label})")
     return e
@@ -835,8 +916,9 @@ def check_blaze_decode(gen):
     """B5's fused entry point (decode, sigmoid, threshold, sort, blend NMS,
     reorder) against its plain version, bit for bit, for both nets at
     B = 8: seeded heads with ties at sigmoid 1.0 and an inverted box,
-    nothing above the threshold, every anchor above it. Timed on the back
-    net's seeded heads."""
+    nothing above the threshold, every anchor above it; then NaN raw
+    scores, and anchor counts other than 896 (600, and 1000 near the cap of
+    1024). Timed on the back net's seeded heads."""
     from face_detection_and_recognition_tpu_torch.models.blazeface import \
         generate_anchors
 
@@ -849,6 +931,12 @@ def check_blaze_decode(gen):
             err = max(err, check_fused_case(f"{net} B={B} {case}", args))
             if timed is None:
                 timed = args
+    _, scale, thr = BLAZE_NETS[0]
+    for n, case in ((896, "nan"), (600, "ties"), (1000, "ties"),
+                    (1000, "nan")):
+        args = blaze_args(*blaze_heads(gen, B, thr, case, n),
+                          blaze_anchors(n), scale, thr)
+        err = max(err, check_fused_case(f"back B={B} N={n} {case}", args))
     ms = cuda_ms(lambda: ck.blaze_decode_blend(*timed), 200)
     dev_ms, _ = device_ms(lambda: ck.blaze_decode_blend(*timed), 50)
     plain_ms = cuda_ms(lambda: ck.blaze_decode_blend_plain(*timed), 2)
@@ -1114,6 +1202,263 @@ def run_blazeface(frames, singles, card):
     return dict(ck.LAUNCHES), engines
 
 
+FAMILY_SLOTS = ("facenet-512", "reid-mnv2", "demographics")
+EMBED_N = 512                # crops a net runs on in the timed calls
+
+
+class Windows:
+    """Launch counts of a main path driven in parts: each part zeroes the
+    counts just before it and reads them just after; the path's counts are
+    the parts' sums."""
+
+    def __init__(self):
+        self.parts = {}
+
+    def run(self, name, fn):
+        ck.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        self.parts[name] = dict(ck.LAUNCHES)
+        return out
+
+    def total(self):
+        return {k: sum(p[k] for p in self.parts.values())
+                for k in ck.LAUNCHES}
+
+
+def timed_batches(fn, reps):
+    """(result, seconds a call) of ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.time()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t) / reps
+
+
+def check_dets(name, dets, n_lmk, k=64):
+    want = {"boxes": (B, k, 4), "scores": (B, k), "lmarks": (B, k, n_lmk),
+            "valid": (B, k)}
+    for field, shape in want.items():
+        arr = getattr(dets, field)
+        if tuple(arr.shape) != shape:
+            raise AssertionError(f"{name} {field} shape {tuple(arr.shape)}")
+        if field != "valid" and not bool(torch.isfinite(arr).all()):
+            raise AssertionError(f"{name}: non-finite {field}")
+
+
+def check_on_path(label, fn, plain, calls):
+    """A kernel's wrapper against its plain version on the arguments the
+    path handed it (``calls``, from ``captured_calls``), bit for bit."""
+    with torch.inference_mode():
+        for args, kwargs in calls:
+            got, ref = fn(*args, **kwargs), plain(*args, **kwargs)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            if not all(same_bits(g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"{label} differs from its plain "
+                                     "version on the path's own inputs")
+    say(f"  {label}: {len(calls)} calls of the path held to the plain "
+        "version, equal bit for bit")
+
+
+def run_family(frames, card):
+    """The yolov5 family + embedders main path: yolov5s6 (four levels)
+    square, rect and at 960 x 960; yolov5s-official (nc 80, no landmarks,
+    class-offset NMS); yolov5s6 + FaceNet + age/gender through the
+    ensemble; embed_crops and embed_faces through facenet-512, reid-mnv2
+    and demographics. Returns the path's launch counts, the numbers to
+    print, and the nets for the reference phase."""
+    from face_detection_and_recognition_tpu_torch.models import \
+        yolov5_face
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+    from face_detection_and_recognition_tpu_torch.ops import nms as nms_ops
+
+    win, stats, nets = Windows(), {}, {}
+    t = time.time()
+    s6 = {key: FaceEngine(EngineConfig(detector="yolov5s6", rect=rect,
+                                       seed=SEED, detector_overrides=ov))
+          for key, rect, ov in (("square", False, {}), ("rect", True, {}),
+                                ("960", False, {"input_size": (960, 960)}))}
+    official = FaceEngine(EngineConfig(detector="yolov5s-official",
+                                       seed=SEED))
+    ens = FaceEngine(EngineConfig(detector="yolov5s6", embedder="facenet",
+                                  with_age_gender=True, seed=SEED))
+    slots = {name: FaceEngine(EngineConfig(detector="blazeface-front",
+                                           embedder=name, seed=SEED))
+             for name in FAMILY_SLOTS}
+    say(f"  engines built in {time.time() - t:.1f} s")
+
+    # yolov5s6: square 640, rect 640x384, square 960
+    def s6_run(key, reps):
+        dets, sec = timed_batches(
+            lambda: s6[key].detect_batch(frames, 0.0, 0.0), reps)
+        check_dets(f"yolov5s6 {key}", dets, 10)
+        stats[f"s6_{key}_fps"] = B / sec
+        say(f"  yolov5s6 detect_batch {key} ({s6[key].input_size} box): "
+            f"{B} x 576x1024 frames in {sec * 1e3:.2f} ms = {B / sec:.1f} "
+            f"frames/s on {card}; detections per frame "
+            f"{dets.valid.sum(1).tolist()}")
+
+    for key, reps in (("square", 3), ("rect", 3), ("960", 1)):
+        win.run(f"s6 {key}", lambda: s6_run(key, reps))
+    for key in ("square", "rect", "960"):
+        for k in ("nms_fixpoint", "rows_gather"):
+            if win.parts[f"s6 {key}"][k] <= 0:
+                raise AssertionError(f"{k} never launched on yolov5s6 {key}")
+    # B2's calls on the path: four levels, each layout's own input size
+    b2 = {}
+    for key in ("square", "rect", "960"):
+        calls = captured_calls(
+            yolov5_face, "candidate_decode",
+            lambda: s6[key].detect_batch(frames, 0.0, 0.0))
+        b2[key] = calls
+        levels = {len(a[0]) for a, _ in calls}
+        sizes = {a[4] for a, _ in calls}
+        say(f"  rows_gather on yolov5s6 {key}: {len(calls)} call(s), "
+            f"levels {sorted(levels)}, input sizes {sorted(sizes)}, level "
+            f"rows {[m.shape[1] for m in calls[0][0][0]]}")
+        if levels != {4}:
+            raise AssertionError("yolov5s6's gather did not take 4 levels")
+    check_on_path("rows_gather (4 levels) on yolov5s6's maps",
+                  ck.candidate_decode, ck.candidate_decode_plain,
+                  [c for calls in b2.values() for c in calls])
+    nms_calls = captured_calls(
+        yolov5_face, "nms_fixpoint",
+        lambda: s6["square"].detect_batch(frames, 0.0, 0.0))
+    check_on_path("nms_fixpoint on yolov5s6's candidates", ck.nms_fixpoint,
+                  ck.nms_fixpoint_plain, nms_calls)
+    nets["s6"] = s6["square"].net
+
+    # the official head: 85 columns, no landmarks, class-offset NMS
+    def official_run():
+        dets, sec = timed_batches(
+            lambda: official.detect_batch(frames, 0.0, 0.0), 3)
+        check_dets("yolov5s-official", dets, 0)
+        stats["official_fps"] = B / sec
+        stats["official_dets"] = dets.valid.sum(1).tolist()
+        say(f"  yolov5s-official detect_batch (nc 80): {B} x 576x1024 "
+            f"frames in {sec * 1e3:.2f} ms = {B / sec:.1f} frames/s on "
+            f"{card}; detections per frame {stats['official_dets']} (with "
+            f"area > 0 of the {official.cfg.max_det} slots)")
+
+    win.run("official", official_run)
+    if win.parts["official"]["nms_fixpoint"] <= 0:
+        raise AssertionError("nms_fixpoint never launched on the official "
+                             "path")
+    calls = captured_calls(nms_ops, "nms_fixpoint",
+                           lambda: official.detect_batch(frames, 0.0, 0.0))
+    (args, kwargs), = calls
+    with torch.inference_mode():
+        got = ck.nms_fixpoint(*args, **kwargs)
+        ref = ck.nms_fixpoint_plain(*args, **kwargs)
+        if not torch.equal(got, ref):
+            raise AssertionError("nms_fixpoint differs from its plain "
+                                 "version on the official path's "
+                                 "class-shifted candidates")
+        ms = cuda_ms(lambda: ck.nms_fixpoint(*args, **kwargs), 200)
+        dev_ms, _ = device_ms(lambda: ck.nms_fixpoint(*args, **kwargs), 50)
+    bound_ms, bound_by = bound(*nms_work(args[0], args[1], got))
+    stats["official_b1"] = dict(
+        ms=ms, device_ms=dev_ms, bound_ms=bound_ms,
+        valid=args[1].sum(1).tolist(), kept=got.sum(1).tolist(),
+        max_coord=float(args[0][args[1]].abs().max()))
+    say(f"  nms_fixpoint on the official path's class-shifted candidates "
+        f"{tuple(args[0].shape)} (strict={kwargs.get('strict')}, "
+        f"plus1={kwargs.get('plus1')}): coordinates up to "
+        f"{stats['official_b1']['max_coord']:.1f}, valid a frame "
+        f"{stats['official_b1']['valid']}, kept {stats['official_b1']['kept']}"
+        f"; equal bit for bit to the plain version; {ms:.5f} ms between "
+        f"events, {dev_ms:.5f} ms device, bound {bound_ms:.6f} ms "
+        f"({bound_by})")
+    nets["official"] = official.net
+
+    # yolov5s6 + FaceNet + age/gender, every NMS survivor a live slot
+    def ensemble_run():
+        r, sec = timed_batches(lambda: ens.detect_embed_classify_batch(
+            frames, det_thres=0.0, bbox_area_thres=0.0), 2)
+        v = r.det.valid
+        want = {"crops": (B, 64, 160, 160, 3), "embeddings": (B, 64, 128),
+                "age_probs": (B, 64, 8), "gender_probs": (B, 64, 2)}
+        for name, shape in want.items():
+            arr = getattr(r, name)
+            if tuple(arr.shape) != shape or not bool(
+                    torch.isfinite(arr).all()):
+                raise AssertionError(f"facenet ensemble {name}: "
+                                     f"{tuple(arr.shape)}")
+        norm_err = float((r.embeddings[v].norm(dim=-1) - 1).abs().max())
+        if not (int(v.sum()) > 0 and norm_err <= 1e-4):
+            raise AssertionError("facenet ensemble: no live slot or "
+                                 "embeddings not unit")
+        stats["facenet_ensemble_fps"] = B / sec
+        say(f"  yolov5s6 + facenet + age/gender detect_embed_classify_batch"
+            f": {B} x 576x1024 frames in {sec * 1e3:.2f} ms = "
+            f"{B / sec:.1f} frames/s on {card}; live slots "
+            f"{v.sum(1).tolist()}; max |norm - 1| {norm_err:.2e}")
+        return r
+
+    res = win.run("facenet ensemble", ensemble_run)
+    if win.parts["facenet ensemble"]["crop_resize"] <= 0:
+        raise AssertionError("crop_resize never launched on the facenet "
+                             "ensemble")
+    faces = res.crops[res.det.valid][:EMBED_N].cpu().numpy()
+    frame0 = np.ascontiguousarray(frames[0])
+    post0 = ens.detect_image(frame0, 0.0, 0.0)
+    boxes0 = post0.boxes[:32]
+
+    def slot_run(name):
+        eng = slots[name]
+        emb = eng.embed_crops(faces)
+        per_face = eng.embed_faces(frame0, boxes0)
+        dim = eng.embed_spec.dim
+        if emb.shape != (len(faces), dim) or per_face.shape != (
+                len(boxes0), dim) or not (np.isfinite(emb).all()
+                                          and np.isfinite(per_face).all()):
+            raise AssertionError(f"{name}: bad embeddings")
+        return emb
+
+    for name in FAMILY_SLOTS:
+        win.run(name, lambda: slot_run(name))
+        if win.parts[name]["crop_resize"] <= 0:
+            raise AssertionError(f"crop_resize never launched for {name}")
+    # B3 at each slot's size on the path's own frames and boxes
+    b3 = captured_calls(crop_ops, "crop_resize",
+                        lambda: ens.detect_embed_classify_batch(
+                            frames, 0.0, 0.0))
+    for name in FAMILY_SLOTS:
+        b3 += captured_calls(crop_ops, "crop_resize",
+                             lambda: slots[name].embed_faces(frame0, boxes0))
+    sizes = sorted({a[3] for a, _ in b3})
+    say(f"  crop_resize output sizes on the path: {sizes}")
+    for hw in ((160, 160), (128, 128), (227, 227)):
+        if hw not in sizes:
+            raise AssertionError(f"crop_resize never ran at {hw}")
+    check_on_path("crop_resize at the path's sizes", ck.crop_resize,
+                  ck.crop_resize_plain, b3)
+    # each net's device time on up to EMBED_N crops at its own size
+    frames_t = torch.from_numpy(frames).cuda()
+    live = res.det.valid
+    per_net = {"facenet": ens}
+    per_net.update(slots)
+    with torch.inference_mode():
+        for name, eng in per_net.items():
+            w, h = eng.embed_spec.input_size
+            crops = crop_ops.crop_for_net(frames_t, res.det.boxes, (h, w),
+                                          live)[live][:EMBED_N].contiguous()
+            net_ms = cuda_ms(lambda: eng._embed(crops), 5)
+            dev, n_ops = device_ms(lambda: eng._embed(crops), 3)
+            stats[f"{name}_ms"] = (len(crops), net_ms, dev)
+            say(f"  {name} ({h}x{w}, {eng.embed_spec.dim}-d): "
+                f"{len(crops)} crops in {net_ms:.2f} ms between events, "
+                f"{dev:.2f} ms device ({n_ops} device operations) on {card}")
+    nets["facenet"] = ens.embed_net
+    nets["reid"] = slots["reid-mnv2"].embed_net
+    stats["windows"] = {k: {n: c for n, c in v.items() if c}
+                        for k, v in win.parts.items()}
+    return win.total(), stats, nets
+
+
 IO_HW = (576, 1024)          # the serving frame: the reference's video size
 IO_QUALITY = 95
 IO_MAE = 2.0                 # round-trip bound, mean |decoded - frame|
@@ -1204,6 +1549,27 @@ def check_answers(name, answers, ref):
                 raise AssertionError(f"{name}: labels differ")
 
 
+def grpc_detect_once(service, data):
+    """One Detect request through the gRPC front door of ``service`` on
+    127.0.0.1 (thresholds 0): (its JSON answer, client ms). The server is
+    stopped before this returns."""
+    from face_detection_and_recognition_tpu_torch.serving.grpc_server import (
+        grpc_call, grpc_detect, make_grpc_server)
+
+    port = free_port()
+    server = make_grpc_server(service, "127.0.0.1", port, max_workers=2)
+    server.start()
+    addr = f"127.0.0.1:{port}"
+    try:
+        if json.loads(grpc_call(addr, "Health")) != {"ready": True}:
+            raise AssertionError("gRPC Health is not ready")
+        t = time.perf_counter()
+        out = grpc_detect(addr, data, det_thres=0.0, bbox_area_thres=0.0)
+        return out, (time.perf_counter() - t) * 1e3
+    finally:
+        server.stop(None)
+
+
 def run_cli_serving(card, device="cuda"):
     """The CLI + serving main path. Returns its launch counts and the
     numbers to print: the JPEG route's, the CLI's, the requests'."""
@@ -1278,6 +1644,8 @@ def run_cli_serving(card, device="cuda"):
             a, t_ms = http(base + "/ensemble", data)
             answers["ensemble"].append(a)
             ms["ensemble"].append(t_ms)
+        answers["grpc"], stats["grpc_detect_ms"] = grpc_detect_once(
+            service, data)
         batcher = service.enable_dynamic_batching(max_batch=N_REQUESTS,
                                                   max_delay_ms=50.0)
         threads = [threading.Thread(target=lambda: answers["batched"].append(
@@ -1300,7 +1668,8 @@ def run_cli_serving(card, device="cuda"):
                             "dispatches": batcher.dispatches}
         # what the path answered, against direct calls on the decoded frame
         ref_det = service.detect_faces(decoded, 0.0, 0.0)
-        check_answers("/detect", answers["detect"] + answers["batched"],
+        check_answers("/detect", answers["detect"] + answers["batched"]
+                      + [answers["grpc"]],
                       {"bboxes": ref_det[1], "confs": ref_det[2]})
         ref_ens = service.detect_embed_classify(decoded)
         check_answers("/ensemble", answers["ensemble"],
@@ -1360,6 +1729,10 @@ def run_cli_serving(card, device="cuda"):
             f"{len(data)}-byte JPEG, p50 {stats[name]['p50_ms']:.2f} ms, max "
             f"{stats[name]['max_ms']:.2f} ms a request on {card}; "
             f"{stats[name + '_faces']} faces an answer")
+    say(f"  gRPC /fdrt.FaceService/Detect: "
+        f"{answers['grpc']['num_faces']} faces in "
+        f"{stats['grpc_detect_ms']:.2f} ms (channel set-up included), equal "
+        "to the service's direct call")
     say(f"  HTTP /detect, {N_REQUESTS} concurrent through the batcher: "
         f"requests {stats['batcher']['requests']}, dispatches "
         f"{stats['batcher']['dispatches']}; every answer equals the "
@@ -1501,11 +1874,23 @@ def main():
     kernels[-1].update(check_blaze_on_path(blaze, frames))
     phase_end("main path: blazeface")
 
+    say("[main path: yolov5 family + embedders] yolov5s6, yolov5s-official,"
+        " facenet, facenet-512, reid-mnv2, demographics")
+    family_launches, family, family_nets = run_family(frames, card)
+    say(f"  launches on the yolov5 family + embedders path: "
+        f"{family_launches}, by part {json.dumps(family['windows'])}")
+    for name in ("nms_fixpoint", "rows_gather", "crop_resize"):
+        if family_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    phase_end("main path: yolov5 family + embedders")
+
     say("[main path: cli + serving] JPEG route, detect_face CLI, HTTP "
         "front door of FaceService(ServiceConfig())")
     serving_launches, serving = run_cli_serving(card)
     say(f"  launches on the cli + serving path: {serving_launches}")
     say(f"  cli + serving numbers: {json.dumps(serving)}")
+    say(f"  yolov5 family + embedders numbers: "
+        f"{json.dumps({k: v for k, v in family.items() if k != 'windows'})}")
     phase_end("main path: cli + serving")
 
     say("[reference] the card against the CPU")
@@ -1523,6 +1908,15 @@ def main():
         side = eng.spec.input_size[0]
         check_reference(f"{name} raw heads", on(eng.net),
                         torch.rand((2, side, side, 3), generator=gen) * 2 - 1)
+    for name in ("s6", "official"):
+        check_reference(f"yolov5{name} raw maps", on(family_nets[name]),
+                        torch.rand((2, 128, 192, 3), generator=gen))
+    check_reference("facenet embeddings",
+                    on(family_nets["facenet"], lambda m, x: [m(x)]),
+                    torch.randn((4, 160, 160, 3), generator=gen))
+    check_reference("reid-mnv2 embeddings",
+                    on(family_nets["reid"], lambda m, x: [m(x)]),
+                    torch.rand((4, 128, 128, 3), generator=gen) * 2 - 1)
     phase_end("reference")
 
     # each path's counts were zeroed just before it and read just after;
@@ -1533,6 +1927,7 @@ def main():
                    "ensemble": ensemble_launches[k["name"]],
                    "similarity": similarity_launches[k["name"]],
                    "blazeface": blaze_launches[k["name"]],
+                   "yolov5 family + embedders": family_launches[k["name"]],
                    "cli + serving": serving_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path

@@ -1,8 +1,9 @@
 """Face detection on an image file: the port's ``detect_face`` CLI.
 
 The counterpart of ``cli/detect_face.py`` in the JAX package, for the
-detectors the port registers (yolov5s, yolov5n, yolov5n-0.5,
-blazeface-front, blazeface-back) and JPEG images:
+detectors the port registers (the yolov5 family with its official heads,
+blazeface-front, blazeface-back: ``models.registry.available()``) and
+JPEG images:
 
     python -m face_detection_and_recognition_tpu_torch.cli.detect_face \\
         -i img.jpg --md yolov5s --dt 0.7 --at 0.12 --no-display -o out.jpg

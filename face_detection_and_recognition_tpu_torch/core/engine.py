@@ -8,7 +8,13 @@ That engine compiled one XLA program per source resolution, cached them, and
 handed out frozen views of its weights so that a compiled program could
 never serve stale ones. PyTorch runs eagerly and reads the module's
 parameters on every call, so neither the program cache nor the frozen views
-has a counterpart here; weights change through ``load_state_dict``.
+has a counterpart here; weights change through ``load_state_dict``. What
+that cache held is still counted (``compiled_pipelines``): each entry point
+and input shape the engine has run.
+
+Any registered detector and embedder slot serves: detections carry the
+detector's ``n_landmark_cols`` landmark columns (none for the official
+yolov5 heads), and each embedder runs at its own input size.
 """
 from __future__ import annotations
 
@@ -79,7 +85,7 @@ class EngineConfig:
     det_thres: float = 0.70
     bbox_area_thres: float = 0.12
     max_det: int = 64
-    embedder: Optional[str] = None          # "mobile_facenet" | None
+    embedder: Optional[str] = None          # models.embedders slot | None
     with_age_gender: bool = False
     # rect letterbox inference: each source resolution runs at the smallest
     # stride-multiple canvas its letterbox fits in, instead of the square
@@ -132,6 +138,18 @@ class FaceEngine:
         if cfg.with_age_gender:
             self.ag_net = make_age_gender(
                 torch.Generator().manual_seed(cfg.seed + 2), self.device)
+        self._pipelines = set()
+
+    @property
+    def compiled_pipelines(self) -> int:
+        """How many (entry point, input shape) pairs this engine has run:
+        detect at each source resolution, ``detect_raw``, the ensemble at
+        each (resolution, crop size, offsets, stages) and ``embed_crops``
+        at each crop size. The JAX engine compiled one XLA program for each
+        and cached it (``_pipeline_cache``); eager PyTorch compiles
+        nothing, so this counts the programs that cache would hold. Weight
+        loads do not reset it."""
+        return len(self._pipelines)
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load detector weights (e.g. from ``utils.weights`` bridge)."""
@@ -139,8 +157,11 @@ class FaceEngine:
 
     def load_embed_state_dict(self, state_dict: Dict[str, torch.Tensor]
                               ) -> None:
-        """Load embedder weights (``utils.weights.mobile_facenet_state_dict``
-        or a reference MobileFaceNet state dict)."""
+        """Load the embedder slot's weights: from ``utils.weights``,
+        ``mobile_facenet_state_dict`` (or a reference MobileFaceNet state
+        dict), ``facenet_state_dict`` for facenet and facenet-512,
+        ``reid_mnv2_state_dict`` for reid-mnv2, ``age_gender_state_dict``
+        for demographics."""
         if self.embed_net is None:
             raise ValueError("engine built without an embedder")
         self.embed_net.load_state_dict(state_dict)
@@ -173,8 +194,11 @@ class FaceEngine:
         torch.save(self.net.state_dict(), path)
 
     def load_embed_weights(self, path: str) -> None:
-        """Load embedder weights from a torch weight file (a reference
-        MobileFaceNet state dict)."""
+        """Load the embedder slot's weights from a torch weight file (a
+        reference MobileFaceNet state dict, or any slot's state dict that
+        ``load_embed_state_dict`` takes, saved with ``torch.save``). The
+        JAX engine's keras FaceNet SavedModel and HDF5 readers are not
+        ported yet: such paths raise ``ValueError``."""
         if self.embed_net is None:
             raise ValueError("engine built without an embedder")
         self.embed_net.load_state_dict(read_state_dict(path))
@@ -227,6 +251,7 @@ class FaceEngine:
         (``_compile_pipeline``); here it is a closure over the resolution's
         geometry, and the resample matrices it needs are cached in
         ``ops.geometry``."""
+        self._pipelines.add(("detect",) + tuple(shape))
         h, w = shape[:2]
         in_size = self.spec.input_size
         spec_pre = self.spec.preprocess
@@ -267,6 +292,7 @@ class FaceEngine:
     def detect_raw(self, img: np.ndarray) -> np.ndarray:
         """Reference ``Model.__call__`` contract: [N, 4+L+1] normalized to
         the model input size, threshold-unfiltered (conf in last column)."""
+        self._pipelines.add(("raw",) + tuple(img.shape))
         with torch.inference_mode():
             dets, valid = self._detect(self._preprocess(
                 self._frames(img[None])))
@@ -353,6 +379,9 @@ class FaceEngine:
         k = post.valid.shape[1]
         do_embed = want_embed and self.embed_net is not None
         do_ag = want_ag and self.ag_net is not None
+        self._pipelines.add(("ens", tuple(frames.shape[1:]), crop_size,
+                             None if embed_offsets is None
+                             else tuple(embed_offsets), do_embed, do_ag))
         with torch.inference_mode():
             crop_boxes = (post.boxes if embed_offsets is None else
                           pad_boxes(post.boxes, tuple(embed_offsets), (w, h)))
@@ -404,6 +433,7 @@ class FaceEngine:
         if faces.shape[0] == 0:
             return np.zeros((0, spec.dim), np.float32)
         ew, eh = spec.input_size
+        self._pipelines.add(("embed_crops",) + tuple(faces.shape[1:]))
         with torch.inference_mode():
             x = self._frames(faces).float()
             if tuple(x.shape[1:3]) != (eh, ew):

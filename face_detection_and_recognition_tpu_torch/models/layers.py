@@ -28,16 +28,23 @@ def make_divisible_torch(x: float, divisor: int) -> int:
     return int(math.ceil(x / divisor) * divisor)
 
 
+_ACTS = {"silu": nn.SiLU, "relu6": nn.ReLU6, None: nn.Identity}
+
+
 class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm + SiLU: the yolov5 ``Conv``. The BN
-    epsilon is the JAX package's 1e-3, not PyTorch's default 1e-5."""
+    """Conv2d (no bias) + BatchNorm + activation: the yolov5 ``Conv``. The
+    BN epsilon is the JAX package's 1e-3, not PyTorch's default 1e-5.
+    ``groups`` and ``act`` ("silu", "relu6" or None for a linear output)
+    serve MobileNetV2's blocks; the defaults are the yolov5 ``Conv``."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
-                 p: Optional[int] = None):
+                 p: Optional[int] = None, groups: int = 1,
+                 act: Optional[str] = "silu"):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), bias=False)
+        self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), groups=groups,
+                              bias=False)
         self.bn = nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
-        self.act = nn.SiLU()
+        self.act = _ACTS[act]()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(self.conv(x)))

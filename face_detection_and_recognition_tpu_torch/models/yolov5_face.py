@@ -1,12 +1,16 @@
-"""YOLOv5-face detectors in PyTorch: the P5 graph (yolov5s/m/l) and the
-ShuffleNetV2 graph (yolov5n, yolov5n-0.5).
+"""YOLOv5-face detectors in PyTorch: the P5 graph (yolov5s/m/l), the
+ShuffleNetV2 graph (yolov5n, yolov5n-0.5), their four-level P6 variants
+(yolov5s6/m6/l6, yolov5n6) and the official multiclass, landmark-less head.
 
 The counterpart of ``models/yolov5_face.py`` in the JAX package. The network
 walks the same graph table and returns the same raw head maps
 [B, na, ny, nx, no]; ``yolov5_face_detect_maps`` selects the top candidates,
 gathers and decodes their rows in one pass (``candidate_decode``) and runs
 greedy +1 px-IoU NMS (``nms_fixpoint``). The two kernels run as CUDA kernels
-on CUDA tensors and as their plain versions on the CPU.
+on CUDA tensors and as their plain versions on the CPU. The official head
+(``yolov5_official_detect_maps``) gathers its 5 + nc column rows with
+``torch.take_along_dim`` (the fused gather + decode is the 16-column face
+layout's) and reaches the NMS kernel through ``ops.nms.multiclass_nms``.
 """
 from __future__ import annotations
 
@@ -16,8 +20,10 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import candidate_decode, nms_fixpoint
-from ..ops.nms import sort_by_score
+from ..ops.boxes import xywh2xyxy
+from ..ops.cuda_kernels import (_candidate_grid_params, candidate_decode,
+                                nms_fixpoint)
+from ..ops.nms import multiclass_nms, sort_by_score
 from .layers import (C3, SPP, ConvBN, ShuffleV2Block, StemBlock,
                      make_divisible_torch)
 
@@ -25,6 +31,12 @@ FACE_ANCHORS = (
     ((4.0, 5.0), (8.0, 10.0), (13.0, 16.0)),
     ((23.0, 29.0), (43.0, 55.0), (73.0, 105.0)),
     ((146.0, 217.0), (231.0, 300.0), (335.0, 433.0)),
+)
+FACE_ANCHORS_P6 = (
+    ((6.0, 7.0), (9.0, 11.0), (13.0, 16.0)),
+    ((18.0, 23.0), (26.0, 33.0), (37.0, 47.0)),
+    ((54.0, 67.0), (77.0, 104.0), (112.0, 154.0)),
+    ((174.0, 238.0), (258.0, 355.0), (445.0, 568.0)),
 )
 
 # graph structure: list of (from, number, module, args) like the yamls
@@ -57,6 +69,43 @@ _P5_GRAPH: List[Tuple[Any, int, str, list]] = [
     ([16, 19, 22], 1, "Detect", []),            # 23
 ]
 
+# yolov5s6 / m6 / l6: the P5 graph with a P6/64 level
+_P6_GRAPH: List[Tuple[Any, int, str, list]] = [
+    (-1, 1, "StemBlock", [64, 3, 2]),           # 0
+    (-1, 3, "C3", [128]),                        # 1
+    (-1, 1, "Conv", [256, 3, 2]),                # 2  P3/8
+    (-1, 9, "C3", [256]),                        # 3
+    (-1, 1, "Conv", [512, 3, 2]),                # 4  P4/16
+    (-1, 9, "C3", [512]),                        # 5
+    (-1, 1, "Conv", [768, 3, 2]),                # 6  P5/32
+    (-1, 3, "C3", [768]),                        # 7
+    (-1, 1, "Conv", [1024, 3, 2]),               # 8  P6/64
+    (-1, 1, "SPP", [1024, [3, 5, 7]]),           # 9
+    (-1, 3, "C3", [1024, False]),                # 10
+    (-1, 1, "Conv", [768, 1, 1]),                # 11
+    (-1, 1, "Upsample", []),                     # 12
+    ([-1, 7], 1, "Concat", []),                  # 13
+    (-1, 3, "C3", [768, False]),                 # 14
+    (-1, 1, "Conv", [512, 1, 1]),                # 15
+    (-1, 1, "Upsample", []),                     # 16
+    ([-1, 5], 1, "Concat", []),                  # 17
+    (-1, 3, "C3", [512, False]),                 # 18
+    (-1, 1, "Conv", [256, 1, 1]),                # 19
+    (-1, 1, "Upsample", []),                     # 20
+    ([-1, 3], 1, "Concat", []),                  # 21
+    (-1, 3, "C3", [256, False]),                 # 22  P3
+    (-1, 1, "Conv", [256, 3, 2]),                # 23
+    ([-1, 19], 1, "Concat", []),                 # 24
+    (-1, 3, "C3", [512, False]),                 # 25  P4
+    (-1, 1, "Conv", [512, 3, 2]),                # 26
+    ([-1, 15], 1, "Concat", []),                 # 27
+    (-1, 3, "C3", [768, False]),                 # 28  P5
+    (-1, 1, "Conv", [768, 3, 2]),                # 29
+    ([-1, 11], 1, "Concat", []),                 # 30
+    (-1, 3, "C3", [1024, False]),                # 31  P6
+    ([22, 25, 28, 31], 1, "Detect", []),         # 32
+]
+
 # yolov5n / yolov5n-0.5: StemBlock + ShuffleNetV2 backbone
 _SHUFFLE_GRAPH: List[Tuple[Any, int, str, list]] = [
     (-1, 1, "StemBlock", [32, 3, 2]),            # 0  P2/4
@@ -83,6 +132,41 @@ _SHUFFLE_GRAPH: List[Tuple[Any, int, str, list]] = [
     ([14, 17, 20], 1, "Detect", []),             # 21
 ]
 
+# yolov5n6: the ShuffleNetV2 graph with a P6/64 level
+_SHUFFLE_P6_GRAPH: List[Tuple[Any, int, str, list]] = [
+    (-1, 1, "StemBlock", [32, 3, 2]),            # 0  P2/4
+    (-1, 1, "ShuffleV2Block", [128, 2]),         # 1  P3/8
+    (-1, 3, "ShuffleV2Block", [128, 1]),         # 2
+    (-1, 1, "ShuffleV2Block", [256, 2]),         # 3  P4/16
+    (-1, 7, "ShuffleV2Block", [256, 1]),         # 4
+    (-1, 1, "ShuffleV2Block", [384, 2]),         # 5  P5/32
+    (-1, 3, "ShuffleV2Block", [384, 1]),         # 6
+    (-1, 1, "ShuffleV2Block", [512, 2]),         # 7  P6/64
+    (-1, 3, "ShuffleV2Block", [512, 1]),         # 8
+    (-1, 1, "Conv", [128, 1, 1]),                # 9
+    (-1, 1, "Upsample", []),                     # 10
+    ([-1, 6], 1, "Concat", []),                  # 11
+    (-1, 1, "C3", [128, False]),                 # 12
+    (-1, 1, "Conv", [128, 1, 1]),                # 13
+    (-1, 1, "Upsample", []),                     # 14
+    ([-1, 4], 1, "Concat", []),                  # 15
+    (-1, 1, "C3", [128, False]),                 # 16
+    (-1, 1, "Conv", [128, 1, 1]),                # 17
+    (-1, 1, "Upsample", []),                     # 18
+    ([-1, 2], 1, "Concat", []),                  # 19
+    (-1, 1, "C3", [128, False]),                 # 20  P3/8 out
+    (-1, 1, "Conv", [128, 3, 2]),                # 21
+    ([-1, 17], 1, "Concat", []),                 # 22
+    (-1, 1, "C3", [128, False]),                 # 23  P4/16 out
+    (-1, 1, "Conv", [128, 3, 2]),                # 24
+    ([-1, 13], 1, "Concat", []),                 # 25
+    (-1, 1, "C3", [128, False]),                 # 26  P5/32 out
+    (-1, 1, "Conv", [128, 3, 2]),                # 27
+    ([-1, 9], 1, "Concat", []),                  # 28
+    (-1, 1, "C3", [128, False]),                 # 29  P6/64 out
+    ([20, 23, 26, 29], 1, "Detect", []),         # 30
+]
+
 ARCHS: Dict[str, Dict[str, Any]] = {
     "yolov5s": dict(graph=_P5_GRAPH, gd=0.33, gw=0.35, anchors=FACE_ANCHORS,
                     strides=(8, 16, 32)),
@@ -90,6 +174,14 @@ ARCHS: Dict[str, Dict[str, Any]] = {
                     strides=(8, 16, 32)),
     "yolov5l": dict(graph=_P5_GRAPH, gd=1.0, gw=1.0, anchors=FACE_ANCHORS,
                     strides=(8, 16, 32)),
+    "yolov5s6": dict(graph=_P6_GRAPH, gd=0.33, gw=0.50,
+                     anchors=FACE_ANCHORS_P6, strides=(8, 16, 32, 64)),
+    "yolov5m6": dict(graph=_P6_GRAPH, gd=0.67, gw=0.75,
+                     anchors=FACE_ANCHORS_P6, strides=(8, 16, 32, 64)),
+    "yolov5l6": dict(graph=_P6_GRAPH, gd=1.0, gw=1.0,
+                     anchors=FACE_ANCHORS_P6, strides=(8, 16, 32, 64)),
+    "yolov5n6": dict(graph=_SHUFFLE_P6_GRAPH, gd=1.0, gw=1.0,
+                     anchors=FACE_ANCHORS_P6, strides=(8, 16, 32, 64)),
     "yolov5n": dict(graph=_SHUFFLE_GRAPH, gd=1.0, gw=1.0,
                     anchors=FACE_ANCHORS, strides=(8, 16, 32)),
     "yolov5n-0.5": dict(graph=_SHUFFLE_GRAPH, gd=1.0, gw=0.5,
@@ -128,13 +220,16 @@ class Detect(nn.Module):
 class YoloV5FaceNet(nn.Module):
     """Graph-executing yolov5-face network. Takes NHWC [B, h, w, 3] RGB in
     [0, 1] and returns the raw per-level maps [B, na, ny, nx, no]
-    (no = nc + 5 + 10). Layers are ``model.{i}`` in graph order."""
+    (no = nc + 5 + 10; ``with_landmarks=False`` is the official yolov5
+    head, no = nc + 5). Layers are ``model.{i}`` in graph order."""
 
-    def __init__(self, arch: str = "yolov5s", nc: int = 1):
+    def __init__(self, arch: str = "yolov5s", nc: int = 1,
+                 with_landmarks: bool = True):
         super().__init__()
         spec = ARCHS[arch]
         gd, gw = spec["gd"], spec["gw"]
-        na, no = len(spec["anchors"][0]), nc + 5 + 10
+        na = len(spec["anchors"][0])
+        no = nc + 5 + (10 if with_landmarks else 0)
 
         def width(c: int) -> int:
             return make_divisible_torch(c * gw, 8)
@@ -225,10 +320,13 @@ class YoloV5FaceNet(nn.Module):
 
 def decode_heads(maps: Sequence[torch.Tensor],
                  anchors: Sequence[Sequence[Tuple[float, float]]],
-                 strides: Sequence[int]) -> torch.Tensor:
+                 strides: Sequence[int], landmarks: bool = True
+                 ) -> torch.Tensor:
     """Grid/anchor decode over all levels. maps: per-level
     [B, na, ny, nx, no]. Returns [B, total, no] rows [cx, cy, w, h, obj,
-    l1x, l1y, ..., l5x, l5y, cls...] in input pixels."""
+    l1x, l1y, ..., l5x, l5y, cls...] in input pixels. ``landmarks=False``
+    decodes the official head's rows [cx, cy, w, h, obj, cls...], every
+    column sigmoided."""
     outs = []
     for m, anc, stride in zip(maps, anchors, strides):
         m = m.float()
@@ -240,6 +338,13 @@ def decode_heads(maps: Sequence[torch.Tensor],
         grid = torch.stack([gx, gy], -1)[None, None]           # [1,1,ny,nx,2]
         anc = torch.tensor(anc, dtype=torch.float32,
                            device=m.device).reshape(1, na, 1, 1, 2)
+        if not landmarks:
+            y = torch.sigmoid(m)
+            xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+            wh = (y[..., 2:4] * 2.0) ** 2 * anc
+            outs.append(torch.cat([xy, wh, y[..., 4:]], -1).reshape(b, -1,
+                                                                     no))
+            continue
         y = torch.cat([torch.sigmoid(m[..., :5]), m[..., 5:15],
                        torch.sigmoid(m[..., 15:])], -1)
         xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
@@ -279,6 +384,16 @@ def _nms_candidate_rows(p: torch.Tensor, boxes: torch.Tensor,
     return out, out_valid
 
 
+def _rank_candidates(obj: torch.Tensor, k: int) -> torch.Tensor:
+    """The flat indices [B, k] int32 of the k highest objectness logits
+    ``obj`` [B, N], ranked on the f32 sigmoid as the JAX package ranks
+    them: saturated scores tie at 1.0, and lax.top_k puts the lower index
+    first among ties. A stable descending sort keeps that order;
+    torch.topk on CUDA promises none."""
+    return torch.sort(torch.sigmoid(obj.float()), dim=1, descending=True,
+                      stable=True).indices[:, :k].to(torch.int32)
+
+
 def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
                             anchors: Sequence[Sequence[Tuple[float, float]]],
                             strides: Sequence[int], cfg: YoloV5FaceConfig
@@ -293,12 +408,8 @@ def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
     maps_flat = [m.reshape(b, -1, no) for m in maps]
     n = sum(mf.shape[1] for mf in maps_flat)
     k = min(cfg.max_candidates, n)
-    # rank on the f32 sigmoid, as the JAX package does: saturated scores tie
-    # at 1.0, and lax.top_k puts the lower index first among ties. A stable
-    # descending sort keeps that order; torch.topk on CUDA promises none.
-    obj = torch.cat([mf[..., 4] for mf in maps_flat], 1).float()
-    idx = torch.sort(torch.sigmoid(obj), dim=1, descending=True,
-                     stable=True).indices[:, :k].to(torch.int32)
+    obj = torch.cat([mf[..., 4] for mf in maps_flat], 1)
+    idx = _rank_candidates(obj, k)
     # input dims from the maps (level 0 is h/s0 x w/s0), so rect letterbox
     # inputs decode on their own grid
     in_size = (maps[0].shape[3] * strides[0], maps[0].shape[2] * strides[0])
@@ -308,3 +419,75 @@ def yolov5_face_detect_maps(maps: Sequence[torch.Tensor],
         maps_flat, idx.contiguous(), anchors, strides, in_size,
         cfg.conf_thres)
     return _nms_candidate_rows(pred, boxes, cand_valid, cfg)
+
+
+# ---------------- official (multiclass) yolov5 path ----------------
+
+# the official yolov5 anchor set (yolov5s.yaml; the face anchors above are
+# yolov5-face's re-tuned set)
+OFFICIAL_ANCHORS = (
+    ((10, 13), (16, 30), (33, 23)),
+    ((30, 61), (62, 45), (59, 119)),
+    ((116, 90), (156, 198), (373, 326)),
+)
+
+
+def yolov5_official_postprocess_candidates(pred: torch.Tensor,
+                                           cfg: YoloV5FaceConfig
+                                           ) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """NMS stage of the official path over already-selected candidate rows
+    ``pred`` [B, K, 5 + nc] decoded: obj > conf_thres, conf = obj * cls,
+    the best class (the first among equal scores), then class-offset NMS
+    with strict IoU. Returns dets [B, max_det, 6] rows [x1, y1, x2, y2,
+    conf, cls] in input pixels and valid [B, max_det]."""
+    valid = pred[..., 4] > cfg.conf_thres                 # reference xc
+    cls_scores = pred[..., 5:] * pred[..., 4:5]           # conf = obj * cls
+    conf = cls_scores.amax(-1)
+    cls = cls_scores.argmax(-1)
+    valid = valid & (conf > cfg.conf_thres)
+    dets, out_valid, _ = multiclass_nms(xywh2xyxy(pred[..., :4]), conf, cls,
+                                        valid, cfg.iou_thres, cfg.max_det)
+    return dets, out_valid
+
+
+def yolov5_official_postprocess(pred: torch.Tensor, cfg: YoloV5FaceConfig
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-grid official path, the plain reference of
+    ``yolov5_official_detect_maps``: the top ``cfg.max_candidates`` rows of
+    the decoded grid ``pred`` [B, N, 5 + nc] (``decode_heads(...,
+    landmarks=False)``) by objectness among those above conf_thres, ties in
+    index order, then ``yolov5_official_postprocess_candidates``."""
+    k = min(cfg.max_candidates, pred.shape[1])
+    obj = pred[..., 4]
+    scores = torch.where(obj > cfg.conf_thres, obj, -1.0)
+    order = torch.sort(scores, dim=1, descending=True, stable=True) \
+        .indices[:, :k]
+    cand = torch.take_along_dim(pred, order[..., None], 1)
+    return yolov5_official_postprocess_candidates(cand, cfg)
+
+
+def yolov5_official_detect_maps(maps: Sequence[torch.Tensor],
+                                anchors: Sequence[Sequence[Tuple[float,
+                                                                 float]]],
+                                strides: Sequence[int], cfg: YoloV5FaceConfig
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidates-first official (multiclass, landmark-less) path, as
+    ``yolov5_face_detect_maps``: the top ``cfg.max_candidates`` rows by
+    objectness on the raw maps, gathered, decoded on [B, K] and handed to
+    the class-offset NMS. Returns what
+    ``yolov5_official_postprocess_candidates`` returns."""
+    b, no = maps[0].shape[0], maps[0].shape[-1]
+    flat = torch.cat([m.reshape(b, -1, no) for m in maps], 1)
+    k = min(cfg.max_candidates, flat.shape[1])
+    idx = _rank_candidates(flat[..., 4], k)
+    cand = torch.take_along_dim(flat, idx.long()[..., None], 1).float()
+    # input dims from the maps (level 0 is h/s0 x w/s0): rect letterbox
+    in_size = (maps[0].shape[3] * strides[0], maps[0].shape[2] * strides[0])
+    grid, stride, anc = _candidate_grid_params(idx, anchors, strides,
+                                               in_size)
+    y = torch.sigmoid(cand)
+    xy = (y[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    wh = (y[..., 2:4] * 2.0) ** 2 * anc
+    pred = torch.cat([xy, wh, y[..., 4:]], -1)
+    return yolov5_official_postprocess_candidates(pred, cfg)

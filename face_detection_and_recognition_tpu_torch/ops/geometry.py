@@ -1,4 +1,5 @@
-"""Geometry: letterbox resize and coordinate rescaling on NHWC tensors.
+"""Geometry: letterbox resize, coordinate rescaling and per-image
+standardization on NHWC tensors.
 
 The counterpart of ``ops/geometry.py`` in the JAX package. Bilinear
 resampling matches ``jax.image.resize(method="linear", antialias=False)``
@@ -137,3 +138,19 @@ def scale_coords(model_hw: Tuple[int, int], coords: torch.Tensor,
     shift = torch.tensor([pad[i % 2] for i in range(d)], dtype=coords.dtype,
                          device=coords.device)
     return clip_coords((coords - shift) / gain, orig_hw)
+
+
+def standardize_image(img: torch.Tensor) -> torch.Tensor:
+    """Per-image standardization, FaceNet's "prewhiten": (x - mean) /
+    max(std, 1 / sqrt(n)) with the mean and the (population) std of each
+    image over all its n pixels and channels. Takes [H, W, C] or
+    [B, H, W, C]; returns float32."""
+    img = img.float()
+    if img.dim() not in (3, 4):
+        raise ValueError("Dimension should be 3 or 4")
+    dims = tuple(range(img.dim() - 3, img.dim()))
+    size = img.shape[-3] * img.shape[-2] * img.shape[-1]
+    mean = img.mean(dim=dims, keepdim=True)
+    std = img.std(dim=dims, keepdim=True, correction=0)
+    std_adj = torch.clamp(std, min=1.0 / math.sqrt(size))
+    return (img - mean) / std_adj

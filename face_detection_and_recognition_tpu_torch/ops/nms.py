@@ -1,5 +1,5 @@
-"""Greedy hard NMS and BlazeFace's weighted-blend NMS over fixed-size,
-masked detections.
+"""Greedy hard NMS, its class-offset multiclass form and BlazeFace's
+weighted-blend NMS over fixed-size, masked detections.
 
 The counterpart of ``ops/nms.py`` in the JAX package. Detections stay at a
 static K with a validity mask; the keep mask comes from ``nms_fixpoint`` and
@@ -73,6 +73,28 @@ def greedy_nms(dets: torch.Tensor, valid: torch.Tensor, iou_thres: float,
                            plus1=plus1, strict=strict, mode=mode)
     _, _, kvalid, kdets = sort_by_score(scores, keep, dets, top=max_out)
     return kdets, kvalid
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                   classes: torch.Tensor, valid: torch.Tensor,
+                   iou_thres: float, max_out: int = 300,
+                   agnostic: bool = False, max_wh: float = 4096.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Torchvision-style batched NMS by the class-offset trick (the
+    reference's ``onnx_utils.py:266-271``): the boxes of class c are
+    shifted by c * ``max_wh``, so that one class-agnostic pass (strict IoU,
+    no +1 px) never suppresses across classes.
+
+    boxes: [(B,) K, 4] xyxy; scores, valid: [(B,) K]; classes: [(B,) K]
+    int. Returns (dets [(B,) max_out, 6] rows [xyxy, conf, cls] sorted by
+    score, out_valid [(B,) max_out], keep [(B,) K] in input order)."""
+    cls_f = classes.to(boxes.dtype)
+    offset = torch.zeros_like(scores) if agnostic else cls_f * max_wh
+    keep = greedy_nms_mask(boxes + offset[..., None], scores, valid,
+                           iou_thres, strict=True)
+    dets = torch.cat([boxes, scores[..., None], cls_f[..., None]], -1)
+    _, _, kvalid, kdets = sort_by_score(scores, keep, dets, top=max_out)
+    return kdets, kvalid, keep
 
 
 def weighted_blend_nms(dets: torch.Tensor, valid: torch.Tensor,

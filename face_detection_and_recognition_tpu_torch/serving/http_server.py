@@ -5,8 +5,11 @@ same routes, JSON bodies and 400 cases; images are decoded by the port's
 JPEG route (``utils/native.py``), not cv2.
 
     GET  /health               -> {"ready": true}
-    GET  /stats                -> the batcher's request/dispatch counts and
-                                  the kernels' launch counts
+    GET  /stats                -> {"dynamic_batching", "requests",
+                                  "dispatches", "compiled_pipelines",
+                                  "detector"} as the JAX package answers,
+                                  and "kernel_launches": each CUDA
+                                  kernel's launch count
     POST /detect   (image/jpeg body, query det_thres/bbox_area_thres)
         -> {"bboxes": [[x1,y1,x2,y2],...], "confs": [...], "num_faces": N}
     POST /ensemble (image/jpeg body)
@@ -49,8 +52,11 @@ def make_handler(service: FaceService):
                     "dynamic_batching": b is not None,
                     "requests": getattr(b, "requests", 0),
                     "dispatches": getattr(b, "dispatches", 0),
-                    "kernel_launches": dict(cuda_kernels.LAUNCHES),
+                    # the (entry point, input shape) pairs the engine has
+                    # run: the programs the JAX engine compiles and caches
+                    "compiled_pipelines": service.engine.compiled_pipelines,
                     "detector": service.cfg.detector,
+                    "kernel_launches": dict(cuda_kernels.LAUNCHES),
                 })
             else:
                 self._send(404, {"error": "not found"})

@@ -1,20 +1,22 @@
 """Where the detect, ensemble, BlazeFace and similarity paths' time goes on
-the card.
+the card, for yolov5s and yolov5s6 (and the official head's detect).
 
     python3 -m face_detection_and_recognition_tpu_torch.utils.profiling
 
 Builds the engines with seeded weights, as ``chip_smoke.py`` does, and for
 one batch of 8 seeded 576x1024 frames prints
 
-- the device time of each yolov5s detect stage (frame upload, preprocess,
-  network, candidates-first decode + NMS, postprocess), between CUDA events,
-  and for ``decode+nms`` also its device time and the device operations
-  (kernels, copies, memsets) it launches, from torch.profiler;
+- the device time of each yolov5s, yolov5s6 and yolov5s-official detect
+  stage (frame upload, preprocess, network, candidates-first decode + NMS,
+  postprocess), between CUDA events, and for ``decode+nms`` also its
+  device time and the device operations (kernels, copies, memsets) it
+  launches, from torch.profiler;
 - the NMS kernel (B1) alone on the candidates that the detect path hands
   it for these frames, and the boxes it keeps a frame;
-- the device time of each ensemble stage (detect, 112x112 crops,
-  MobileFaceNet, 227x227 crops, the age/gender heads) with every NMS
-  survivor live, as ``chip_smoke.py`` drives it;
+- the device time of each ensemble stage (detect, the embedder's crops,
+  the embedder, 227x227 crops, the age/gender heads) with every NMS
+  survivor live, as ``chip_smoke.py`` drives it: yolov5s + MobileFaceNet
+  (112x112) and yolov5s6 + FaceNet (160x160);
 - the same stages of each BlazeFace detect (preprocess, network,
   decode + blend NMS, postprocess), back and front; their ``decode+nms``
   is one launch of B5's fused kernel, so its profiler time is the
@@ -124,6 +126,25 @@ def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
     return out
 
 
+def captured_calls(module, name: str, run) -> list:
+    """The (args, kwargs) of every call that ``run()`` makes to
+    ``module.name``, which still runs: a spy stands in for it during the
+    call, and the real function is put back after."""
+    real, seen = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        setattr(module, name, real)
+    return seen
+
+
 def detect_nms_inputs(eng: FaceEngine, frames: np.ndarray):
     """(args, kwargs) of the ``nms_fixpoint`` call that the yolov5 decode
     makes in one ``eng.detect_batch(frames)``: the candidates' boxes
@@ -131,19 +152,8 @@ def detect_nms_inputs(eng: FaceEngine, frames: np.ndarray):
     them over."""
     from ..models import yolov5_face
 
-    seen = []
-
-    def capture(*args, **kwargs):
-        seen.append((args, kwargs))
-        return nms_fixpoint(*args, **kwargs)
-
-    yolov5_face.nms_fixpoint = capture
-    try:
-        with torch.inference_mode():
-            eng.detect_batch(frames)
-    finally:
-        yolov5_face.nms_fixpoint = nms_fixpoint
-    return seen[0]
+    return captured_calls(yolov5_face, "nms_fixpoint",
+                          lambda: eng.detect_batch(frames))[0]
 
 
 def nms_stage(eng: FaceEngine, frames: np.ndarray) -> dict:
@@ -173,11 +183,12 @@ def ensemble_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
         post = eng.detect_batch(frames, 0.0, 0.0)
         k_live = eng._live_slots(post.valid)
         v = post.valid[:, :k_live]
-        out["crops 112"] = cuda_ms(lambda: eng._face_crops(
-            imgs, post.boxes, (112, 112), post.valid))
-        faces = eng._face_crops(imgs, post.boxes[:, :k_live], (112, 112),
-                                v).reshape(-1, 112, 112, 3)
-        out["mobilefacenet"] = cuda_ms(lambda: eng._embed(faces))
+        ew, eh = eng.embed_spec.input_size
+        out[f"crops {eh}"] = cuda_ms(lambda: eng._face_crops(
+            imgs, post.boxes, (eh, ew), post.valid))
+        faces = eng._face_crops(imgs, post.boxes[:, :k_live], (eh, ew),
+                                v).reshape(-1, eh, ew, 3)
+        out[eng.embed_spec.name] = cuda_ms(lambda: eng._embed(faces))
         boxes = post.boxes[:, :k_live]
         out["crops 227"] = cuda_ms(lambda: eng._ag_crops(imgs, boxes, v,
                                                          clip=True))
@@ -254,19 +265,28 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     eng = FaceEngine(EngineConfig(detector="yolov5s"))
     frames = np.random.RandomState(0).randint(0, 256, (B, H, W, 3), np.uint8)
-    print(f"stage device ms, B={B} frames {H}x{W}, square 640x640:")
-    for name, ms in detect_stages(eng, frames).items():
-        print(f"  {name:<22} {ms:9.4f}")
-    for name, v in nms_stage(eng, frames).items():
-        print(f"  {name:<22} {v if isinstance(v, list) else f'{v:9.4f}'}")
-    ens = FaceEngine(EngineConfig(detector="yolov5s",
-                                  embedder="mobile_facenet",
-                                  with_age_gender=True))
-    stages, k_live = ensemble_stages(ens, frames)
-    print(f"ensemble stage device ms, B={B} frames {H}x{W}, every NMS "
-          f"survivor live, k_live={k_live} of {ens.cfg.max_det} slots:")
-    for name, ms in stages.items():
-        print(f"  {name:<22} {ms:9.4f}")
+    for det in ("yolov5s", "yolov5s6", "yolov5s-official"):
+        deng = eng if det == "yolov5s" else FaceEngine(
+            EngineConfig(detector=det))
+        print(f"{det} stage device ms, B={B} frames {H}x{W}, square "
+              "640x640:")
+        for name, ms in detect_stages(deng, frames).items():
+            print(f"  {name:<22} {ms:9.4f}")
+        if det != "yolov5s-official":
+            for name, v in nms_stage(deng, frames).items():
+                print(f"  {name:<22} "
+                      f"{v if isinstance(v, list) else f'{v:9.4f}'}")
+    ensembles = {}
+    for det, embedder in (("yolov5s", "mobile_facenet"),
+                          ("yolov5s6", "facenet")):
+        ens = ensembles[embedder] = FaceEngine(EngineConfig(
+            detector=det, embedder=embedder, with_age_gender=True))
+        stages, k_live = ensemble_stages(ens, frames)
+        print(f"{det} + {embedder} + age/gender ensemble stage device ms, "
+              f"B={B} frames {H}x{W}, every NMS survivor live, "
+              f"k_live={k_live} of {ens.cfg.max_det} slots:")
+        for name, ms in stages.items():
+            print(f"  {name:<22} {ms:9.4f}")
     blaze = {name: FaceEngine(EngineConfig(detector=name))
              for name in ("blazeface-back", "blazeface-front")}
     for detector, beng in blaze.items():
@@ -283,7 +303,10 @@ def main() -> None:
             ("blazeface-front detect_batch",
              lambda: blaze["blazeface-front"].detect_batch(frames)),
             ("detect_embed_classify_batch",
-             lambda: ens.detect_embed_classify_batch(
+             lambda: ensembles["mobile_facenet"].detect_embed_classify_batch(
+                 frames, det_thres=0.0, bbox_area_thres=0.0)),
+            ("yolov5s6 + facenet detect_embed_classify_batch",
+             lambda: ensembles["facenet"].detect_embed_classify_batch(
                  frames, det_thres=0.0, bbox_area_thres=0.0))):
         rows, busy, wall = kernel_breakdown(run)
         print(f"{label} under torch.profiler: {wall:.3f} ms wall per batch,"

@@ -1,6 +1,7 @@
 """Weight bridge: a flax variables tree of numpy arrays -> a PyTorch
-state_dict, for the yolov5-face and BlazeFace detectors, MobileFaceNet and
-the age/gender heads.
+state_dict, for the yolov5-face and BlazeFace detectors, MobileFaceNet,
+FaceNet (Inception-ResNet-V1), the MobileNetV2 reid embedder and the
+age/gender heads (which the ``demographics`` slot reuses).
 
 The inverse of ``convert_yolov5_face`` / ``convert_blazeface`` /
 ``convert_mobile_facenet`` / ``convert_caffenet_head`` in the JAX package's
@@ -196,4 +197,93 @@ def age_gender_state_dict(age_vars: Mapping, gender_vars: Mapping
     sd: Dict[str, torch.Tensor] = {}
     _caffenet_head(sd, "age", age_vars["params"])
     _caffenet_head(sd, "gender", gender_vars["params"])
+    return sd
+
+
+def _bn_unscaled(sd: Dict[str, torch.Tensor], tp: str, p: Mapping,
+                 s: Mapping) -> None:
+    """A flax BatchNorm with ``use_scale=False`` (``bias`` only) -> torch
+    BN with its weight set to ones."""
+    bias = _t(p["bias"])
+    sd[f"{tp}.weight"] = torch.ones_like(bias)
+    sd[f"{tp}.bias"] = bias
+    sd[f"{tp}.running_mean"] = _t(s["mean"])
+    sd[f"{tp}.running_var"] = _t(s["var"])
+    sd[f"{tp}.num_batches_tracked"] = torch.tensor(0)
+
+
+def facenet_state_dict(variables: Mapping, embedding_size: int = 128
+                       ) -> Dict[str, torch.Tensor]:
+    """Map a flax ``InceptionResNetV1`` tree {"params", "batch_stats"} of
+    numpy arrays onto the port's ``InceptionResNetV1(embedding_size)``
+    state_dict. Flax names the blocks in call order (``CB_i``,
+    ``Block35_i``, ``Block17_i``, ``Block8_i`` at the top, ``CB_i`` and
+    ``Conv_0`` inside a block)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def cb(tp: str, p: Mapping, s: Mapping) -> None:
+        sd[f"{tp}.conv.weight"] = f2t_conv(p["Conv_0"]["kernel"])
+        _bn_unscaled(sd, f"{tp}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+    def block(tp: str, name: str, branches) -> None:
+        p, s = params[name], stats[name]
+        for k, sub in enumerate(branches):
+            cb(f"{tp}.{sub}", p[f"CB_{k}"], s[f"CB_{k}"])
+        sd[f"{tp}.conv2d.weight"] = f2t_conv(p["Conv_0"]["kernel"])
+        sd[f"{tp}.conv2d.bias"] = _t(p["Conv_0"]["bias"])
+
+    top = ["conv2d_1a", "conv2d_2a", "conv2d_2b", "conv2d_3b", "conv2d_4a",
+           "conv2d_4b", "mixed_6a.branch0", "mixed_6a.branch1.0",
+           "mixed_6a.branch1.1", "mixed_6a.branch1.2",
+           "mixed_7a.branch0.0", "mixed_7a.branch0.1", "mixed_7a.branch1.0",
+           "mixed_7a.branch1.1", "mixed_7a.branch2.0", "mixed_7a.branch2.1",
+           "mixed_7a.branch2.2"]
+    for k, tp in enumerate(top):
+        cb(tp, params[f"CB_{k}"], stats[f"CB_{k}"])
+    for i in range(5):
+        block(f"repeat_1.{i}", f"Block35_{i}",
+              ("branch0", "branch1.0", "branch1.1", "branch2.0",
+               "branch2.1", "branch2.2"))
+    for i in range(10):
+        block(f"repeat_2.{i}", f"Block17_{i}",
+              ("branch0", "branch1.0", "branch1.1", "branch1.2"))
+    for i in range(6):
+        block(f"repeat_3.{i}" if i < 5 else "block8", f"Block8_{i}",
+              ("branch0", "branch1.0", "branch1.1", "branch1.2"))
+    w = _t(params["bottleneck"]["kernel"])
+    if w.shape[1] != embedding_size:
+        raise ValueError(f"the tree's bottleneck is {w.shape[1]}-d, not "
+                         f"{embedding_size}-d")
+    sd["last_linear.weight"] = w.T.contiguous()
+    _bn_unscaled(sd, "last_bn", params["bottleneck_bn"],
+                 stats["bottleneck_bn"])
+    return sd
+
+
+def reid_mnv2_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``MobileNetV2Embedder`` tree {"params", "batch_stats"} of
+    numpy arrays onto the port's ``MobileNetV2Embedder`` state_dict: the
+    backbone's ``ConvBN_0`` / ``ConvBN_1`` are its stem and head,
+    ``_InvertedResidual_i`` its blocks (``ConvBN_0..2`` = expand,
+    depthwise, project), ``Dense_0`` the embedding layer."""
+    params = variables["params"]["_MobileNetV2Backbone_0"]
+    stats = variables["batch_stats"]["_MobileNetV2Backbone_0"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def convbn(tp: str, p: Mapping, s: Mapping) -> None:
+        sd[f"{tp}.conv.weight"] = f2t_conv(p["Conv_0"]["kernel"])
+        _bn(sd, f"{tp}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+    convbn("backbone.stem", params["ConvBN_0"], stats["ConvBN_0"])
+    convbn("backbone.head", params["ConvBN_1"], stats["ConvBN_1"])
+    for i in range(10):
+        name = f"_InvertedResidual_{i}"
+        p, s = params[name], stats[name]
+        for k, sub in enumerate(("expand", "dw", "project")):
+            convbn(f"backbone.blocks.{i}.{sub}", p[f"ConvBN_{k}"],
+                   s[f"ConvBN_{k}"])
+    dense = variables["params"]["Dense_0"]
+    sd["fc.weight"] = _t(dense["kernel"]).T.contiguous()
+    sd["fc.bias"] = _t(dense["bias"])
     return sd

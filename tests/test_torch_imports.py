@@ -38,10 +38,12 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
     # ops, models, core, utils, pipelines, cli, serving and their modules
     # were all imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 37, out.stdout
+    assert n >= 39, out.stdout
     names = out.stdout.split("NAMES ")[1].split()
     for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
-                "models.embedders", "models.blazeface", "pipelines",
+                "models.embedders", "models.blazeface", "models.facenet",
+                "models.ssd", "models.yolov5_face", "models.registry",
+                "ops.nms", "ops.geometry", "utils.weights", "pipelines",
                 "pipelines.similarity", "utils.native", "utils.files",
                 "utils.parser", "utils.draw", "core.config", "core.inference",
                 "cli.detect_face", "serving.batcher", "serving.service",

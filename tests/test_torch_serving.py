@@ -349,7 +349,12 @@ def test_http_front_door(ckpts, services, frame):
         assert _status(base + "/nope", jpeg)[0] == 404
         with urllib.request.urlopen(base + "/stats", timeout=30) as r:
             stats = json.load(r)
+        # every key of the JAX package's /stats (serving/http_server.py),
+        # and the port's kernel launch counts besides
+        assert {"dynamic_batching", "requests", "dispatches",
+                "compiled_pipelines", "detector"} <= set(stats)
         assert stats["dynamic_batching"] is False
+        assert stats["compiled_pipelines"] >= 1
         assert set(stats["kernel_launches"]) == set(ck.LAUNCHES)
         assert stats["detector"] == "yolov5n"
     finally:
