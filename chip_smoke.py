@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
-yolov5 family + embedders and CLI + serving paths on one CUDA card.
+yolov5 family + embedders, CLI + serving and dataset pipeline paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -32,8 +33,9 @@ seconds:
    top-k is
    also held to the default search path (matrix product and stable top-k).
    Prints for each kernel its time between CUDA events over a loop of
-   calls, its device time a call from torch.profiler, the plain and
-   library times and the bound; for B2 also the host microseconds a call
+   calls, its device time a call from torch.profiler (the time between
+   events stands in, and says so, where the profiler records nothing),
+   the plain and library times and the bound; for B2 also the host microseconds a call
    and its two yardsticks (``torch.gather`` on the prebuilt concat, and
    that gather + the plain decode); for B4 whether it beats
    ``torch.topk(q @ g.T)`` and is within 2x its bound;
@@ -92,7 +94,24 @@ seconds:
    ``FaceEngine.detect_image`` on the decoded frame, and every answer
    against the service's direct call on it; the request times (p50, max)
    and the batcher's counts are printed;
-10. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+10. main path, pipelines: the dataset CLIs on seeded trees written through
+   the card's JPEG encoder. ``extract_faces`` (yolov5s + mobile_facenet,
+   blocks of 64, thresholds 0) on two classes of 48 576 x 1024 JPEGs, a
+   PNG and a BMP, with a WebP and a video that must end in
+   ``stats.failed``: a warm-up run, then a timed one whose frames/s,
+   media/s and seconds (decode wait, device blocks, crop JPEG writes,
+   feature saves) are printed; ``extract_and_label`` (blazeface-front,
+   reid-mnv2, the auto labeler: B5 fused and B3 at 227 x 227 with clip +
+   mean) on 8 frames; ``extract_features`` on 128 face crops of mixed
+   sizes (JPEG, PNG, BMP); ``extract_imdb_wiki`` (blazeface-back,
+   mobile_facenet) on 32 images of mixed sizes with a ``savemat``-built
+   .mat, at a threshold that leaves many images one face. Each part zeroes
+   the counts before it and reads them after; every B1/B2/B3/B5 call of
+   the path, recorded by a spy, is then held to its plain version bit for
+   bit. Then extract_faces on 2 media a class on the card and on the CPU
+   (face counts equal, feature rows of the same boxes within 1e-4), and
+   1-px, sliver and odd-sized crops through the card's JPEG route;
+11. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -106,13 +125,17 @@ import contextlib
 import copy
 import io
 import json
+import os
 import re
+import shutil
 import socket
+import struct
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -126,7 +149,8 @@ from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
 from face_detection_and_recognition_tpu_torch.ops.preprocess import \
     AGE_GENDER
 from face_detection_and_recognition_tpu_torch.utils.profiling import (
-    captured_calls, cuda_ms, detect_nms_inputs, device_ms, device_ops)
+    captured_calls, cuda_ms, detect_nms_inputs, device_ms, device_ops,
+    spied_calls)
 
 T0 = time.time()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -255,6 +279,10 @@ def check_nms(gen):
     ms = cuda_ms(lambda: ck.nms_fixpoint(*args), 50)
     ops = device_ops(lambda: ck.nms_fixpoint(*args), 50)
     dev_ms = sum(t * n for t, n in ops.values())
+    if dev_ms <= 0:
+        say("  torch.profiler recorded no device time for nms_fixpoint: "
+            "its time between CUDA events stands in")
+        dev_ms = ms
     phases = {re.search(r"\w+_kernel", name).group(0): t
               for name, (t, _) in ops.items() if "_kernel" in name}
     say(f"  nms_fixpoint B={B} K={K} device ms by kernel: {phases}")
@@ -1490,15 +1518,15 @@ def printed_faces(text):
     return boxes, confs, [" ".join(r[2:]) for r in rows]
 
 
-def run_cli(argv):
-    from face_detection_and_recognition_tpu_torch.cli.detect_face import main
-
+def run_cli(module, argv):
+    """``module.main(argv)`` in process: (its stdout, seconds); fails
+    unless it returns 0."""
     buf = io.StringIO()
     t = time.time()
     with contextlib.redirect_stdout(buf):
-        rc = main(argv)
+        rc = module.main(argv)
     if rc != 0:
-        raise AssertionError(f"detect_face {argv} returned {rc}")
+        raise AssertionError(f"{module.__name__} {argv} returned {rc}")
     return buf.getvalue(), time.time() - t
 
 
@@ -1573,6 +1601,7 @@ def grpc_detect_once(service, data):
 def run_cli_serving(card, device="cuda"):
     """The CLI + serving main path. Returns its launch counts and the
     numbers to print: the JPEG route's, the CLI's, the requests'."""
+    from face_detection_and_recognition_tpu_torch.cli import detect_face
     from face_detection_and_recognition_tpu_torch.serving.http_server import \
         serve
     from face_detection_and_recognition_tpu_torch.serving.service import \
@@ -1622,9 +1651,9 @@ def run_cli_serving(card, device="cuda"):
     answers = {"detect": [], "ensemble": [], "batched": []}
     ms = {"detect": [], "ensemble": []}
     ck.reset_launches()
-    text1, sec1 = run_cli(cli)
+    text1, sec1 = run_cli(detect_face, cli)
     after_cli1 = dict(ck.LAUNCHES)
-    text2, sec2 = run_cli(cli + ["--age-gender", "--embedder",
+    text2, sec2 = run_cli(detect_face, cli + ["--age-gender", "--embedder",
                                  "mobile_facenet"])
     after_cli2 = dict(ck.LAUNCHES)
     httpd = serve(ServiceConfig(device=device), host="127.0.0.1",
@@ -1749,6 +1778,425 @@ def run_cli_serving(card, device="cuda"):
         raise AssertionError("crop_resize never launched in the CLI's "
                              "--age-gender --embedder run")
     return launches, stats
+
+
+PIPE_DIR = WORK_DIR / "pipelines"
+PIPE_DEVICE = "cuda"         # where the phase's engines run
+# seeded yolov5s saturates many scores at 1.0, so no threshold leaves one
+# face an image; seeded BlazeFace spreads them
+WIKI_DETECTOR = "blazeface-back"
+PIPE_JPEGS = 48              # 576 x 1024 JPEGs a class
+PIPE_BLOCK = 64
+ODD_CROPS = ((1, 1), (1, 37), (53, 1), (3, 5), (17, 31), (111, 113))
+CPU_TOL = 1e-4               # card vs CPU feature rows of the same boxes
+
+
+def png_bytes(img):
+    """A BGR uint8 image as an RGB PNG whose rows cycle through the five
+    filter types (so the reader's unfilter runs each), zlib-compressed."""
+    rows = img[..., ::-1].reshape(img.shape[0], -1).astype(np.int64)
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for y, r in enumerate(rows):
+        kind = y % 5
+        a = np.concatenate([np.zeros(3, np.int64), r[:-3]])
+        c = np.concatenate([np.zeros(3, np.int64), prev[:-3]])
+        if kind == 4:
+            p = a + prev - c
+            pa, pb, pc = abs(p - a), abs(p - prev), abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, prev, c))
+        else:
+            pred = (0, a, prev, (a + prev) >> 1)[kind]
+        out.append(bytes([kind]) + ((r - pred) & 255).astype(
+            np.uint8).tobytes())
+        prev = r
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    h, w = img.shape[:2]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(out), 6))
+            + chunk(b"IEND", b""))
+
+
+def bmp_bytes(img):
+    """A BGR uint8 image as a bottom-up 24-bit BMP."""
+    h, w = img.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img.reshape(h, -1)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, stride * h, 2835,
+                       2835, 0, 0)
+    return (b"BM" + struct.pack("<IHHI", 54 + stride * h, 0, 0, 54) + info
+            + rows[::-1].tobytes())
+
+
+def pipeline_frames(n, seed):
+    """``n`` distinct 576 x 1024 frames: rolled and flipped copies of four
+    seeded smooth frames (cheap to make, and not noise, so the JPEG
+    round trip stays close)."""
+    bases = [smooth_frame(seed + i) for i in range(4)]
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        f = np.roll(bases[i % 4], tuple(rng.randint(0, 400, 2)), (0, 1))
+        out.append(np.ascontiguousarray(f[:, ::-1] if i % 8 >= 4 else f))
+    return out
+
+
+def build_pipeline_trees():
+    """The trees the phase reads, written through the port's encoder:
+    ``faces/`` (two classes of 48 JPEGs, a PNG, a BMP, a WebP and a video),
+    ``label/`` (8 JPEGs), ``crops/`` (two classes of 64 face-crop images of
+    mixed sizes, JPEG, PNG and BMP), ``wiki/`` (32 images of mixed sizes
+    and their .mat)."""
+    from face_detection_and_recognition_tpu_torch.utils import native
+
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    frames = pipeline_frames(2 * PIPE_JPEGS + 4, SEED + 10)
+    for c, cls in enumerate(("class_a", "class_b")):
+        d = PIPE_DIR / "faces" / cls
+        d.mkdir(parents=True)
+        mine = frames[c * (PIPE_JPEGS + 2):(c + 1) * (PIPE_JPEGS + 2)]
+        for i in range(PIPE_JPEGS):
+            native.write_image_bgr(str(d / f"f{i:02d}.jpg"), mine[i])
+        (d / "p.png").write_bytes(png_bytes(mine[PIPE_JPEGS]))
+        (d / "b.bmp").write_bytes(bmp_bytes(mine[PIPE_JPEGS + 1]))
+        (d / "w.webp").write_bytes(b"RIFF\x1a\x00\x00\x00WEBPVP8 " + bytes(14))
+        (d / "v.mp4").write_bytes(b"\x00\x00\x00\x18ftypmp42" + bytes(16))
+    d = PIPE_DIR / "label" / "clip"
+    d.mkdir(parents=True)
+    for i, f in enumerate(frames[:8]):
+        native.write_image_bgr(str(d / f"t{i}.jpg"), f)
+    rng = np.random.RandomState(SEED + 11)
+    for cls in ("id_a", "id_b"):
+        d = PIPE_DIR / "crops" / cls
+        d.mkdir(parents=True)
+        for i in range(64):
+            h, w = rng.randint(40, 200, 2)
+            y, x = rng.randint(0, 576 - h), rng.randint(0, 1024 - w)
+            crop = np.ascontiguousarray(frames[i % len(frames)][y:y + h,
+                                                                x:x + w])
+            kind = i % 4
+            if kind == 2:
+                (d / f"c{i}.png").write_bytes(png_bytes(crop))
+            elif kind == 3:
+                (d / f"c{i}.bmp").write_bytes(bmp_bytes(crop))
+            else:
+                native.write_image_bgr(str(d / f"c{i}.jpg"), crop)
+    d = PIPE_DIR / "wiki"
+    d.mkdir(parents=True)
+    paths = []
+    for i in range(32):
+        h, w = rng.randint(200, 576), rng.randint(200, 1024)
+        name = f"{i % 4:02d}/w{i}.{('jpg', 'png')[i % 2]}"
+        (d / name).parent.mkdir(exist_ok=True)
+        img = np.ascontiguousarray(frames[i % len(frames)][:h, :w])
+        if i % 2:
+            (d / name).write_bytes(png_bytes(img))
+        else:
+            native.write_image_bgr(str(d / name), img)
+        paths.append(name)
+    return paths
+
+
+def write_wiki_mat(path, paths):
+    from scipy.io import savemat
+
+    n = len(paths)
+    full_path = np.empty((1, n), object)
+    for i, p in enumerate(paths):
+        full_path[0, i] = np.array([p])
+    savemat(str(path), {"wiki": {
+        "full_path": full_path, "dob": np.full((1, n), 715876.0),
+        "photo_taken": np.full((1, n), 2000.0), "gender": np.ones((1, n)),
+        "face_score": np.full((1, n), 2.0),
+        "second_face_score": np.full((1, n), np.nan)}})
+
+
+def imdb_threshold(paths):
+    """A --dt for the IMDB-WIKI run at which many of the seeded images have
+    exactly one face (the pipeline keeps only those): the seeded detector's
+    scores on the letterboxed images decide it."""
+    from face_detection_and_recognition_tpu_torch.ops.geometry import \
+        host_letterbox
+    from face_detection_and_recognition_tpu_torch.utils.native import (
+        IMAGE_EXTENSIONS, read_image_bgr)
+
+    eng = FaceEngine(EngineConfig(detector=WIKI_DETECTOR, det_thres=0.0,
+                                  bbox_area_thres=0.0, seed=0),
+                     device=PIPE_DEVICE)
+    iw, ih = eng.input_size
+    block = np.stack([host_letterbox(
+        read_image_bgr(str(PIPE_DIR / "wiki" / p), formats=IMAGE_EXTENSIONS),
+        (ih, iw), eng.spec.preprocess.fill) for p in paths])
+    posts = eng.detect_batch(block, 0.0, 0.0).to_numpy()
+    tops = [np.sort(p.bbox_confs)[::-1][:2] for p in posts]
+    cands = sorted({float(t[0]) - 1e-6 for t in tops if len(t)})
+
+    def singles(dt):
+        return int(sum((t > dt).sum() == 1 for t in tops))
+
+    return max(cands, key=singles), max(singles(c) for c in cands)
+
+
+def card_against_cpu(card_stats_dir):
+    """extract_faces on 2 media a class (yolov5s + MobileFaceNet, seed 0,
+    thresholds 0) on the card and on the CPU: per-media face counts equal,
+    and the feature rows of the boxes both devices found within CPU_TOL.
+    Returns (rows compared, boxes that flipped)."""
+    from face_detection_and_recognition_tpu_torch.pipelines.extract_faces \
+        import extract_faces_from_dataset
+    from face_detection_and_recognition_tpu_torch.utils.native import (
+        IMAGE_EXTENSIONS, read_image_bgr)
+
+    sub = PIPE_DIR / "sub"
+    for cls in ("class_a", "class_b"):
+        (sub / cls).mkdir(parents=True)
+        for name in ("f00.jpg", "p.png"):
+            shutil.copy(PIPE_DIR / "faces" / cls / name, sub / cls / name)
+    kw = dict(detector="yolov5s", det_thres=0.0, bbox_area_thres=0.0,
+              embedder="mobile_facenet", seed=0)
+    out = {}
+    dets = {}
+    for device in ("cuda", "cpu"):
+        eng = FaceEngine(EngineConfig(**kw), device=(
+            device if PIPE_DEVICE == "cuda" else "cpu"))
+        extract_faces_from_dataset(eng, str(sub), str(PIPE_DIR / device),
+                                   block_size=4, num_workers=2)
+        out[device] = PIPE_DIR / device
+        # the boxes of each frame, from a block of the four as the job ran
+        keys = [(cls, name) for cls in ("class_a", "class_b")
+                for name in ("f00.jpg", "p.png")]
+        block = np.stack([read_image_bgr(str(sub / c / n),
+                                         formats=IMAGE_EXTENSIONS)
+                          for c, n in keys])
+        posts = eng.detect_batch(block).to_numpy()
+        dets[device] = {k: p.boxes[:3] for k, p in zip(keys, posts)}
+    compared, flipped = 0, []
+    for (cls, name), boxes in dets["cuda"].items():
+        stem = name.split(".")[0]
+        n = {d: len(os.listdir(out[d] / cls / stem)) for d in out}
+        if n["cuda"] != n["cpu"]:
+            raise AssertionError(f"{cls}/{name}: {n['cuda']} faces on the "
+                                 f"card, {n['cpu']} on the CPU")
+        rows = {d: np.load(out[d] / cls / f"{stem}.npy") for d in out}
+        cpu_boxes = dets["cpu"][(cls, name)]
+        for i, box in enumerate(boxes):
+            same = np.nonzero((cpu_boxes == box).all(1))[0]
+            if not len(same):
+                flipped.append((cls, name, box.tolist()))
+                continue
+            err = float(np.abs(rows["cuda"][i] - rows["cpu"][same[0]]).max())
+            if err > CPU_TOL:
+                raise AssertionError(f"{cls}/{name} box {box}: card and CPU "
+                                     f"features differ by {err}")
+            compared += 1
+    return compared, flipped
+
+
+def check_odd_crops():
+    """Odd, 1-px and sliver crops of a smooth frame through the card's
+    JPEG route: they encode, decode to their own shape, and stay within
+    IO_MAE (the frame's round-trip bound) on average."""
+    from face_detection_and_recognition_tpu_torch.utils import native
+
+    frame = smooth_frame(SEED + 12)
+    worst = 0.0
+    for h, w in ODD_CROPS:
+        crop = np.ascontiguousarray(frame[100:100 + h, 200:200 + w])
+        back = native.decode_jpeg_bgr(native.encode_jpeg_bgr(crop))
+        if back is None or back.shape != crop.shape:
+            raise AssertionError(f"a {h}x{w} crop did not round-trip: "
+                                 f"{None if back is None else back.shape}")
+        err = float(np.abs(back.astype(np.int64) - crop).mean())
+        worst = max(worst, err)
+        if err > IO_MAE:
+            raise AssertionError(f"a {h}x{w} crop came back {err:.2f} off")
+    return worst
+
+
+def run_pipelines(card):
+    """The dataset-curation main path: the extract_faces, extract_and_label,
+    extract_features and extract_imdb_wiki CLIs on the card. Each part
+    zeroes the launch counts before it and reads them after; a spy records
+    the kernels' arguments and each call is replayed against its plain
+    version after the counts are read. Returns the path's counts and its
+    numbers."""
+    from face_detection_and_recognition_tpu_torch.cli import (
+        extract_and_label, extract_faces, extract_features,
+        extract_imdb_wiki)
+    from face_detection_and_recognition_tpu_torch.models import (blazeface,
+                                                                 yolov5_face)
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+
+    win, stats = Windows(), {}
+    t = time.time()
+    wiki_paths = build_pipeline_trees()
+    write_wiki_mat(PIPE_DIR / "wiki.mat", wiki_paths)
+    say(f"  trees written in {time.time() - t:.1f} s (JPEGs through the "
+        "card's encoder)")
+    kernels = ((yolov5_face, "nms_fixpoint"), (yolov5_face, "candidate_decode"),
+               (crop_ops, "crop_resize"), (blazeface, "blaze_decode_blend"))
+
+    # extract_faces: a warm-up run (cuDNN picks its plans) that the spy
+    # records, then the timed run, both through the CLI
+    runs = []
+    real_job = extract_faces.extract_faces_from_dataset
+
+    def job(*args, **kwargs):
+        runs.append(real_job(*args, **kwargs))
+        return runs[-1]
+
+    argv = ["-i", str(PIPE_DIR / "faces"), "-o", str(PIPE_DIR / "faces_out"),
+            "--md", "yolov5s", "--fd", "mobile_facenet", "--block",
+            str(PIPE_BLOCK), "--dt", "0", "--at", "0", "--no-resume",
+            "-d", PIPE_DEVICE]
+    extract_faces.extract_faces_from_dataset = job
+    try:
+        with spied_calls(kernels) as faces_calls, torch.inference_mode():
+            run_cli(extract_faces, argv)
+        sec = win.run("extract_faces",
+                      lambda: run_cli(extract_faces, argv)[1])
+    finally:
+        extract_faces.extract_faces_from_dataset = real_job
+    st = runs[-1]
+    failed = sorted(os.path.basename(p) for p in st.failed)
+    if failed != ["v.mp4", "v.mp4", "w.webp", "w.webp"]:
+        raise AssertionError(f"extract_faces failed on {failed}")
+    media = sum(c["media"] for c in st.classes.values())
+    n_frames = media   # one frame an image
+    if media != 2 * (PIPE_JPEGS + 2) or st.total_faces() <= 0:
+        raise AssertionError(f"extract_faces: {st.classes}")
+    feats = np.load(PIPE_DIR / "faces_out" / "class_b" / "p.npy")
+    norms = np.linalg.norm(feats, axis=1)
+    if feats.shape != (45, 512) or not np.allclose(norms[:3], 1.0, atol=1e-4):
+        raise AssertionError("extract_faces: bad feature file")
+    stats["extract_faces"] = dict(
+        media=media, frames=n_frames, faces=st.total_faces(),
+        wall_s=st.wall_s, cli_s=sec, frames_per_s=n_frames / st.wall_s,
+        media_per_s=(media + len(st.failed)) / st.wall_s,
+        seconds=st.seconds, warm_up_wall_s=runs[0].wall_s)
+    say(f"  extract_faces CLI (yolov5s + mobile_facenet, block "
+        f"{PIPE_BLOCK}, thresholds 0): {media} media ({n_frames} 576x1024 "
+        f"frames: {2 * PIPE_JPEGS} JPEG, 2 PNG, 2 BMP) + {len(st.failed)} "
+        f"unreadable (WebP, video) in {st.wall_s:.2f} s = "
+        f"{n_frames / st.wall_s:.1f} frames/s, "
+        f"{(media + len(st.failed)) / st.wall_s:.1f} media/s on {card} "
+        f"(warm-up run {runs[0].wall_s:.2f} s); {st.total_faces()} face "
+        f"crops; seconds: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in st.seconds.items()))
+
+    # extract_and_label: BlazeFace front (B5 fused), reid-mnv2 tracking,
+    # the auto labeler's 227 x 227 crops (B3 with clip + mean)
+    argv = ["-i", str(PIPE_DIR / "label"), "-o", str(PIPE_DIR / "label_out"),
+            "--md", "blazeface-front", "--fd", "reid-mnv2", "--labeler",
+            "auto", "--dt", "0", "--at", "0", "--workers", "2",
+            "-d", PIPE_DEVICE]
+    with spied_calls(kernels) as label_calls, torch.inference_mode():
+        sec = win.run("extract_and_label",
+                      lambda: run_cli(extract_and_label, argv)[1])
+    ann = json.load(open(PIPE_DIR / "label_out" / "annotations.json"))
+    n_det = sum(len(a["face_ids"]) for a in ann.values())
+    n_tracks = sum(len(set(a["face_ids"])) for a in ann.values())
+    ag = [c for c in label_calls["crop_resize"] if c[0][3] == (227, 227)]
+    if len(ann) != 8 or n_det == 0 or len(ag) != n_tracks or any(
+            a is None for r in ann.values() for a in r["ages"]):
+        raise AssertionError(f"extract_and_label: {len(ann)} media, {n_det} "
+                             f"detections, {n_tracks} tracks, {len(ag)} "
+                             "labeler crops")
+    stats["extract_and_label"] = dict(media=len(ann), detections=n_det,
+                                      tracks=n_tracks, cli_s=sec)
+    say(f"  extract_and_label CLI (blazeface-front, reid-mnv2, auto "
+        f"labeler): {len(ann)} frames, {n_det} detections, {n_tracks} "
+        f"tracks labeled in {sec:.2f} s (engine build included)")
+
+    # extract_features: 128 face crops of mixed sizes, resized on the host
+    argv = ["-i", str(PIPE_DIR / "crops"), "-o", str(PIPE_DIR / "crops_out"),
+            "--fd", "mobile_facenet", "--batch", "64", "-d", PIPE_DEVICE]
+    sec = win.run("extract_features",
+                  lambda: run_cli(extract_features, argv)[1])
+    recs = [np.load(p) for p in sorted((PIPE_DIR / "crops_out").rglob(
+        "*.npy"))]
+    if len(recs) != 128 or any(r.shape != (513,) for r in recs) or not \
+            np.allclose([np.linalg.norm(r[:-1]) for r in recs], 1.0,
+                        atol=1e-4):
+        raise AssertionError("extract_features: bad records")
+    stats["extract_features"] = dict(records=len(recs), cli_s=sec)
+    say(f"  extract_features CLI: 128 crops (40-199 px a side, JPEG, PNG, "
+        f"BMP) -> {len(recs)} records in {sec:.2f} s (engine build "
+        "included)")
+
+    # extract_imdb_wiki: 32 images of mixed sizes, letterboxed on the host
+    dt, singles = imdb_threshold(wiki_paths)
+    argv = ["--mat", str(PIPE_DIR / "wiki.mat"), "-i", str(PIPE_DIR / "wiki"),
+            "-o", str(PIPE_DIR / "wiki_out"), "--md", WIKI_DETECTOR, "--mf",
+            "mobile_facenet", "--dt", repr(dt), "--batch", "32",
+            "-d", PIPE_DEVICE]
+    with spied_calls(kernels) as wiki_calls, torch.inference_mode():
+        sec = win.run("extract_imdb_wiki",
+                      lambda: run_cli(extract_imdb_wiki, argv)[1])
+    meta = json.load(open(PIPE_DIR / "wiki_out" / "cleaning_metadata.json"))
+    data = np.load(PIPE_DIR / "wiki_out" / "data.npy", allow_pickle=True)
+    if meta["kept_metadata"] != 32 or not data.size or not all(
+            r["embedding"].shape == (512,) for r in data):
+        raise AssertionError(f"extract_imdb_wiki: {meta}, {len(data)} "
+                             f"records")
+    stats["extract_imdb_wiki"] = dict(images=32, records=len(data),
+                                      one_face_before=singles, dt=dt,
+                                      cli_s=sec)
+    say(f"  extract_imdb_wiki CLI ({WIKI_DETECTOR} + mobile_facenet, --dt "
+        f"{dt:.4f}):"
+        f" 32 images of mixed sizes -> {len(data)} one-face records in "
+        f"{sec:.2f} s (engine build included)")
+
+    for part, names in (("extract_faces", ("nms_fixpoint", "rows_gather",
+                                           "crop_resize")),
+                        ("extract_and_label", ("blaze_decode_blend",
+                                               "crop_resize")),
+                        ("extract_imdb_wiki", ("blaze_decode_blend",))):
+        for k in names:
+            if win.parts[part][k] <= 0:
+                raise AssertionError(f"{k} never launched in {part}")
+    # every captured kernel call of the path against its plain version
+    plain = {"nms_fixpoint": (ck.nms_fixpoint, ck.nms_fixpoint_plain),
+             "candidate_decode": (ck.candidate_decode,
+                                  ck.candidate_decode_plain),
+             "crop_resize": (ck.crop_resize, ck.crop_resize_plain),
+             "blaze_decode_blend": (ck.blaze_decode_blend,
+                                    ck.blaze_decode_blend_plain)}
+    replayed = {}
+    for part, calls in (("extract_faces", faces_calls),
+                        ("extract_and_label", label_calls),
+                        ("extract_imdb_wiki", wiki_calls)):
+        for name, seen in calls.items():
+            if seen:
+                check_on_path(f"{name} in {part}", *plain[name], seen)
+                replayed[f"{part}: {name}"] = len(seen)
+    stats["replayed"] = replayed
+    sizes = sorted({a[3] for a, _ in faces_calls["crop_resize"]
+                    + label_calls["crop_resize"]})
+    say(f"  crop_resize sizes on the path: {sizes}")
+
+    t = time.time()
+    compared, flipped = card_against_cpu(PIPE_DIR)
+    stats["card_vs_cpu"] = dict(rows=compared, flipped=flipped,
+                                s=time.time() - t)
+    say(f"  card against CPU (extract_faces, 2 media a class): face counts "
+        f"equal; {compared} feature rows of the same boxes within "
+        f"{CPU_TOL}; boxes that flipped on a near-tie: {flipped or 'none'}")
+    if compared == 0:
+        raise AssertionError("no feature row compared between card and CPU")
+    stats["odd_crop_worst_mae"] = check_odd_crops()
+    say(f"  the card's JPEG route on crops {list(ODD_CROPS)}: each "
+        f"round-trips to its shape, worst mean |error| "
+        f"{stats['odd_crop_worst_mae']:.2f} (bound {IO_MAE})")
+    stats["windows"] = {k: {n: c for n, c in v.items() if c}
+                        for k, v in win.parts.items()}
+    return win.total(), stats
 
 
 def main():
@@ -1893,6 +2341,14 @@ def main():
         f"{json.dumps({k: v for k, v in family.items() if k != 'windows'})}")
     phase_end("main path: cli + serving")
 
+    say("[main path: pipelines] the dataset CLIs: extract_faces, "
+        "extract_and_label, extract_features, extract_imdb_wiki")
+    pipeline_launches, pipelines = run_pipelines(card)
+    say(f"  launches on the pipelines path: {pipeline_launches}, by part "
+        f"{json.dumps(pipelines['windows'])}")
+    say(f"  pipelines numbers: {json.dumps(pipelines)}")
+    phase_end("main path: pipelines")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -1928,7 +2384,8 @@ def main():
                    "similarity": similarity_launches[k["name"]],
                    "blazeface": blaze_launches[k["name"]],
                    "yolov5 family + embedders": family_launches[k["name"]],
-                   "cli + serving": serving_launches[k["name"]]}
+                   "cli + serving": serving_launches[k["name"]],
+                   "pipelines": pipeline_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

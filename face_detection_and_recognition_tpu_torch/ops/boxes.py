@@ -1,7 +1,7 @@
-"""Box arithmetic: format conversion and batched IoU, as ``ops/boxes.py`` of
-the JAX package computes them, and BlazeFace's anchor decode, as its
-``models/blazeface.py`` does (same operation order, so the same f32
-results)."""
+"""Box arithmetic: format conversion, batched and single IoU, as
+``ops/boxes.py`` of the JAX package computes them, and BlazeFace's anchor
+decode, as its ``models/blazeface.py`` does (same operation order, so the
+same f32 results)."""
 from __future__ import annotations
 
 import torch
@@ -51,3 +51,18 @@ def decode_boxes(raw_boxes: torch.Tensor, anchors: torch.Tensor,
         cols.append(raw_boxes[..., off] / scale * aw + ax)
         cols.append(raw_boxes[..., off + 1] / scale * ah + ay)
     return torch.stack(cols, dim=-1)
+
+
+def iou_single(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """Scalar IoU between two xyxy boxes with the reference's exact
+    no-intersection semantics (``image.py:124-143``): 0 when either axis
+    overlap is strictly negative; touching boxes intersect with zero
+    area."""
+    x_diff = torch.minimum(box1[2], box2[2]) - torch.maximum(box1[0], box2[0])
+    y_diff = torch.minimum(box1[3], box2[3]) - torch.maximum(box1[1], box2[1])
+    inter = x_diff * y_diff
+    union = ((box1[2] - box1[0]) * (box1[3] - box1[1])
+             + (box2[2] - box2[0]) * (box2[3] - box2[1]) - inter)
+    iou = inter / union
+    return torch.where((x_diff < 0) | (y_diff < 0), torch.zeros_like(iou),
+                       iou)

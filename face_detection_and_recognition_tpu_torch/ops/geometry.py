@@ -8,6 +8,10 @@ operator is rebuilt here in numpy float32 with the same operations, and each
 axis is one matrix product with it. The JAX package cut that product into
 banded row blocks for the TPU's matrix unit; the port multiplies by the
 whole matrix, whose extra terms are exact zeros.
+
+On the host, ``host_resize`` is the ``cv2.resize(img, (w, h))`` slot for
+uint8 images (INTER_LINEAR in cv2's fixed point, and its exact-2x case as
+INTER_AREA), and ``host_letterbox`` letterboxes with it.
 """
 from __future__ import annotations
 
@@ -111,6 +115,72 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int],
     cv2.INTER_LINEAR semantics (no antialiasing), in ``dtype``."""
     x = _resample_axis(img, out_hw[0], img.ndim - 3, dtype)
     return _resample_axis(x, out_hw[1], x.ndim - 2, dtype)
+
+
+def _linear_taps(n_in: int, n_out: int, clamp: bool):
+    """cv2's INTER_LINEAR taps of one axis: (first source index, second,
+    weight of the first, weight of the second), weights in 11-bit fixed
+    point. The source coordinate is ``(d + 0.5) / scale - 0.5`` rounded to
+    f32 and each weight is rounded on its own. Columns (``clamp``) past an
+    edge take the edge pixel with the full weight; rows keep their
+    fractional weights and read the edge row twice."""
+    scale = 1.0 / (n_out / n_in)   # cv2's double scale_x
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale
+         - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp:
+        out = (s < 0) | (s >= n_in - 1)
+        f[out] = 0.0
+        s = np.clip(s, 0, n_in - 1)
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int32)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    return (np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1), w0, w1)
+
+
+def host_resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size)`` for a uint8 [H, W] or [H, W, C] image, with
+    ``size`` = (width, height), equal to cv2's INTER_LINEAR bit for bit:
+    11-bit weights, int32 sums across the row, then down the column cv2's
+    SIMD rounding ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) + 2 >>
+    2``. An exact 2x reduction of both sides is cv2's INTER_AREA, the
+    rounded mean of each 2x2 block."""
+    dw, dh = int(size[0]), int(size[1])
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or dw < 1 or dh < 1:
+        raise ValueError(f"host_resize takes a uint8 [H, W(, C)] image and a "
+                         f"positive (w, h); got {img.dtype} {img.shape}, "
+                         f"{size}")
+    sh, sw = img.shape[:2]
+    if (sh, sw) == (dh, dw):
+        return img.copy()
+    x = img.reshape(sh, sw, -1).astype(np.int32)
+    if (sh, sw) == (2 * dh, 2 * dw):
+        s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+        out = (s + 2) >> 2
+    else:
+        y0, y1, b0, b1 = _linear_taps(sh, dh, clamp=False)
+        rows, inv = np.unique(np.concatenate([y0, y1]), return_inverse=True)
+        x0, x1, a0, a1 = _linear_taps(sw, dw, clamp=True)
+        xr = x[rows]
+        hsum = xr[:, x0] * a0[:, None] + xr[:, x1] * a1[:, None]
+        s0, s1 = hsum[inv[:dh]], hsum[inv[dh:]]
+        out = ((((s0 >> 4) * b0[:, None, None]) >> 16)
+               + (((s1 >> 4) * b1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(
+        (dh, dw) + img.shape[2:])
+
+
+def host_letterbox(img: np.ndarray, out_hw: Tuple[int, int],
+                   fill: Color = GRAY_FILL) -> np.ndarray:
+    """Letterbox a BGR uint8 frame on the host into a uint8 [out_h, out_w,
+    3] canvas: ``letterbox_params``' geometry, ``host_resize`` inside,
+    ``fill`` around, as the JAX package's ``host_letterbox`` (with
+    cv2.resize) builds its blocks."""
+    out_h, out_w = out_hw
+    _, sh, sw, top, left = letterbox_params(img.shape[:2], (out_h, out_w))
+    canvas = np.full((out_h, out_w, 3), np.asarray(fill, np.uint8), np.uint8)
+    canvas[top:top + sh, left:left + sw] = host_resize(img, (sw, sh))
+    return canvas
 
 
 def clip_coords(boxes: torch.Tensor, img_hw: Tuple[int, int]) -> torch.Tensor:

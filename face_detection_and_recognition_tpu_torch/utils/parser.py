@@ -38,6 +38,15 @@ class ArgumentParserMod(argparse.ArgumentParser):
             self.remove_argument(a)
 
 
+def add_device_flag(parser: argparse.ArgumentParser,
+                    flags=("-d", "--device")) -> None:
+    """The device flag of the port's CLIs: ``cuda`` (the default: the
+    card) or ``cpu``."""
+    parser.add_argument(
+        *flags, dest="device", default="cuda", choices=["cuda", "cpu"],
+        help="Device to inference on. (default: %(default)s)")
+
+
 def get_argparse(*args, **kwargs) -> ArgumentParserMod:
     parser = ArgumentParserMod(*args, **kwargs)
     parser.add_argument(
@@ -57,10 +66,7 @@ def get_argparse(*args, **kwargs) -> ArgumentParserMod:
         help="Minimum box size as a percentage of the frame area "
              "(100*box/frame); smaller boxes are dropped. "
              "(default: %(default)s)")
-    parser.add_argument(
-        "-d", "--device", dest="device", default="cuda",
-        choices=["cuda", "cpu"],
-        help="Device to inference on. (default: %(default)s)")
+    add_device_flag(parser)
     parser.add_argument(
         "-o", "--output", dest="output", default=None,
         help="Write the annotated image here (JPEG).")

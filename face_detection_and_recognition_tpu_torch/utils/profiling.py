@@ -32,7 +32,10 @@ Needs a CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import contextlib
+
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -91,11 +94,16 @@ def device_ops(fn, iters: int = ITERS) -> dict:
 def device_ms(fn, iters: int = ITERS):
     """(device milliseconds, device operations) per call of ``fn``: each
     operation's mean self time times its count a call, so that a launch
-    whose record the profiler misses lowers no sum."""
+    whose record the profiler misses lowers no sum. Where no profiler
+    session records device time (an H100 has stopped recording for the
+    rest of a process), the time between CUDA events stands in and the
+    count is None."""
     ops = device_ops(fn, iters).values()
     total_ms = sum(ms * n for ms, n in ops)
     if total_ms <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+        print("torch.profiler recorded no device time: timing between CUDA "
+              "events instead", file=sys.stderr, flush=True)
+        return cuda_ms(fn, iters), None
     return total_ms, sum(n for _, n in ops)
 
 
@@ -126,23 +134,36 @@ def detect_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def spied_calls(targets):
+    """Record the (args, kwargs) of every call to each ``(module, name)``
+    of ``targets`` while the block runs; the real functions still run,
+    and are put back after. Yields {name: calls}."""
+    real = {name: getattr(module, name) for module, name in targets}
+    seen = {name: [] for name in real}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            seen[name].append((args, kwargs))
+            return real[name](*args, **kwargs)
+        return call
+
+    try:
+        for module, name in targets:
+            setattr(module, name, spy(name))
+        yield seen
+    finally:
+        for module, name in targets:
+            setattr(module, name, real[name])
+
+
 def captured_calls(module, name: str, run) -> list:
     """The (args, kwargs) of every call that ``run()`` makes to
     ``module.name``, which still runs: a spy stands in for it during the
     call, and the real function is put back after."""
-    real, seen = getattr(module, name), []
-
-    def spy(*args, **kwargs):
-        seen.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    setattr(module, name, spy)
-    try:
-        with torch.inference_mode():
-            run()
-    finally:
-        setattr(module, name, real)
-    return seen
+    with spied_calls([(module, name)]) as seen, torch.inference_mode():
+        run()
+    return seen[name]
 
 
 def detect_nms_inputs(eng: FaceEngine, frames: np.ndarray):

@@ -38,7 +38,7 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
     # ops, models, core, utils, pipelines, cli, serving and their modules
     # were all imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 39, out.stdout
+    assert n >= 50, out.stdout
     names = out.stdout.split("NAMES ")[1].split()
     for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
                 "models.embedders", "models.blazeface", "models.facenet",
@@ -47,7 +47,13 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "pipelines.similarity", "utils.native", "utils.files",
                 "utils.parser", "utils.draw", "core.config", "core.inference",
                 "cli.detect_face", "serving.batcher", "serving.service",
-                "serving.http_server", "serving.grpc_server"):
+                "serving.http_server", "serving.grpc_server",
+                "utils.logging_utils", "pipelines.dataset",
+                "pipelines.extract_faces", "pipelines.extract_features",
+                "pipelines.tracking", "pipelines.imdb_wiki",
+                "cli.extract_faces", "cli.extract_features",
+                "cli.extract_and_label", "cli.extract_imdb_wiki",
+                "cli.filter_faces"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 
@@ -93,3 +99,39 @@ def test_similarity_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert S.topk_similar(e, e, k=2, device="cpu")[1].shape == (4, 2)
+
+
+@pytest.mark.parametrize("cli", ["extract_faces", "extract_features",
+                                 "extract_and_label", "extract_imdb_wiki",
+                                 "filter_faces"])
+def test_dataset_clis_raise_without_cuda_unless_cpu(monkeypatch, tmp_path,
+                                                    cli):
+    """Each dataset CLI builds its engine on the card by default: without
+    CUDA it raises, and with the CPU flag it runs (on an empty tree)."""
+    import importlib
+
+    main = importlib.import_module(
+        f"face_detection_and_recognition_tpu_torch.cli.{cli}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    data, out = str(tmp_path / "data"), str(tmp_path / "out")
+    os.makedirs(data)
+    if cli == "extract_imdb_wiki":
+        import numpy as np
+        from scipy.io import savemat
+
+        empty = np.empty((1, 0))
+        savemat(str(tmp_path / "w.mat"), {"wiki": {
+            k: empty for k in ("full_path", "dob", "photo_taken", "gender",
+                               "face_score", "second_face_score")}})
+        argv = ["--mat", str(tmp_path / "w.mat"), "-i", data, "-o", out,
+                "--md", "blazeface-front"]
+    elif cli == "filter_faces":
+        argv = ["-d", data, "-r", data, "-t", out]
+    else:
+        argv = ["-i", data, "-o", out] + (
+            ["--md", "blazeface-front"] if cli != "extract_features" else [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    cpu = ["--device", "cpu"] if cli == "filter_faces" else ["-d", "cpu"]
+    assert main(argv + cpu) == 0
