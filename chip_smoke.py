@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
-yolov5 family + embedders, CLI + serving and dataset pipeline paths on one
-CUDA card.
+yolov5 family + embedders, CLI + serving, dataset pipeline and SSD + MTCNN
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -81,8 +81,8 @@ seconds:
    ~3.3e5), bit for bit and timed; each net's device ms on up to 512
    crops;
 9. main path, cli + serving: a seeded smooth 576 x 1024 frame through the
-   port's JPEG route (``utils/native.py``: encoded, decoded, the round
-   trip's error bounded, the route printed); the ``detect_face`` CLI in
+   port's JPEG codec (``utils/native.py``: encoded, decoded, the round
+   trip's error bounded, the codec's library printed); the ``detect_face`` CLI in
    process on that JPEG (yolov5s, thresholds 0, then again with
    ``--age-gender --embedder mobile_facenet``); then the HTTP front door of
    ``FaceService(ServiceConfig())`` (yolov5s, MobileFaceNet, both
@@ -91,9 +91,11 @@ seconds:
    through the gRPC front door, and 8 concurrent ``/detect`` requests
    through the dynamic batcher (batches of up to 8).
    After the path's counts are read: the CLI's printed boxes against
-   ``FaceEngine.detect_image`` on the decoded frame, and every answer
-   against the service's direct call on it; the request times (p50, max)
-   and the batcher's counts are printed;
+   ``FaceEngine.detect_image`` on the decoded frame, every sequential and
+   gRPC answer against the service's direct call on it, and each batched
+   answer against the engine's answer in a batch of its dispatch's size
+   (the batcher records each dispatch's size); the request times (p50,
+   max) and the batcher's counts are printed;
 10. main path, pipelines: the dataset CLIs on seeded trees written through
    the card's JPEG encoder. ``extract_faces`` (yolov5s + mobile_facenet,
    blocks of 64, thresholds 0) on two classes of 48 576 x 1024 JPEGs, a
@@ -110,8 +112,26 @@ seconds:
    the path, recorded by a spy, is then held to its plain version bit for
    bit. Then extract_faces on 2 media a class on the card and on the CPU
    (face counts equal, feature rows of the same boxes within 1e-4), and
-   1-px, sliver and odd-sized crops through the card's JPEG route;
-11. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+   1-px, sliver and odd-sized crops through the port's JPEG codec;
+11. main path, ssd + mtcnn: ``detect_batch`` of ssd-resnet10 (300 x 300),
+   ssd-mobilenetv2 (448 x 448) and ssd-squeezenet (300 x 300) on the 8
+   frames at thresholds 0, one B1 launch each; mtcnn at native resolution
+   at its default thresholds and with every stage full (thresholds 0): 11
+   B1 launches (8 pyramid levels, the global pass, R-Net's, O-Net's in
+   ``min`` mode) and 2 B3 launches in pad mode (24 x 24 and 48 x 48 crops
+   of the normalized frames) a batch; one ``/detect`` request to the HTTP
+   front door of an mtcnn ``FaceService`` (the staged path: the cascade,
+   then B3 clamped at 112), its answer against the service's direct call.
+   Each part zeroes the counts before it and reads them after. Then every
+   B1 and B3 call of those parts, recorded by a spy, against its plain
+   version bit for bit; frames/s of each detector and the milliseconds of
+   each MTCNN stage; each SSD detector's rows and each MTCNN stage's on
+   the first 2 frames against the port on the CPU (the same rows within
+   1e-4 after normalization, the same counts); B1 at K = 400 (SSD), at
+   MTCNN's global pass and in ``min`` mode, and B3 pad at 24 and 48,
+   timed beside their bounds; the host JPEG codec's decode of a 576 x 1024
+   quality-95 frame and encode of the frame and of 112 x 112 crops;
+12. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -557,28 +577,11 @@ def check_crop(gen, frames):
     unfused_ms = cuda_ms(unfused, 50)
     dev_ms, _ = device_ms(lambda: ck.crop_resize(*args), 20)
     plain_ms = cuda_ms(lambda: ck.crop_resize_plain(*args), 5)
-    # the library call: one grid_sample over the f32 NCHW frames, the K
-    # crops stacked along the grid's rows, at the same sample coordinates
-    # (zero padding reads 0 only where the weight is 0 here); it computes
-    # the crop alone, without the clip and the mean
-    y0, _, wy, _, _ = ck._crop_taps(boxes[..., 1], boxes[..., 3],
-                                    frames.shape[1], hw[0], True)
-    x0, _, wx, _, _ = ck._crop_taps(boxes[..., 0], boxes[..., 2],
-                                    frames.shape[2], hw[1], True)
-    gy = (2 * (y0 + wy) + 1) / frames.shape[1] - 1           # [B, K, oh]
-    gx = (2 * (x0 + wx) + 1) / frames.shape[2] - 1           # [B, K, ow]
-    grid = torch.stack(torch.broadcast_tensors(
-        gx[..., None, :], gy[..., :, None]), -1).reshape(B, -1, hw[1], 2)
-    nchw = frames.permute(0, 3, 1, 2).float().contiguous()
-
-    def library():
-        return torch.nn.functional.grid_sample(
-            nchw, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=False)
-
+    # the library call: one grid_sample at the same sample coordinates; it
+    # computes the crop alone, without the clip and the mean
+    library, lib_nhwc = grid_sample_crop(frames, boxes, hw, True)
     library_ms = cuda_ms(library, 50)
-    lib_out = library().reshape(B, 3, CROP_K, hw[0], hw[1]) \
-        .permute(0, 2, 3, 4, 1)
+    lib_out = lib_nhwc(library())
     lib_err = float((torch.where(valid[..., None, None, None], lib_out, 0.0)
                      - ck.crop_resize(*base)).abs().max())
     say(f"  grid_sample {hw[0]}x{hw[1]} against the kernel: max abs err "
@@ -1577,6 +1580,70 @@ def check_answers(name, answers, ref):
                 raise AssertionError(f"{name}: labels differ")
 
 
+def batched_refs(service, frame, sizes):
+    """{b: the service's answer for ``frame`` in an engine call of b copies
+    of it}, b in ``sizes``, on the service's engine thread; every row of a
+    call must answer alike."""
+    refs = {}
+    for b in sorted(set(sizes)):
+        res = service._on_device(
+            service.engine.detect_embed_classify_batch,
+            np.stack([frame] * b), 0.0, 0.0, crop_size=service.cfg.face_size,
+            want_embed=False, want_ag=False)
+        posts = res.det.to_numpy()
+        rows = [{"bboxes": np.asarray(p.boxes, np.float32),
+                 "confs": np.asarray(p.bbox_confs, np.float32)}
+                for p in posts]
+        for r in rows[1:]:
+            check_answers(f"a batch of {b}", [r], rows[0])
+        refs[b] = rows[0]
+    return refs
+
+
+def check_batched(service, frame, answers, dispatch_sizes):
+    """The dynamic batcher's answers against the engine's answers at the
+    sizes it dispatched (``dispatch_sizes``, the batcher's record {size:
+    dispatches}: groups run at their own size). cuDNN picks its
+    convolution algorithms by batch size, so a coordinate that rounds at
+    x.5 can land a pixel apart between sizes. The requests all carry the
+    same frame, so a dispatch of size b owes b answers equal to the
+    engine's answer in a batch of b: the answers are matched one to one to
+    those slots, each exactly (1e-4), and the sizes whose answer differs
+    from a lone frame's are printed. Returns {size: dispatches}."""
+    sizes = dict(sorted(dispatch_sizes.items()))
+    slots = [b for b, n in sizes.items() for _ in range(b * n)]
+    if len(slots) != len(answers):
+        raise AssertionError(f"the batcher dispatched {sizes} (size: "
+                             f"dispatches) for {len(answers)} answers")
+    refs = batched_refs(service, frame, list(sizes) + [1])
+
+    def same(a, r):
+        try:
+            check_answers("", [a], r)
+            return True
+        except AssertionError:
+            return False
+
+    def as_answer(r):
+        return {"bboxes": r["bboxes"].tolist(), "confs": r["confs"].tolist()}
+
+    differ = [b for b in refs if not same(as_answer(refs[b]), refs[1])]
+    for i, a in enumerate(answers):
+        hit = next((j for j, b in enumerate(slots) if same(a, refs[b])),
+                   None)
+        if hit is None:
+            raise AssertionError(
+                f"batched answer {i} equals the engine's answer at none of "
+                f"the sizes still owed {sorted(set(slots))} (dispatched "
+                f"{sizes})")
+        slots.pop(hit)
+    say(f"  batched /detect answers: dispatched {sizes} (size: "
+        f"dispatches), each answer equal to the engine's at its "
+        f"dispatch's size; sizes whose answer differs from a lone frame's: "
+        f"{differ or 'none'}")
+    return sizes
+
+
 def grpc_detect_once(service, data):
     """One Detect request through the gRPC front door of ``service`` on
     127.0.0.1 (thresholds 0): (its JSON answer, client ms). The server is
@@ -1613,8 +1680,8 @@ def run_cli_serving(card, device="cuda"):
     WORK_DIR.mkdir(parents=True, exist_ok=True)
     jpg, out = str(WORK_DIR / "frame.jpg"), str(WORK_DIR / "out.jpg")
     t = time.time()
-    route = native.io_route()
-    say(f"  JPEG route: {route} (built and bound in {time.time() - t:.2f} s)")
+    codec = native.build_library().name
+    say(f"  JPEG codec: {codec} (built in {time.time() - t:.2f} s)")
     native.write_image_bgr(jpg, frame, IO_QUALITY)
     decoded = native.read_image_bgr(jpg)
     err = np.abs(decoded.astype(np.int64) - frame)
@@ -1637,7 +1704,7 @@ def run_cli_serving(card, device="cuda"):
         for _ in range(10):
             fn()
         stats[f"{name}_ms"] = (time.perf_counter() - t) / 10 * 1e3
-    stats.update(route=route, jpeg_bytes=len(data),
+    stats.update(codec=codec, jpeg_bytes=len(data),
                  round_trip_mae=float(err.mean()),
                  round_trip_max=int(err.max()))
     say(f"  {IO_HW[1]}x{IO_HW[0]} frame at quality {IO_QUALITY}: "
@@ -1694,12 +1761,14 @@ def run_cli_serving(card, device="cuda"):
         batcher.shutdown()
         service._batcher = None       # the direct calls below run alone
         stats["batcher"] = {"requests": batcher.requests,
-                            "dispatches": batcher.dispatches}
+                            "dispatches": batcher.dispatches,
+                            "sizes": dict(batcher.dispatch_sizes)}
         # what the path answered, against direct calls on the decoded frame
         ref_det = service.detect_faces(decoded, 0.0, 0.0)
-        check_answers("/detect", answers["detect"] + answers["batched"]
-                      + [answers["grpc"]],
+        check_answers("/detect", answers["detect"] + [answers["grpc"]],
                       {"bboxes": ref_det[1], "confs": ref_det[2]})
+        stats["batched_sizes"] = check_batched(
+            service, decoded, answers["batched"], batcher.dispatch_sizes)
         ref_ens = service.detect_embed_classify(decoded)
         check_answers("/ensemble", answers["ensemble"],
                       {k: np.asarray(v) if k != "labels" else v
@@ -1764,8 +1833,9 @@ def run_cli_serving(card, device="cuda"):
         "to the service's direct call")
     say(f"  HTTP /detect, {N_REQUESTS} concurrent through the batcher: "
         f"requests {stats['batcher']['requests']}, dispatches "
-        f"{stats['batcher']['dispatches']}; every answer equals the "
-        "service's direct call")
+        f"{stats['batcher']['dispatches']} (size: dispatches "
+        f"{stats['batcher']['sizes']}); each answer equals the "
+        "engine's in a batch of its dispatch's size")
     if stats["batcher"]["requests"] != N_REQUESTS:
         raise AssertionError("the batcher did not serve every request")
     for name, got in (("CLI", after_cli1), ("HTTP", http_launches)):
@@ -2199,6 +2269,298 @@ def run_pipelines(card):
     return win.total(), stats
 
 
+SSD_NAMES = ("ssd-resnet10", "ssd-mobilenetv2", "ssd-squeezenet")
+MTCNN_FULL = {"thresholds": (0.0, 0.0, 0.0)}  # every stage full
+MTCNN_B1, MTCNN_B3 = 11, 2   # launches a 576 x 1024 batch: 8 levels + 3
+CPU_FRAMES = 2               # frames the CPU reference runs
+
+
+def same_stage(label, got, ref, wh):
+    """A stage's rows on the card against the CPU's: the same valid slots,
+    the valid rows (normalized by the frame size where ``wh``) within
+    CPU_TOL."""
+    (gb, gv), (rb, rv) = got, ref
+    gb, gv = gb[:CPU_FRAMES].cpu(), gv[:CPU_FRAMES].cpu()
+    if not torch.equal(gv, rv):
+        raise AssertionError(f"{label}: card and CPU keep different rows "
+                             f"({gv.sum(1).tolist()} vs {rv.sum(1).tolist()})")
+    scale = torch.tensor([wh[0], wh[1]] * (gb.shape[-1] // 2)
+                         + [1] * (gb.shape[-1] % 2)) if wh else 1.0
+    err = float(((gb - rb) / scale)[gv].abs().max()) if gv.any() else 0.0
+    if err > CPU_TOL:
+        raise AssertionError(f"{label}: card and CPU rows differ by {err}")
+    return int(gv.sum()), err
+
+
+def grid_sample_crop(img, boxes, hw, clamp):
+    """The one PyTorch call that computes ``crop_resize``'s crop: a
+    ``grid_sample`` over the f32 NCHW frames [B, C, H, W], the K crops
+    stacked along the grid's rows, bilinear with zero padding (clamped
+    boxes: at the kernel's clamped sample coordinates, where zero padding
+    reads 0 only where the weight is 0; padded boxes: at the unclamped
+    coordinates ``lo + (o + 0.5) * len / n_out - 0.5``, where it reads 0
+    outside the frame as the pad mode does). Returns (the call, a map of
+    its output to crop_resize's [B, K, oh, ow, C])."""
+    b, h, w, c = img.shape
+    k = boxes.shape[1]
+
+    def coords(b0, b1, n, n_out):
+        if clamp:
+            i0, _, wt, _, _ = ck._crop_taps(b0, b1, n, n_out, True)
+            return i0 + wt
+        lo = torch.floor(b0)[..., None]
+        length = (torch.floor(b1) - torch.floor(b0)).clamp(min=1.0)[..., None]
+        o = torch.arange(n_out, dtype=torch.float32, device=b0.device) + 0.5
+        return lo + o * length / n_out - 0.5
+
+    gy = (2 * coords(boxes[..., 1], boxes[..., 3], h, hw[0]) + 1) / h - 1
+    gx = (2 * coords(boxes[..., 0], boxes[..., 2], w, hw[1]) + 1) / w - 1
+    grid = torch.stack(torch.broadcast_tensors(
+        gx[..., None, :], gy[..., :, None]), -1).reshape(b, -1, hw[1], 2)
+    nchw = img.permute(0, 3, 1, 2).float().contiguous()
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False)
+
+    def to_nhwc(out):
+        return out.reshape(b, c, k, hw[0], hw[1]).permute(0, 2, 3, 4, 1)
+
+    return library, to_nhwc
+
+
+def time_kernel(label, fn, plain, work, card, library=None):
+    """ms between events and of device time, the plain version's ms, the
+    library call's ms (None where there is none) and the bound of one
+    kernel call of the path."""
+    ms = cuda_ms(fn, 100)
+    dev, _ = device_ms(fn, 20)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, 20) if library is not None else None
+    bound_ms, bound_by = bound(*work)
+    lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
+    say(f"  {label}: {ms:.5f} ms between events, {dev:.5f} ms device, "
+        f"plain {plain_ms:.4f} ms, library {lib}, bound {bound_ms:.6f} ms "
+        f"({bound_by}) on {card}")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def run_ssd_mtcnn(frames, card):
+    """The SSD family and the MTCNN cascade: ``detect_batch`` of
+    ssd-resnet10, ssd-mobilenetv2 and ssd-squeezenet on the 8 frames at
+    thresholds 0 (one B1 launch each); mtcnn at its default thresholds and
+    with every stage full (11 B1 launches and 2 B3 launches in pad mode a
+    batch); one ``/detect`` request to an mtcnn FaceService's HTTP front
+    door (the staged path: the cascade, then B3 clamped at 112). Each part
+    zeroes the counts before it and reads them after; the timings run in
+    parts of their own. After the counts are read: every B1 and B3 call of
+    the parts, recorded by a spy, against its plain version bit for bit;
+    each detector's rows and each MTCNN stage on the card against the CPU
+    on the first frames; B1 at K = 400 and 1024 and B3 pad at 24 and 48
+    timed beside their bounds; the host codec's decode and encode times."""
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+    from face_detection_and_recognition_tpu_torch.ops import nms as nms_ops
+    from face_detection_and_recognition_tpu_torch.serving.http_server import \
+        serve
+    from face_detection_and_recognition_tpu_torch.serving.service import \
+        ServiceConfig
+    from face_detection_and_recognition_tpu_torch.utils import native
+
+    win, stats = Windows(), {}
+    t = time.time()
+    engines = {name: FaceEngine(EngineConfig(detector=name, seed=SEED))
+               for name in SSD_NAMES}
+    engines["mtcnn"] = FaceEngine(EngineConfig(detector="mtcnn", seed=SEED))
+    engines["mtcnn full"] = FaceEngine(EngineConfig(
+        detector="mtcnn", seed=SEED, detector_overrides=MTCNN_FULL))
+    say(f"  engines built in {time.time() - t:.1f} s")
+    frame0 = np.ascontiguousarray(frames[0])
+    jpg = native.encode_jpeg_bgr(frame0, IO_QUALITY)
+    httpd = serve(ServiceConfig(detector="mtcnn", with_embedder=False,
+                                with_age_gender=False), host="127.0.0.1",
+                  port=free_port(), block=False, warmup_shapes=())
+    service = httpd.service
+    # random weights find no face at the default thresholds: the served
+    # cascade runs with every stage full, so that the staged crops run
+    service.engine.net.cfg = engines["mtcnn full"].net.cfg
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    targets = [(nms_ops, "nms_fixpoint"), (crop_ops, "crop_resize")]
+
+    def counted():
+        """Each detector once, each in its own part; the spy records the
+        B1 and B3 calls, which still launch."""
+        out = {}
+        for name in SSD_NAMES + ("mtcnn", "mtcnn full"):
+            out[name] = win.run(name, lambda: engines[name].detect_batch(
+                frames, 0.0, 0.0))
+        out["/detect"] = win.run("/detect", lambda: http(
+            base + "/detect?det_thres=0&bbox_area_thres=0", jpg))
+        return out
+
+    try:
+        with spied_calls(targets) as seen, torch.inference_mode():
+            dets = counted()
+        for name in SSD_NAMES:
+            p = win.parts[name]
+            if (p["nms_fixpoint"], p["crop_resize"]) != (1, 0):
+                raise AssertionError(f"{name}: {p}, not one B1 launch")
+            check_dets(name, dets[name], 0)
+        for name in ("mtcnn", "mtcnn full"):
+            p = win.parts[name]
+            if (p["nms_fixpoint"], p["crop_resize"]) != (MTCNN_B1, MTCNN_B3):
+                raise AssertionError(f"{name}: {p}, not {MTCNN_B1} B1 and "
+                                     f"{MTCNN_B3} B3 launches")
+            check_dets(name, dets[name], 10)
+        p = win.parts["/detect"]
+        answer, detect_ms = dets["/detect"]
+        n_faces = answer["num_faces"]
+        if p["nms_fixpoint"] != MTCNN_B1 or p["crop_resize"] != MTCNN_B3 + (
+                1 if n_faces else 0) or not n_faces:
+            raise AssertionError(f"/detect with mtcnn: {p}, {n_faces} faces")
+        with torch.inference_mode():
+            _, bboxes, confs = service.detect_faces(
+                native.decode_jpeg_bgr(jpg), 0.0, 0.0)
+        check_answers("/detect mtcnn", [answer], {"bboxes": bboxes,
+                                                  "confs": confs})
+        say(f"  /detect with mtcnn (staged: cascade, then {n_faces} crops "
+            f"at 112): {detect_ms:.2f} ms on {card}, the answer equal to "
+            "the service's direct call")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    say(f"  launches by part: {json.dumps(win.parts)}")
+    modes = {(kw.get("mode", "union"), a[0].shape[1])
+             for a, kw in seen["nms_fixpoint"]}
+    pads = sorted({(a[3], a[4]) for a, _ in seen["crop_resize"]})
+    say(f"  spied: {len(seen['nms_fixpoint'])} B1 calls (mode, K) "
+        f"{sorted(modes)}; {len(seen['crop_resize'])} B3 calls (size, "
+        f"clamp) {pads}")
+    if ("min", 128) not in modes or ((24, 24), False) not in pads \
+            or ((48, 48), False) not in pads:
+        raise AssertionError("B1 min mode or B3 pad mode missing on the path")
+    check_on_path("nms_fixpoint (union and min) on the path",
+                  ck.nms_fixpoint, ck.nms_fixpoint_plain,
+                  seen["nms_fixpoint"])
+    check_on_path("crop_resize (pad 24 and 48, clamp 112) on the path",
+                  ck.crop_resize, ck.crop_resize_plain, seen["crop_resize"])
+
+    # frames/s of each detector, and of MTCNN per stage
+    for name in SSD_NAMES + ("mtcnn", "mtcnn full"):
+        _, sec = win.run(f"{name} timed", lambda: timed_batches(
+            lambda: engines[name].detect_batch(frames, 0.0, 0.0), 3))
+        stats[f"{name} fps"] = B / sec
+        say(f"  {name} detect_batch: {B} x 576x1024 frames in "
+            f"{sec * 1e3:.2f} ms = {B / sec:.1f} frames/s on {card}; "
+            f"detections per frame {dets[name].valid.sum(1).tolist()}")
+    frames_t = torch.from_numpy(frames).cuda()
+    traces = {}
+    for name in ("mtcnn", "mtcnn full"):
+        net = engines[name].net
+        traces[name] = {}
+        with torch.inference_mode(), _full_f32(frames_t.device):
+            win.run(f"{name} stages", lambda: net.detect(frames_t,
+                                                         traces[name]))
+        ms = {k: v["ms"] for k, v in traces[name].items()}
+        stats[f"{name} stage ms"] = ms
+        say(f"  {name} stages: " + ", ".join(
+            f"{k} {v:.2f} ms ({B * 1e3 / v:.1f} frames/s)"
+            for k, v in ms.items()) + f" on {card}; valid a frame after "
+            f"O-Net {traces[name]['onet']['valid'].sum(1).tolist()}")
+
+    # the card against the CPU on the first frames
+    head = frames[:CPU_FRAMES]
+    for name in SSD_NAMES + ("mtcnn full",):
+        ov = MTCNN_FULL if name == "mtcnn full" else {}
+        cpu = FaceEngine(EngineConfig(detector=name.split()[0], seed=SEED,
+                                      detector_overrides=ov), device="cpu")
+        if name == "mtcnn full":
+            ref = {}
+            with torch.inference_mode():
+                cpu.net.detect(torch.from_numpy(head), ref)
+            for stage in ("pnet", "rnet", "onet"):
+                got = traces[name][stage]
+                n, err = same_stage(
+                    f"mtcnn {stage}", (got["boxes"], got["valid"]),
+                    (ref[stage]["boxes"], ref[stage]["valid"]),
+                    None if stage == "onet" else (1024, 576))
+                say(f"  mtcnn {stage} on the card against the CPU: {n} "
+                    f"rows equal within {CPU_TOL} (max {err:.2e})")
+            continue
+        with torch.inference_mode():
+            got = engines[name]._detect(engines[name]._preprocess(frames_t))
+            ref = cpu._detect(cpu._preprocess(torch.from_numpy(head)))
+        n, err = same_stage(name, got, ref, None)
+        say(f"  {name} on the card against the CPU: {n} rows equal within "
+            f"{CPU_TOL} (max {err:.2e})")
+
+    # B1 at an SSD's K = 400, at MTCNN's global pass (the largest K: 6
+    # levels of 128 and two smaller ones at 576 x 1024) and in O-Net's min
+    # mode; B3 pad at 24 and 48 (R-Net's and O-Net's crops) and clamped at
+    # 112 (the staged crops); each on the path's own inputs
+    with torch.inference_mode():
+        calls = seen["nms_fixpoint"]
+        union = [c for c in calls if c[1].get("mode", "union") == "union"]
+        picks = {"ssd": next(c for c in union if c[0][0].shape[1] == 400),
+                 "mtcnn global": max(
+                     (c for c in union if c[0][0].shape[1] != 400),
+                     key=lambda c: c[0][0].shape[1]),
+                 "onet min": next(c for c in calls
+                                  if c[1].get("mode") == "min")}
+        for what, (args, kw) in picks.items():
+            keep = ck.nms_fixpoint(*args, **kw)
+            k_b = args[0].shape[1]
+            stats[f"B1 {what} K={k_b}"] = time_kernel(
+                f"nms_fixpoint, {what}: K = {k_b}, B = {args[0].shape[0]}",
+                lambda: ck.nms_fixpoint(*args, **kw),
+                lambda: ck.nms_fixpoint_plain(*args, **kw),
+                nms_work(args[0], args[1], keep), card)
+        for args, _ in seen["crop_resize"]:
+            img, boxes, valid, hw, clamp = args[:5]
+            key = f"B3 pad {hw[0]}" if not clamp else f"B3 clamp {hw[0]}"
+            if key in stats:
+                continue
+            nbytes = (boxes.shape[0] * boxes.shape[1] * hw[0] * hw[1]
+                      * img.shape[-1] * 4
+                      + crop_read_bytes(img, boxes, valid, hw, clamp)
+                      + boxes.shape[0] * boxes.shape[1] * (16 + 1))
+            library, to_nhwc = grid_sample_crop(img, boxes, hw, clamp)
+            lib_err = float((torch.where(valid[..., None, None, None],
+                                         to_nhwc(library()), 0.0)
+                             - ck.crop_resize(*args[:5])).abs().max())
+            mode = "clamp" if clamp else "zero pad"
+            say(f"  grid_sample {hw[0]}x{hw[1]} ({mode}) against the "
+                f"kernel: max abs err {lib_err:.3g} (its own rounding of "
+                "the coordinates)")
+            stats[key] = time_kernel(
+                f"crop_resize {hw[0]}x{hw[1]} ({'clamp' if clamp else 'pad'}"
+                f", {tuple(boxes.shape[:2])} boxes, {img.dtype})",
+                lambda: ck.crop_resize(*args), lambda: ck.crop_resize_plain(
+                    *args), (0, nbytes), card, library)
+            stats[key]["library_max_abs_err"] = lib_err
+
+    # the host codec: a 576 x 1024 quality-95 frame, and 112 x 112 crops
+    crops = [np.ascontiguousarray(frame0[y:y + 112, x:x + 112])
+             for y in range(0, 448, 112) for x in range(0, 896, 112)]
+    for label, fn, n in (
+            ("decode 576x1024", lambda: native.decode_jpeg_bgr(jpg), 1),
+            ("encode 576x1024", lambda: native.encode_jpeg_bgr(frame0), 1),
+            ("encode 112x112 crop", lambda: [native.encode_jpeg_bgr(c)
+                                             for c in crops], len(crops))):
+        fn()
+        t = time.perf_counter()
+        for _ in range(10):
+            fn()
+        stats[f"codec {label} ms"] = (time.perf_counter() - t) / 10 / n * 1e3
+        say(f"  host codec {label}: {stats[f'codec {label} ms']:.3f} ms "
+            f"(host CPU beside {card})")
+    stats["windows"] = {k: {n: c for n, c in v.items() if c}
+                        for k, v in win.parts.items()}
+    return win.total(), stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -2349,6 +2711,17 @@ def main():
     say(f"  pipelines numbers: {json.dumps(pipelines)}")
     phase_end("main path: pipelines")
 
+    say("[main path: ssd + mtcnn] ssd-resnet10, ssd-mobilenetv2, "
+        "ssd-squeezenet, mtcnn (default and full stages), /detect with "
+        "mtcnn")
+    ssd_launches, ssd_mtcnn = run_ssd_mtcnn(frames, card)
+    say(f"  launches on the ssd + mtcnn path: {ssd_launches}")
+    say(f"  ssd + mtcnn numbers: {json.dumps(ssd_mtcnn)}")
+    for name in ("nms_fixpoint", "crop_resize"):
+        if ssd_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    phase_end("main path: ssd + mtcnn")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -2385,7 +2758,8 @@ def main():
                    "blazeface": blaze_launches[k["name"]],
                    "yolov5 family + embedders": family_launches[k["name"]],
                    "cli + serving": serving_launches[k["name"]],
-                   "pipelines": pipeline_launches[k["name"]]}
+                   "pipelines": pipeline_launches[k["name"]],
+                   "ssd + mtcnn": ssd_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

@@ -14,7 +14,9 @@ and input shape the engine has run.
 
 Any registered detector and embedder slot serves: detections carry the
 detector's ``n_landmark_cols`` landmark columns (none for the official
-yolov5 heads), and each embedder runs at its own input size.
+yolov5 heads and the SSD family), and each embedder runs at its own input
+size. A native-resolution detector (MTCNN) takes the frames without a
+preprocess, at their own size; the fused ensemble refuses it.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from .detections import Detections, PostProcessedDetection, postprocess_detectio
 AG_HW = (227, 227)                  # age/gender crop size
 AG_PAD = (-5.0, -5.0, 5.0, 5.0)     # the cascade's +-5 px crop padding
 TORCH_WEIGHTS = (".pt", ".pth")     # the weight files the loaders read
+PROTOBUF_WEIGHTS = (".caffemodel", ".pb")  # read against a net's slots
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -45,13 +48,22 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ``state_dict`` or ``model`` when there is one (a pickled module's own
     state dict), with the ``module.`` prefix of a data-parallel save
     stripped. The file is unpickled, which can run code: load only
-    trusted files. Orbax checkpoints, ``.caffemodel``, ``.pb`` and
-    ``.xml`` raise ``ValueError``: the port has no reader for them yet."""
+    trusted files. A ``.caffemodel`` or ``.pb`` is read against a net
+    (``FaceEngine.load_weights``, ``load_age_gender_weights``), not here;
+    orbax checkpoints and OpenVINO IRs (``.xml``) raise ``ValueError``: the
+    port has no orbax reader, and the IR reader comes with the OpenVINO
+    detectors."""
     ext = os.path.splitext(path)[1].lower()
+    if ext in PROTOBUF_WEIGHTS:
+        raise ValueError(
+            f"{path}: a {ext} file holds no state dict of its own; "
+            "FaceEngine.load_weights (detectors) and "
+            "load_age_gender_weights (age/gender) read it against the net")
     if ext not in TORCH_WEIGHTS:
         raise ValueError(
-            f"{path}: the port reads torch weight files (.pt, .pth); orbax "
-            "checkpoints, .caffemodel, .pb and .xml are not supported yet")
+            f"{path}: the port reads torch weight files (.pt, .pth), and "
+            ".caffemodel and .pb through FaceEngine.load_weights; orbax "
+            "checkpoints and OpenVINO IRs (.xml) are not supported yet")
     sd = torch.load(path, map_location="cpu", weights_only=False)
     for key in ("state_dict", "model"):
         if isinstance(sd, dict) and key in sd:
@@ -141,6 +153,12 @@ class FaceEngine:
         self._pipelines = set()
 
     @property
+    def native_resolution(self) -> bool:
+        """A native-resolution detector (MTCNN): no preprocess, the cascade
+        runs whole on the frames."""
+        return self.spec.input_size == (-1, -1)
+
+    @property
     def compiled_pipelines(self) -> int:
         """How many (entry point, input shape) pairs this engine has run:
         detect at each source resolution, ``detect_raw``, the ensemble at
@@ -177,15 +195,33 @@ class FaceEngine:
     # ---------------- weight files ----------------
 
     def load_weights(self, path: str) -> None:
-        """Load detector weights from a torch weight file (a reference
-        yolov5-face or BlazeFace state dict, or one ``save_weights``
-        wrote): the port's modules carry the reference's names, so the
-        state dict loads as it is, less the yolov5 Detect layer's
-        ``anchors`` / ``anchor_grid`` buffers (the port keeps its anchors
-        in ``ARCHS``)."""
-        sd = read_state_dict(path)
-        sd = {k: v for k, v in sd.items()
-              if not k.endswith((".anchors", ".anchor_grid"))}
+        """Load detector weights, by the file's extension:
+
+        - ``.pt`` / ``.pth``: a torch state dict (a reference yolov5-face
+          or BlazeFace one, or one ``save_weights`` wrote): the port's
+          modules carry the reference's names, so it loads as it is, less
+          the yolov5 Detect layer's ``anchors`` / ``anchor_grid`` buffers
+          (the port keeps its anchors in ``ARCHS``);
+        - ``.caffemodel`` / ``.pb``: read against the net by the detector's
+          importer (``DetectorSpec.import_caffemodel`` / ``import_pb``):
+          a caffemodel's layers, or an SSD's GraphDef consts, poured slot
+          by slot in execution order (``utils.weights.structural_import``);
+          the blaueck MTCNN cascade's GraphDef
+          (``convert_mtcnn_graphdef``). A detector without one raises
+          ``ValueError``.
+
+        Other formats raise ``ValueError`` (``read_state_dict``)."""
+        ext = os.path.splitext(path)[1].lower()
+        if ext in PROTOBUF_WEIGHTS:
+            importer = (self.spec.import_caffemodel if ext == ".caffemodel"
+                        else self.spec.import_pb)
+            if importer is None:
+                raise ValueError(f"{path}: no {ext} importer for detector "
+                                 f"'{self.spec.name}'")
+            sd = importer(path, self.net, self.spec.input_size)
+        else:
+            sd = {k: v for k, v in read_state_dict(path).items()
+                  if not k.endswith((".anchors", ".anchor_grid"))}
         self.net.load_state_dict(sd)
 
     def save_weights(self, path: str) -> None:
@@ -203,14 +239,32 @@ class FaceEngine:
             raise ValueError("engine built without an embedder")
         self.embed_net.load_state_dict(read_state_dict(path))
 
-    def load_age_gender_weights(self, path: str) -> None:
-        """Load both age/gender heads from a torch weight file of the
-        port's ``AgeGenderNet`` (``age.*``, ``gender.*``). The reference's
-        two ``.caffemodel`` files are not read yet."""
+    def load_age_gender_weights(self, path: str = None,
+                                age_caffemodel: str = None,
+                                gender_caffemodel: str = None) -> None:
+        """Load both age/gender heads: from ``path``, a torch weight file of
+        the port's ``AgeGenderNet`` (``age.*``, ``gender.*``), or from the
+        reference's two ``.caffemodel`` files (age_net.caffemodel /
+        gender_net.caffemodel, ``modules/opencv2_dnn/model.py:49-83``)."""
         if self.ag_net is None:
             raise ValueError("engine built without age/gender heads "
                              "(with_age_gender=True)")
-        self.ag_net.load_state_dict(read_state_dict(path))
+        if path is not None:
+            self.ag_net.load_state_dict(read_state_dict(path))
+            return
+        from ..utils import model_formats as MF
+        from ..utils import weights as W
+
+        sd = {}
+        for head, file, n in (("age", age_caffemodel, 8),
+                              ("gender", gender_caffemodel, 2)):
+            if file is None:
+                raise ValueError("pass path, or both age_caffemodel and "
+                                 "gender_caffemodel")
+            for k, v in W.convert_caffenet_head(MF.read_caffemodel(file),
+                                                num_classes=n).items():
+                sd[f"{head}.{k}"] = v
+        self.ag_net.load_state_dict(sd)
 
     @property
     def input_size(self) -> Tuple[int, int]:
@@ -236,6 +290,13 @@ class FaceEngine:
         the input size, valid [B, K])."""
         return self._decode(self._network(x), tuple(x.shape[1:3]))
 
+    def _cascade(self, frames: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A native-resolution detector on [B, H, W, 3] frames, f32: its
+        nets and decode run whole in the registry's decode."""
+        with _full_f32(frames.device):
+            return self._decode(frames, tuple(frames.shape[1:3]))
+
     def _postprocess(self, dets: torch.Tensor, valid: torch.Tensor,
                      src_wh: Tuple[int, int], in_size: Tuple[int, int],
                      det_thres: float, area_thres: float) -> Detections:
@@ -250,12 +311,14 @@ class FaceEngine:
         JAX package compiled and cached this per resolution
         (``_compile_pipeline``); here it is a closure over the resolution's
         geometry, and the resample matrices it needs are cached in
-        ``ops.geometry``."""
+        ``ops.geometry``. A native-resolution detector takes the frames as
+        they are, and its input size is theirs."""
         self._pipelines.add(("detect",) + tuple(shape))
         h, w = shape[:2]
-        in_size = self.spec.input_size
+        native = self.native_resolution
+        in_size = (w, h) if native else self.spec.input_size
         spec_pre = self.spec.preprocess
-        if self.cfg.rect and self.spec.rect_stride:
+        if self.cfg.rect and self.spec.rect_stride and not native:
             in_size = rect_letterbox_size((h, w), self.spec.input_size,
                                           self.spec.rect_stride)
             spec_pre = dataclasses.replace(spec_pre, size=in_size)
@@ -263,7 +326,8 @@ class FaceEngine:
         def run(imgs: torch.Tensor, det_thres: float,
                 area_thres: float) -> Detections:
             with torch.inference_mode():
-                dets, valid = self._detect(self._preprocess(imgs, spec_pre))
+                dets, valid = (self._cascade(imgs) if native else
+                               self._detect(self._preprocess(imgs, spec_pre)))
                 return self._postprocess(dets, valid, (w, h), in_size,
                                          det_thres, area_thres)
 
@@ -294,8 +358,10 @@ class FaceEngine:
         the model input size, threshold-unfiltered (conf in last column)."""
         self._pipelines.add(("raw",) + tuple(img.shape))
         with torch.inference_mode():
-            dets, valid = self._detect(self._preprocess(
-                self._frames(img[None])))
+            frames = self._frames(img[None])
+            dets, valid = (self._cascade(frames) if self.native_resolution
+                           else
+                           self._detect(self._preprocess(frames)))
             return dets[0][valid[0]].cpu().numpy()
 
     # ---------------- the fused ensemble ----------------
@@ -362,7 +428,14 @@ class FaceEngine:
         embed_offsets: optional per-corner crop offsets applied to the boxes
         before cropping and embedding (the extraction pipelines'
         (-6, -1, +4, +5)); the reported boxes stay as detected.
-        want_embed / want_ag: skip those stages for this call."""
+        want_embed / want_ag: skip those stages for this call.
+        A native-resolution detector (MTCNN) raises
+        ``NotImplementedError``, as in the JAX package: serving takes the
+        staged path for it (``FaceService._faces_staged``)."""
+        if self.native_resolution:
+            raise NotImplementedError(
+                "fused ensemble requires a fixed-size detector (got "
+                f"native-resolution '{self.spec.name}')")
         if crop_size is None:
             crop_size = (112, 112)
             if self.embed_spec is not None:

@@ -3,7 +3,7 @@ written.
 
 The counterpart of ``core/inference.py`` in the JAX package (the reference's
 ``modules/utils/inference.py``), with the image path only: decode (the
-port's JPEG route, ``utils/native.py``), detect or detect + age/gender,
+port's JPEG codec, ``utils/native.py``), detect or detect + age/gender,
 draw, write. The port has no display window, and no video or camera
 decoder: ``display=True`` raises, and so do ``inference_vid`` and
 ``inference_webcam``.

@@ -28,14 +28,15 @@ def make_divisible_torch(x: float, divisor: int) -> int:
     return int(math.ceil(x / divisor) * divisor)
 
 
-_ACTS = {"silu": nn.SiLU, "relu6": nn.ReLU6, None: nn.Identity}
+_ACTS = {"silu": nn.SiLU, "relu": nn.ReLU, "relu6": nn.ReLU6,
+         None: nn.Identity}
 
 
 class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm + activation: the yolov5 ``Conv``. The
     BN epsilon is the JAX package's 1e-3, not PyTorch's default 1e-5.
-    ``groups`` and ``act`` ("silu", "relu6" or None for a linear output)
-    serve MobileNetV2's blocks; the defaults are the yolov5 ``Conv``."""
+    ``groups`` and ``act`` ("silu", "relu", "relu6" or None for a linear
+    output) serve the SSD trunks; the defaults are the yolov5 ``Conv``."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, groups: int = 1,

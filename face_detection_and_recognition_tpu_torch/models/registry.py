@@ -4,22 +4,82 @@ The counterpart of ``models/registry.py`` in the JAX package, with the
 detectors this port has so far: the nine yolov5-face names (yolov5s/m/l,
 yolov5n, yolov5n-0.5, yolov5s6/m6/l6, yolov5n6), the official multiclass
 heads yolov5s-official and yolov5n-official, blazeface-front and
-blazeface-back. ``build`` returns the network and its decode, with
+blazeface-back, the SSD family (ssd-resnet10, ssd-mobilenetv2,
+ssd-squeezenet) and the MTCNN cascade (mtcnn, at native resolution:
+``input_size`` (-1, -1)). ``build`` returns the network and its decode, with
 detections in the normalized contract: rows [xmin, ymin, xmax, ymax, (lmk
 xy pairs...), conf] in [0, 1] wrt the model input size.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import preprocess as P
 from .blazeface import BlazeFaceConfig, make_blazeface
+from .mtcnn import MTCNNConfig, make_mtcnn
+from .ssd import SSDConfig, make_ssd_face
 from .yolov5_face import (ARCHS, OFFICIAL_ANCHORS, YoloV5FaceConfig,
                           YoloV5FaceNet, yolov5_face_detect_maps,
                           yolov5_official_detect_maps)
+
+
+# ---------------- weight-file importers ----------------
+# fn(path, net, input_size) -> net's state_dict; FaceEngine.load_weights
+# calls the spec's importer for the file's extension
+
+
+def example_input(input_size: Tuple[int, int]) -> torch.Tensor:
+    """A zero input at ``input_size`` (w, h), on the CPU: what the
+    structural import runs the net on to record its call order."""
+    iw, ih = input_size
+    return torch.zeros((1, ih, iw, 3))
+
+
+def import_caffemodel_structural(path: str, net: torch.nn.Module,
+                                 input_size: Tuple[int, int]
+                                 ) -> Dict[str, torch.Tensor]:
+    """A Caffe NetParameter whose Convolution, BatchNorm + Scale and
+    InnerProduct layers stream in the net's execution order, poured slot
+    by slot (JAX ``core/engine.py:267-277``, without ``res10-ssd``'s
+    ``pour_blobs``)."""
+    from ..utils import model_formats as MF
+    from ..utils import weights as W
+
+    return W.structural_import(
+        W.caffe_layers_to_arrays(MF.read_caffemodel(path)), net,
+        example_input(input_size))
+
+
+def import_graphdef_structural(path: str, net: torch.nn.Module,
+                               input_size: Tuple[int, int]
+                               ) -> Dict[str, torch.Tensor]:
+    """A frozen TF GraphDef's consts, dequantized, poured as a
+    caffemodel's are: float consts of one dimension or more only (a
+    transformed GraphDef also carries shape vectors and priorbox
+    tables)."""
+    from ..utils import model_formats as MF
+    from ..utils import weights as W
+
+    consts = W.dequantize_graphdef_consts(MF.read_tf_graphdef(path))
+    arrays = [np.asarray(c.value, np.float32) for c in consts
+              if np.issubdtype(np.asarray(c.value).dtype, np.floating)
+              and np.asarray(c.value).ndim >= 1]
+    return W.structural_import(arrays, net, example_input(input_size))
+
+
+def import_mtcnn_graphdef(path: str, net: torch.nn.Module,
+                          input_size: Tuple[int, int]
+                          ) -> Dict[str, torch.Tensor]:
+    """blaueck/tf-mtcnn's frozen ``mtcnn.pb`` onto the cascade
+    (``utils.weights.convert_mtcnn_graphdef``)."""
+    from ..utils import model_formats as MF
+    from ..utils import weights as W
+
+    return W.convert_mtcnn_graphdef(MF.read_tf_graphdef(path), net)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +89,8 @@ class DetectorSpec:
     build(generator, device, **overrides) -> (net, decode) where net(imgs
     [B, h, w, 3] preprocessed) gives the raw heads and decode(raw, (h, w))
     returns (dets [B, K, 4+L+1] NORMALIZED to the input size, valid [B, K]).
+    A native-resolution detector (input_size (-1, -1), no preprocess) runs
+    whole in decode: decode(frames [B, H, W, 3] BGR, (H, W)).
     """
 
     name: str
@@ -39,6 +101,9 @@ class DetectorSpec:
     # detect() accepts any input whose sides are a multiple of this stride
     # (rect letterbox); input_size stays the box rect shapes fit in
     rect_stride: int = 0
+    # the weight-file importers (above); None: no such file for this net
+    import_caffemodel: Optional[Callable] = import_caffemodel_structural
+    import_pb: Optional[Callable] = None
 
 
 _REGISTRY = {}
@@ -162,3 +227,47 @@ register(DetectorSpec("blazeface-front", (128, 128), P.BLAZEFACE_FRONT, 12,
                       _build_blazeface(False)))
 register(DetectorSpec("blazeface-back", (256, 256), P.BLAZEFACE_BACK, 12,
                       _build_blazeface(True)))
+
+
+# ---------------- SSD family (OpenCV-DNN / OpenVINO class) ----------------
+
+
+def _build_ssd(backbone: str, input_size):
+    def build(generator: torch.Generator, device: torch.device, **kw):
+        kw.setdefault("input_size", input_size)
+        return make_ssd_face(SSDConfig(backbone=backbone, **kw), generator,
+                             device)
+
+    return build
+
+
+register(DetectorSpec("ssd-resnet10", (300, 300), P.OPENCV_SSD, 0,
+                      _build_ssd("resnet10", (300, 300)),
+                      import_pb=import_graphdef_structural))
+register(DetectorSpec("ssd-mobilenetv2", (448, 448),
+                      dataclasses.replace(P.OPENCV_SSD, size=(448, 448)), 0,
+                      _build_ssd("mobilenetv2", (448, 448)),
+                      import_pb=import_graphdef_structural))
+register(DetectorSpec("ssd-squeezenet", (300, 300), P.OPENCV_SSD, 0,
+                      _build_ssd("squeezenet", (300, 300)),
+                      import_pb=import_graphdef_structural))
+
+
+# ---------------- MTCNN ----------------
+
+
+def _build_mtcnn(generator: torch.Generator, device: torch.device, **kw):
+    if kw.pop("input_size", None) is not None:
+        raise ValueError("mtcnn runs at native image resolution")
+    return make_mtcnn(MTCNNConfig(**kw), generator, device)
+
+
+register(DetectorSpec(
+    name="mtcnn",
+    input_size=(-1, -1),  # native resolution
+    preprocess=P.PreprocessSpec(size=None, resize="none"),
+    n_landmark_cols=10,
+    build=_build_mtcnn,
+    import_caffemodel=None,
+    import_pb=import_mtcnn_graphdef,
+))

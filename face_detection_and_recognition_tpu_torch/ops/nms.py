@@ -41,6 +41,14 @@ def sort_by_score(scores: torch.Tensor, valid: torch.Tensor,
     return (order, _take_rows(masked, order), _take_rows(valid, order)) + out
 
 
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values of the last axis and their indices, in
+    ``jax.lax.top_k``'s order: descending, the lower index first among
+    equal values (``torch.topk`` on CUDA promises no order among ties)."""
+    idx = torch.argsort(-x, dim=-1, stable=True)[..., :k]
+    return torch.take_along_dim(x, idx, -1), idx
+
+
 def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
                     valid: torch.Tensor, iou_thres: float, plus1: bool = False,
                     strict: bool = True, mode: str = "union") -> torch.Tensor:

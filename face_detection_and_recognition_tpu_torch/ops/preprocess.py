@@ -44,6 +44,9 @@ BLAZEFACE_FRONT = PreprocessSpec(
     mean=(127.5, 127.5, 127.5)
 )
 BLAZEFACE_BACK = dataclasses.replace(BLAZEFACE_FRONT, size=(256, 256))
+# the OpenCV SSD's blobFromImage mean subtraction (opencv2_dnn/model.py:30-32)
+# on a 300x300 letterbox, as the JAX package's recipe places it
+OPENCV_SSD = PreprocessSpec(size=(300, 300), mean=(104.0, 117.0, 123.0))
 AGE_GENDER = PreprocessSpec(
     size=(227, 227),
     resize="stretch",

@@ -13,8 +13,7 @@ fused detect -> crop -> embed ensemble in ONE engine call
 (``detect_embed_classify_batch``, B1/B2 or B5 and B3 on the card), and its
 valid mask and embeddings come to the host once. Crop offsets (-6, -1, +4,
 +5) match ``:290-291``. Crops are written through ``utils/native.py``'s
-JPEG route: libjpeg's bytes on a CPU host (cv2's), nvJPEG's on the card's
-machine.
+JPEG codec: cv2.imwrite's bytes on every machine.
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import Counter
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
@@ -62,6 +63,8 @@ class DynamicBatcher:
         # written by the worker thread alone
         self.dispatches = 0          # batched engine calls made
         self.requests = 0            # requests they served
+        # dispatches by size, {size: count}: bounded by max_batch entries
+        self.dispatch_sizes: Counter = Counter()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -137,6 +140,7 @@ class DynamicBatcher:
     def _dispatch(self, group: List[_Request]) -> None:
         self.requests += len(group)
         self.dispatches += 1
+        self.dispatch_sizes[len(group)] += 1
         try:
             results = self.run_batch(np.stack([r.img for r in group]),
                                      group[0].key)

@@ -3,7 +3,7 @@
 The counterpart of ``serving/grpc_server.py`` in the JAX package, with
 generic method handlers and identity byte serializers (no generated stubs):
 JPEG bytes in, JSON bytes out, call parameters in gRPC metadata. Images are
-decoded by the port's JPEG route (``utils/native.py``). ``grpc`` is imported
+decoded by the port's JPEG codec (``utils/native.py``). ``grpc`` is imported
 inside the functions that use it, so the module imports without it.
 
 Service ``fdrt.FaceService``:

@@ -2,7 +2,7 @@
 
 The counterpart of ``serving/http_server.py`` in the JAX package, with the
 same routes, JSON bodies and 400 cases; images are decoded by the port's
-JPEG route (``utils/native.py``), not cv2.
+JPEG codec (``utils/native.py``), not cv2.
 
     GET  /health               -> {"ready": true}
     GET  /stats                -> {"dynamic_batching", "requests",

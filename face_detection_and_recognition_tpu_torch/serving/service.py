@@ -32,9 +32,11 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.engine import EngineConfig, FaceEngine
 from ..models.age_gender import labels_from_probs
+from ..ops.crop import crop_and_resize
 
 NO_FACE_SENTINEL = np.array([[0, 0, 0, 0]], np.float32)
 
@@ -121,14 +123,18 @@ class FaceService:
     def warmup(self, shapes=((576, 1024),), batches=(1,)) -> None:
         """Run the ensemble once at the resolutions production traffic will
         send (Triton's model_warmup), so that the engine thread has built
-        cuDNN's plans before the first real request."""
+        cuDNN's plans before the first real request; a native-resolution
+        detector (MTCNN) runs ``detect_batch``, its serving path."""
         for h, w in shapes:
             for b in batches:
-                self._on_device(
-                    self.engine.detect_embed_classify_batch,
-                    np.zeros((b, h, w, 3), np.uint8),
-                    crop_size=self.cfg.face_size,
-                    want_embed=False, want_ag=False)
+                img = np.zeros((b, h, w, 3), np.uint8)
+                if self.engine.native_resolution:
+                    self._on_device(self.engine.detect_batch, img)
+                else:
+                    self._on_device(
+                        self.engine.detect_embed_classify_batch, img,
+                        crop_size=self.cfg.face_size,
+                        want_embed=False, want_ag=False)
 
     # ---- dynamic batching (Triton config.pbtxt dynamic_batching) ----
 
@@ -200,7 +206,11 @@ class FaceService:
         """image -> (faces [N, 3, 112, 112] in (-1, 1) CHW, bboxes [N, 4],
         confs [N, 1]); no faces -> (empty, [[0, 0, 0, 0]], empty), the
         reference's sentinel. Thresholds given here override the config
-        for this call."""
+        for this call. A native-resolution detector (MTCNN) takes the staged
+        path (``_faces_staged``), unbatched."""
+        if self.engine.native_resolution:
+            return self._on_device(self._faces_staged, image_bgr, det_thres,
+                                   bbox_area_thres)
         if self._batcher is not None:
             # concurrent callers share one dispatch (Triton
             # dynamic_batching)
@@ -215,6 +225,21 @@ class FaceService:
             crop_size=self.cfg.face_size,
             want_embed=False, want_ag=False)   # Detect returns crops only
         return self._faces_out(res, 0)
+
+    def _faces_staged(self, image_bgr, det_thres=None, bbox_area_thres=None):
+        """The contract tuple for a detector the fused ensemble does not
+        take (native-resolution cascades): ``detect_image``, then the boxes
+        cropped from the frame and resized to ``face_size``, clamped to the
+        frame (the crop kernel B3)."""
+        post = self.engine.detect_image(image_bgr, det_thres, bbox_area_thres)
+        n = len(post.boxes)
+        if not n:
+            return self._contract_tuple(np.zeros(1, bool), None, None)
+        crops = crop_and_resize(torch.as_tensor(image_bgr).to(self.engine.device),
+                                np.asarray(post.boxes, np.float32),
+                                self.cfg.face_size)
+        return self._contract_tuple(np.ones(n, bool), crops.cpu().numpy(),
+                                    post)
 
     # ---- facenet server contract ----
 
@@ -240,6 +265,8 @@ class FaceService:
         return self._on_device(self._detect_embed_classify, image_bgr)
 
     def _detect_embed_classify(self, image_bgr: np.ndarray):
+        if self.engine.native_resolution:  # staged (mtcnn)
+            return self._staged_embed_classify(image_bgr)
         res = self.engine.detect_embed_classify_batch(image_bgr[None])
         v = res.det.valid[0]
         m = v.cpu().numpy()
@@ -258,4 +285,21 @@ class FaceService:
         out["labels"] = ([] if res.age_probs is None else list(
             labels_from_probs(res.age_probs[0][v].cpu().numpy(),
                               res.gender_probs[0][v].cpu().numpy())))
+        return out
+
+    def _staged_embed_classify(self, image_bgr: np.ndarray):
+        """``detect_embed_classify`` through the staged crops: the faces
+        back in raw pixels, then embedded and classified as crops."""
+        faces_chw, bboxes, confs = self._faces_staged(image_bgr)
+        if faces_chw.shape[0] == 0:
+            return {"bboxes": bboxes, "confs": confs,
+                    "embeddings": np.zeros((0, 512), np.float32),
+                    "labels": []}
+        faces = faces_chw.transpose(0, 2, 3, 1) * 127.5 + 127.5
+        out = {"bboxes": bboxes, "confs": confs,
+               "embeddings": self.engine.embed_crops(faces)
+               if self.engine.embed_net is not None
+               else np.zeros((len(bboxes), 512), np.float32)}
+        out["labels"] = ([] if self.engine.ag_net is None else list(
+            labels_from_probs(*self.engine.classify_crops_age_gender(faces))))
         return out

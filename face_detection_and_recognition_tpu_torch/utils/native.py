@@ -1,5 +1,6 @@
-"""Image I/O without cv2: JPEG decode and encode through a small C++ library
-of the port's own, bound with ``ctypes``, and PNG and BMP decode.
+"""Image I/O without cv2: JPEG decode and encode through the port's own
+codec (``csrc/jpeg_codec.cpp``), bound with ``ctypes``, and PNG and BMP
+decode.
 
 The counterpart of ``utils/native.py`` in the JAX package and of the cv2
 calls its entry points make (``cv2.imread``, ``cv2.imdecode(...,
@@ -7,24 +8,24 @@ IMREAD_COLOR)``, ``cv2.imwrite``, ``cv2.imencode``). Images are BGR uint8
 HWC numpy arrays, as cv2 gives them; a grayscale file comes back with three
 equal channels.
 
-**JPEG: one route, fixed when the library is built**, the first of these
-that the machine has:
-
-- ``libjpeg``: ``csrc/jpeg_libjpeg.cpp`` (the port's own copy of the JAX
-  package's libjpeg decoder, with a compressor added), when libjpeg's
-  ``jpeglib.h`` is installed; its pixels are libjpeg's, as cv2's are;
-- ``nvjpeg``: ``csrc/jpeg_nvjpeg.cpp``, nvJPEG from the CUDA toolkit
-  (``nvjpeg.h`` beside ``nvcc``), which decodes and encodes on the card;
-  the decoded chroma is upsampled and converted to BGR on the host by
-  libjpeg's own arithmetic (``csrc/jpeg_ycc.h``), so its pixels are
-  libjpeg's up to nvJPEG's IDCT.
-
-Neither present raises an error naming both. The library is built on first
-use by the host compiler into ``build/fdr_io_<route>_<hash>.so`` at the
-repository root; the name carries the route and a hash of the source and
-the flags, so a later process finds it built. A file the route cannot
-decode gives ``None``, as cv2 does; no call switches to another route or to
-another library.
+**JPEG: one codec, the same on every machine.** ``csrc/jpeg_codec.cpp``
+computes what libjpeg-turbo computes with cv2's settings: the decoder
+(baseline, extended-sequential and progressive Huffman files, restart
+intervals, gray and any integral chroma sampling) runs the JDCT_ISLOW
+integer IDCT and finishes with libjpeg's fancy upsampling and colour
+tables (``csrc/jpeg_ycc.h``), so its pixels are cv2's; the encoder writes
+``cv2.imencode(".jpg", img)``'s bytes (quality 95 by default, 4:2:0, the
+standard Huffman tables), one component for a gray image. It needs no
+libjpeg and runs on the host, so the CPU tests hold exactly what runs
+beside the card. It is built on first use by the host compiler into
+``build/fdr_jpeg_<hash>.so`` at the repository root (the hash covers the
+sources and the flags, so a later process finds it built); a failed build
+raises, naming the compiler and the source. A file that is not a whole JPEG
+(empty, garbage, truncated, corrupt, CMYK) gives ``None``, as cv2 does;
+arithmetic-coded, lossless, hierarchical and 12-bit files, and progressive
+ones whose scans leave coefficients unrefined (libjpeg would smooth them),
+raise ``ValueError`` naming the variant. No call switches to another codec
+or library.
 
 **PNG and BMP** (read only), as ``cv2.imread(path, IMREAD_COLOR)`` reads
 them, bit for bit: PNG of 8 or 16 bits in gray, gray + alpha, RGB and RGBA
@@ -53,7 +54,7 @@ import tempfile
 import threading
 import zlib
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -62,56 +63,33 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 JPEG_EXTENSIONS = (".jpg", ".jpeg")
 # what the dataset pipelines read (the JAX walker's list less WebP)
 IMAGE_EXTENSIONS = JPEG_EXTENSIONS + (".png", ".bmp")
-INCLUDE_DIRS = ("/usr/include", "/usr/local/include")
+# the host compilers tried, in order
+CXX = ("g++", "c++")
 # -O3 with SSE4 (x86-64-v2, every x86 server CPU of the last decade)
-# vectorizes the nvjpeg route's chroma upsampling and color conversion
+# vectorizes the decoder's chroma upsampling and colour conversion
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall") + (
     ("-march=x86-64-v2",) if platform.machine() == "x86_64" else ())
 
-# the fdr_jpeg_* return codes: -1 and -2 mean the bytes are not a JPEG the
-# route decodes (the caller gets None); -3 and -4 a failure of the device
+# csrc/jpeg_codec.cpp's return codes: -1 and -2 mean the bytes are not a
+# JPEG cv2 decodes to BGR (the caller gets None); the others name a variant
+# the codec does not read
 _UNREADABLE = (-1, -2)
+_VARIANTS = {-11: "arithmetic-coded JPEG", -12: "lossless JPEG (SOF3)",
+             -13: "hierarchical JPEG", -14: "12-bit JPEG",
+             -15: "progressive JPEG whose scans leave coefficients "
+                  "unrefined (libjpeg would smooth its blocks)"}
 
 _LIB = []           # the loaded JPEG library, once built
 _PNG_LIB = []       # the loaded PNG unfilter, once built
 _LOCK = threading.Lock()
 
 
-def _cuda_home() -> Optional[Path]:
-    nvcc = shutil.which("nvcc")
-    if nvcc:
-        return Path(nvcc).resolve().parent.parent
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and Path(root, "include").is_dir():
-            return Path(root)
-    return None
-
-
-def find_route() -> Tuple[str, list]:
-    """(route, compiler arguments after the source) for this machine: the
-    first route whose header is installed. Raises when there is none."""
-    for inc in INCLUDE_DIRS:
-        if Path(inc, "jpeglib.h").is_file():
-            return "libjpeg", ["-ljpeg"]
-    cuda = _cuda_home()
-    if cuda is not None and Path(cuda, "include", "nvjpeg.h").is_file():
-        lib = cuda / "lib64"
-        return "nvjpeg", [f"-I{cuda / 'include'}", f"-L{lib}", "-lnvjpeg",
-                          "-lcudart_static", "-ldl", "-lrt", "-lpthread",
-                          f"-Wl,-rpath,{lib}"]
-    raise RuntimeError(
-        "no JPEG route on this machine: libjpeg's jpeglib.h (route libjpeg) "
-        f"is in none of {list(INCLUDE_DIRS)}, and the CUDA toolkit's "
-        "nvjpeg.h (route nvjpeg) was not found beside nvcc, under "
-        "CUDA_HOME or under /usr/local/cuda")
-
-
-def _cxx() -> str:
-    for name in ("g++", "c++"):
+def _cxx(src: Path) -> str:
+    for name in CXX:
         if shutil.which(name):
             return shutil.which(name)
-    raise RuntimeError("no host C++ compiler (g++ or c++): the image "
-                       "libraries cannot be built")
+    raise RuntimeError(f"no host C++ compiler ({' or '.join(CXX)}) to build "
+                       f"{src}")
 
 
 def _hashed_path(stem: str, sources, flags) -> Path:
@@ -133,11 +111,12 @@ def _compile(src: Path, out: Path, link: Sequence[str], what: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_cxx(), *CXX_FLAGS, str(src), "-o", tmp, *link]
+        cxx = _cxx(src)
+        cmd = [cxx, *CXX_FLAGS, str(src), "-o", tmp, *link]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"building the {what} failed "
-                               f"({res.returncode}):\n{res.stderr}")
+            raise RuntimeError(f"building the {what} from {src} with {cxx} "
+                               f"failed ({res.returncode}):\n{res.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     finally:
         if os.path.exists(tmp):
@@ -145,22 +124,17 @@ def _compile(src: Path, out: Path, link: Sequence[str], what: str) -> Path:
     return out
 
 
-def library_path(route: str, link: list) -> Path:
-    """Where the library of ``route`` for the current sources (the route's
-    ``.cpp`` and the headers beside it) and flags lives."""
-    return _hashed_path(
-        f"fdr_io_{route}",
-        [CSRC / f"jpeg_{route}.cpp", *sorted(CSRC.glob("jpeg_*.h"))],
-        (*CXX_FLAGS, *link))
+def library_path() -> Path:
+    """Where the JPEG codec for the current sources (``jpeg_codec.cpp`` and
+    the header beside it) and flags lives."""
+    return _hashed_path("fdr_jpeg", [CSRC / "jpeg_codec.cpp",
+                                     CSRC / "jpeg_ycc.h"], CXX_FLAGS)
 
 
-def build_library() -> Tuple[str, Path]:
-    """Build the JPEG library of this machine's route unless it is built.
-    Returns (route, path)."""
-    route, link = find_route()
-    out = _compile(CSRC / f"jpeg_{route}.cpp", library_path(route, link),
-                   link, f"{route} JPEG library")
-    return route, out
+def build_library() -> Path:
+    """Build the JPEG codec unless it is built; returns its path."""
+    return _compile(CSRC / "jpeg_codec.cpp", library_path(), (),
+                    "JPEG codec")
 
 
 def png_library_path() -> Path:
@@ -183,7 +157,7 @@ def _lib() -> ctypes.CDLL:
         return _LIB[0]
     with _LOCK:
         if not _LIB:
-            _LIB.append(_bind(build_library()[1]))
+            _LIB.append(_bind(build_library()))
     return _LIB[0]
 
 
@@ -192,37 +166,31 @@ def _bind(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.fdr_jpeg_route.argtypes = []
-    lib.fdr_jpeg_route.restype = ctypes.c_char_p
     lib.fdr_jpeg_info.argtypes = [ctypes.c_char_p, sz, ip, ip]
     lib.fdr_jpeg_info.restype = i
     lib.fdr_jpeg_decode_bgr.argtypes = [ctypes.c_char_p, sz, p, i, i]
     lib.fdr_jpeg_decode_bgr.restype = i
-    lib.fdr_jpeg_encode_bgr.argtypes = [p, i, i, i,
-                                        ctypes.POINTER(ctypes.c_void_p),
-                                        ctypes.POINTER(sz)]
-    lib.fdr_jpeg_encode_bgr.restype = i
+    lib.fdr_jpeg_encode.argtypes = [p, i, i, i, i,
+                                    ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(sz)]
+    lib.fdr_jpeg_encode.restype = i
     lib.fdr_jpeg_free.argtypes = [p]
     lib.fdr_jpeg_free.restype = None
     return lib
 
 
-def io_route() -> str:
-    """The route the library was built with: "libjpeg" or "nvjpeg"."""
-    return _lib().fdr_jpeg_route().decode()
-
-
-def _check(rc: int, what: str) -> None:
+def _check(rc: int) -> None:
+    if rc in _VARIANTS:
+        raise ValueError(f"{_VARIANTS[rc]} is not supported")
     if rc != 0:
-        raise RuntimeError(f"JPEG {what} failed on the {io_route()} route "
-                           f"(code {rc})")
+        raise RuntimeError(f"JPEG decode failed (code {rc})")
 
 
 def decode_jpeg_bgr(data: bytes) -> Optional[np.ndarray]:
-    """JPEG bytes -> BGR uint8 [H, W, 3]; None when the bytes are not a JPEG
-    the route decodes (empty, garbage, an unsupported color space such as
-    CMYK, a truncated or corrupt file on the libjpeg route), as
-    ``cv2.imdecode`` returns None."""
+    """JPEG bytes -> BGR uint8 [H, W, 3], cv2.imdecode's pixels; None when
+    the bytes are not a whole JPEG (empty, garbage, truncated or corrupt, or
+    CMYK), as ``cv2.imdecode`` returns None. The variants the codec does not
+    read raise ``ValueError`` naming them."""
     data = bytes(data)
     if not data:
         return None
@@ -231,31 +199,37 @@ def decode_jpeg_bgr(data: bytes) -> Optional[np.ndarray]:
     rc = lib.fdr_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h))
     if rc in _UNREADABLE:
         return None
-    _check(rc, "header read")
+    _check(rc)
     out = np.empty((h.value, w.value, 3), np.uint8)
     rc = lib.fdr_jpeg_decode_bgr(data, len(data), out.ctypes.data, w.value,
                                  h.value)
     if rc in _UNREADABLE:
         return None
-    _check(rc, "decode")
+    _check(rc)
     return out
 
 
 def encode_jpeg_bgr(img: np.ndarray, quality: int = 95) -> bytes:
-    """BGR uint8 [H, W, 3] -> baseline JPEG bytes at ``quality`` with 4:2:0
-    chroma (``cv2.imencode(".jpg", img)``'s defaults)."""
+    """BGR uint8 [H, W, 3] or gray uint8 [H, W] -> ``cv2.imencode(".jpg",
+    img, [IMWRITE_JPEG_QUALITY, quality])``'s bytes: baseline, 4:2:0 chroma
+    (one component for gray)."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected a BGR uint8 [H, W, 3] image, got "
-                         f"{img.dtype} {img.shape}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (
+            img.ndim == 3 and img.shape[2] == 3)) or 0 in img.shape:
+        raise ValueError(f"expected a BGR uint8 [H, W, 3] or gray [H, W] "
+                         f"image, got {img.dtype} {img.shape}")
     if not 1 <= quality <= 100:
         raise ValueError(f"JPEG quality must be in [1, 100], got {quality}")
     lib = _lib()
     ptr, n = ctypes.c_void_p(), ctypes.c_size_t()
     h, w = img.shape[:2]
-    _check(lib.fdr_jpeg_encode_bgr(img.ctypes.data, w, h, int(quality),
-                                   ctypes.byref(ptr), ctypes.byref(n)),
-           "encode")
+    channels = 1 if img.ndim == 2 else 3
+    if lib.fdr_jpeg_encode(img.ctypes.data, w, h, channels, int(quality),
+                           ctypes.byref(ptr), ctypes.byref(n)) != 0:
+        raise ValueError(f"cannot encode a {w}x{h} image as JPEG (each side "
+                         "must be 1-65535)")
     try:
         return ctypes.string_at(ptr.value, n.value)
     finally:
@@ -467,9 +441,9 @@ def read_image_bgr(path: str, formats: Sequence[str] = JPEG_EXTENSIONS
             data = f.read()
     except OSError:
         return None
-    if formats == JPEG_EXTENSIONS:
-        return decode_jpeg_bgr(data)
     try:
+        if formats == JPEG_EXTENSIONS:
+            return decode_jpeg_bgr(data)
         return decode_image_bgr(data)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None

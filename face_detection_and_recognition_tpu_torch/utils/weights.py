@@ -1,7 +1,13 @@
 """Weight bridge: a flax variables tree of numpy arrays -> a PyTorch
-state_dict, for the yolov5-face and BlazeFace detectors, MobileFaceNet,
-FaceNet (Inception-ResNet-V1), the MobileNetV2 reid embedder and the
-age/gender heads (which the ``demographics`` slot reuses).
+state_dict, for the yolov5-face, BlazeFace and SSD detectors, the MTCNN
+cascade, MobileFaceNet, FaceNet (Inception-ResNet-V1), the MobileNetV2 reid
+embedder and the age/gender heads (which the ``demographics`` slot reuses);
+and the importers of the reference's protobuf weight files
+(``utils/model_formats.py`` reads them): a caffemodel's or GraphDef's array
+stream poured into a net's slots in execution order
+(``structural_import``), the CaffeNet age/gender heads
+(``convert_caffenet_head``) and the frozen MTCNN graph
+(``convert_mtcnn_graphdef``).
 
 The inverse of ``convert_yolov5_face`` / ``convert_blazeface`` /
 ``convert_mobile_facenet`` / ``convert_caffenet_head`` in the JAX package's
@@ -14,10 +20,12 @@ caller's business: this module takes arrays, nothing else.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.yolov5_face import ARCHS, graph_depth
 
@@ -287,3 +295,352 @@ def reid_mnv2_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd["fc.weight"] = _t(dense["kernel"]).T.contiguous()
     sd["fc.bias"] = _t(dense["bias"])
     return sd
+
+
+def _convbn(sd: Dict[str, torch.Tensor], tp: str, p: Mapping, s: Mapping
+            ) -> None:
+    """A flax ``ConvBN`` (``Conv_0`` + ``BatchNorm_0``) -> the port's."""
+    sd[f"{tp}.conv.weight"] = f2t_conv(p["Conv_0"]["kernel"])
+    _bn(sd, f"{tp}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+# flax module name of each SSD backbone, and its (flax child, port child)
+# names: top-level ConvBNs, then (flax block prefix, port list, children)
+_SSD_TRUNKS = {
+    "resnet10": ("_ResNet10Backbone_0", (("ConvBN_0", "stem"),),
+                 ("_ResBlock", "blocks", 4, ("conv1", "conv2", "shortcut"))),
+    "mobilenetv2": ("_MobileNetV2Backbone_0",
+                    (("ConvBN_0", "stem"), ("ConvBN_1", "head")),
+                    ("_InvertedResidual", "blocks", 10,
+                     ("expand", "dw", "project"))),
+    "squeezenet": ("_SqueezeNetBackbone_0",
+                   (("ConvBN_0", "stem"), ("ConvBN_1", "head")),
+                   ("_Fire", "fires", 7, ("squeeze", "expand1", "expand3"))),
+}
+
+
+def ssd_state_dict(variables: Mapping, backbone: str
+                   ) -> Dict[str, torch.Tensor]:
+    """Map a flax ``SSDFaceNet`` tree {"params", "batch_stats"} of numpy
+    arrays onto the port's ``SSDFaceNet`` state_dict for ``backbone``
+    ("resnet10", "mobilenetv2", "squeezenet"): the backbone's blocks by
+    call order, the heads ``loc{l}`` / ``conf{l}`` onto ``loc.l`` /
+    ``conf.l``."""
+    name, tops, (prefix, plist, n, children) = _SSD_TRUNKS[backbone]
+    params = variables["params"][name]
+    stats = variables["batch_stats"][name]
+    sd: Dict[str, torch.Tensor] = {}
+    for fl, tp in tops:
+        _convbn(sd, f"backbone.{tp}", params[fl], stats[fl])
+    for i in range(n):
+        p, s = params[f"{prefix}_{i}"], stats[f"{prefix}_{i}"]
+        for k, child in enumerate(children):
+            if f"ConvBN_{k}" in p:  # a block without a shortcut has two
+                _convbn(sd, f"backbone.{plist}.{i}.{child}", p[f"ConvBN_{k}"],
+                        s[f"ConvBN_{k}"])
+    for head in ("loc", "conf"):
+        level = 0
+        while f"{head}{level}" in variables["params"]:
+            conv = variables["params"][f"{head}{level}"]
+            sd[f"{head}.{level}.weight"] = f2t_conv(conv["kernel"])
+            sd[f"{head}.{level}.bias"] = _t(conv["bias"])
+            level += 1
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# MTCNN
+# ---------------------------------------------------------------------------
+
+# flax child of each stage -> the port's module (PReLU slopes: ``weight``)
+_MTCNN_NAMES = {
+    "pnet": {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+             "Conv_3": "prob", "Conv_4": "reg", "PReLU_0": "prelu1",
+             "PReLU_1": "prelu2", "PReLU_2": "prelu3"},
+    "rnet": {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+             "Dense_0": "fc", "Dense_1": "prob", "Dense_2": "reg",
+             "PReLU_0": "prelu1", "PReLU_1": "prelu2", "PReLU_2": "prelu3",
+             "PReLU_3": "prelu4"},
+    "onet": {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",
+             "Conv_3": "conv4", "Dense_0": "fc", "Dense_1": "prob",
+             "Dense_2": "reg", "Dense_3": "lmk", "PReLU_0": "prelu1",
+             "PReLU_1": "prelu2", "PReLU_2": "prelu3", "PReLU_3": "prelu4",
+             "PReLU_4": "prelu5"},
+}
+
+
+def _natural_key(name: str):
+    """Flax's auto-numbered siblings in numeric order (Conv_2 < Conv_10)."""
+    return tuple(int(p) if p.isdigit() else p
+                 for p in re.split(r"(\d+)", name))
+
+
+def _flax_leaf_to_torch(leaf: str, arr) -> torch.Tensor:
+    """A flax leaf (kernel HWIO or [in, out], bias, alpha) as the torch
+    tensor of the same slot."""
+    a = np.asarray(arr, np.float32)
+    if leaf == "kernel":
+        return f2t_conv(a) if a.ndim == 4 else _t(a).T.contiguous()
+    return _t(a)
+
+
+def _mtcnn_slots(stage: str):
+    """(flax child, leaf, port name) of a stage in the JAX importer's walk
+    order: Conv children first, then the rest, each in numeric order;
+    kernel before bias."""
+    names = sorted(_MTCNN_NAMES[stage], key=lambda k: (
+        0 if k.startswith("Conv") else 1, _natural_key(k)))
+    for child in names:
+        port = _MTCNN_NAMES[stage][child]
+        if child.startswith("PReLU"):
+            yield child, "alpha", f"{stage}.{port}.weight"
+        else:
+            yield child, "kernel", f"{stage}.{port}.weight"
+            yield child, "bias", f"{stage}.{port}.bias"
+
+
+def mtcnn_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the JAX cascade's variables ({"pnet", "rnet", "onet"}, each
+    {"params": ...} of numpy arrays) onto the port's ``MTCNN`` state_dict.
+    The Dense kernels load as they are: the port flattens channels-last."""
+    sd: Dict[str, torch.Tensor] = {}
+    for stage in _MTCNN_NAMES:
+        params = variables[stage]["params"]
+        for child, leaf, name in _mtcnn_slots(stage):
+            sd[name] = _flax_leaf_to_torch(leaf, params[child][leaf])
+    return sd
+
+
+def convert_mtcnn_graphdef(consts, net: nn.Module) -> Dict[str, torch.Tensor]:
+    """Map a frozen MTCNN GraphDef's Const tensors (blaueck/tf-mtcnn's
+    ``mtcnn.pb``, the reference's ``modules/mtcnn/model.py:57-101``) onto
+    the port's ``MTCNN`` state_dict, as the JAX package's
+    ``convert_mtcnn_graphdef`` pours them onto its cascade: consts grouped
+    by stage name (pnet/rnet/onet substrings), each slot taken in the JAX
+    walk order by the first unused const of its name kind (weights/kernel,
+    bias, prelu/alpha) and shape, then of no kind, then of any kind. TF
+    kernels are HWIO and flax's, so the same const lands on the same slot
+    in both packages."""
+    by_stage = {s: [] for s in _MTCNN_NAMES}
+    for c in consts:
+        low = c.name.lower()
+        for stage in _MTCNN_NAMES:
+            if stage in low:
+                by_stage[stage].append(c)
+                break
+
+    def name_kind(name: str):
+        low = name.lower()
+        base = low.rsplit("/", 1)[-1].split(":")[0]
+        if "alpha" in low or "prelu" in low:
+            return "alpha"
+        if "bias" in base or base in ("b", "beta"):
+            return "bias"
+        if "weight" in base or "kernel" in base or base == "w":
+            return "kernel"
+        return None
+
+    current = net.state_dict()
+    sd: Dict[str, torch.Tensor] = {}
+    for stage in _MTCNN_NAMES:
+        pool = by_stage[stage]
+        if not pool:
+            raise ValueError(f"no consts matching stage '{stage}' in graph")
+        kinds = [name_kind(c.name) for c in pool]
+        used = [False] * len(pool)
+        for child, leaf, name in _mtcnn_slots(stage):
+            t = current[name]
+            shape = (tuple(t.shape[2:]) + (t.shape[1], t.shape[0])
+                     if t.dim() == 4 else
+                     tuple(t.shape[::-1]) if leaf == "kernel"
+                     else tuple(t.shape))
+            hit = None
+            for want in (leaf, None, "any"):
+                for j, c in enumerate(pool):
+                    if not used[j] and tuple(c.value.shape) == shape \
+                            and (want == "any" or kinds[j] == want):
+                        hit = j
+                        break
+                if hit is not None:
+                    break
+            if hit is None:
+                raise ValueError(f"{stage}: no const of shape {shape} left "
+                                 f"for {stage}/{child}/{leaf}")
+            used[hit] = True
+            sd[name] = _flax_leaf_to_torch(leaf, pool[hit].value)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# caffemodel / GraphDef array streams
+# ---------------------------------------------------------------------------
+
+
+def c2f_conv(w: np.ndarray) -> np.ndarray:
+    """caffe/OpenVINO OIHW conv kernel -> flax HWIO."""
+    return np.transpose(np.asarray(w, np.float32), (2, 3, 1, 0))
+
+
+def caffe_layers_to_arrays(layers) -> List[np.ndarray]:
+    """Flatten caffemodel layers into the ordered array stream
+    ``structural_import`` consumes, in the JAX package's layouts:
+    Convolution -> kernel (HWIO), bias; InnerProduct -> kernel [in, out],
+    bias; BatchNorm (+ Scale) -> gamma, beta, mean, var (caffe stores mean
+    and var times the scale factor in blob 2)."""
+    arrays = []
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        if layer.type == "Convolution" and layer.blobs:
+            arrays.append(c2f_conv(layer.blobs[0]))
+            if len(layer.blobs) > 1:
+                arrays.append(np.asarray(layer.blobs[1]))
+        elif layer.type == "InnerProduct" and layer.blobs:
+            arrays.append(np.asarray(layer.blobs[0]).T)
+            if len(layer.blobs) > 1:
+                arrays.append(np.asarray(layer.blobs[1]))
+        elif layer.type == "BatchNorm" and layer.blobs:
+            sf = (float(layer.blobs[2].reshape(-1)[0])
+                  if len(layer.blobs) > 2 else 1.0)
+            sf = 1.0 / sf if sf != 0 else 0.0
+            mean = np.asarray(layer.blobs[0]) * sf
+            var = np.asarray(layer.blobs[1]) * sf
+            gamma, beta = np.ones_like(mean), np.zeros_like(mean)
+            nxt = layers[i + 1] if i + 1 < len(layers) else None
+            if nxt is not None and nxt.type == "Scale" and nxt.blobs:
+                gamma = np.asarray(nxt.blobs[0])
+                if len(nxt.blobs) > 1:
+                    beta = np.asarray(nxt.blobs[1])
+                i += 1
+            arrays += [gamma, beta, mean, var]
+        i += 1
+    return arrays
+
+
+# each parameter module's slots in the JAX walk's leaf order (kernel,
+# scale, bias, alpha, mean, var), as (torch name, flax leaf)
+_SLOT_LEAVES = (
+    (nn.Conv2d, (("weight", "kernel"), ("bias", "bias"))),
+    (nn.Linear, (("weight", "kernel"), ("bias", "bias"))),
+    (nn.BatchNorm2d, (("weight", "scale"), ("bias", "bias"),
+                      ("running_mean", "mean"), ("running_var", "var"))),
+    (nn.PReLU, (("weight", "alpha"),)),
+)
+
+
+def execution_slots(net: nn.Module, example: torch.Tensor):
+    """The net's weight slots in the order a serialized file streams them:
+    parameter modules by their first call on ``example`` (the flax call
+    order the JAX package records, since the port's forwards call in it),
+    each module's leaves in the JAX walk's order. Returns [(state_dict
+    name, flax leaf, flax shape)]."""
+    names = {m: n for n, m in net.named_modules()}
+    order: List[nn.Module] = []
+
+    def hook(mod, args):
+        if mod not in order:
+            order.append(mod)
+
+    handles = [m.register_forward_pre_hook(hook) for m in net.modules()
+               if isinstance(m, tuple(t for t, _ in _SLOT_LEAVES))]
+    was_training = net.training
+    try:
+        net.eval()
+        with torch.no_grad():
+            net(example.to(next(net.parameters()).device))
+    finally:
+        for h in handles:
+            h.remove()
+        net.train(was_training)
+    slots = []
+    for mod in order:
+        leaves = next(lv for t, lv in _SLOT_LEAVES if isinstance(mod, t))
+        for attr, leaf in leaves:
+            t = getattr(mod, attr, None)
+            if t is None:
+                continue
+            shape = tuple(t.shape)
+            if leaf == "kernel":  # the flax layout of the file's array
+                shape = (shape[2:] + (shape[1], shape[0]) if t.dim() == 4
+                         else shape[::-1])
+            slots.append((f"{names[mod]}.{attr}", leaf, shape))
+    return slots
+
+
+def structural_import(arrays: Sequence[np.ndarray], net: nn.Module,
+                      example: torch.Tensor, strict: bool = True
+                      ) -> Dict[str, torch.Tensor]:
+    """Pour an ordered array stream (``caffe_layers_to_arrays``, or a
+    GraphDef's float consts) into ``net``'s slots in execution order, as
+    the JAX package's ``structural_import`` with ``execution_module_order``
+    pours it into a flax tree: the same arrays land on the same layers.
+    Arrays are in the flax layouts (HWIO kernels, [in, out] Dense); every
+    shape is checked against the slot, a mismatch naming the slot. Returns
+    ``net``'s full state_dict with every slot replaced."""
+    slots = execution_slots(net, example)
+    if strict and len(arrays) != len(slots):
+        raise ValueError(f"weight stream has {len(arrays)} arrays but the "
+                         f"model has {len(slots)} leaves")
+    sd = dict(net.state_dict())
+    for (name, leaf, shape), arr in zip(slots, arrays):
+        arr = np.asarray(arr, np.float32)
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"shape mismatch at {name}: file "
+                             f"{tuple(arr.shape)} vs model {shape}")
+        sd[name] = _flax_leaf_to_torch(leaf, arr).to(sd[name].device)
+    return sd
+
+
+def convert_caffenet_head(layers, num_classes: int = None
+                          ) -> Dict[str, torch.Tensor]:
+    """An age_net / gender_net ``.caffemodel`` (the Levi-Hassner CaffeNet,
+    ``modules/opencv2_dnn/model.py:49-83``) -> the port's ``CaffeNetHead``
+    state_dict: the three Convolution layers onto conv1..3, the three
+    InnerProduct layers onto fc6..8. Caffe's OIHW kernels and its (C, H, W)
+    flatten before fc6 are the port's own, so the blobs load as they
+    are."""
+    convs = [la for la in layers if la.type == "Convolution" and la.blobs]
+    fcs = [la for la in layers if la.type == "InnerProduct" and la.blobs]
+    if len(convs) != 3 or len(fcs) != 3:
+        raise ValueError("expected a 3-conv + 3-fc CaffeNet, got "
+                         f"{len(convs)} Convolution / {len(fcs)} "
+                         "InnerProduct layers")
+    out_classes = np.asarray(fcs[2].blobs[1]).shape[0]
+    if num_classes is not None and out_classes != num_classes:
+        raise ValueError(f"caffemodel has {out_classes} output classes, "
+                         f"expected {num_classes}")
+    sd: Dict[str, torch.Tensor] = {}
+    for name, layer in zip(("conv1", "conv2", "conv3", "fc6", "fc7", "fc8"),
+                           convs + fcs):
+        sd[f"{name}.weight"] = _t(layer.blobs[0])
+        sd[f"{name}.bias"] = _t(np.asarray(layer.blobs[1]).reshape(-1))
+    return sd
+
+
+def dequantize_graphdef_consts(consts) -> list:
+    """Collapse TF ``quantize_weights``-transform triplets back to f32, as
+    the JAX package's ``dequantize_graphdef_consts`` does:
+    ``<stem>_quantized_const`` (uint8) with its ``_quantized_min`` and
+    ``_quantized_max`` scalars becomes ``min + q * (max - min) / 255``
+    named ``<stem>``; plain consts pass through."""
+    from .model_formats import GraphConst
+
+    by_name = {c.name: c for c in consts}
+    out = []
+    for c in consts:
+        if c.name.endswith(("_quantized_min", "_quantized_max")):
+            continue
+        if c.name.endswith("_quantized_const"):
+            stem = c.name[: -len("_quantized_const")]
+            mn = by_name.get(stem + "_quantized_min")
+            mx = by_name.get(stem + "_quantized_max")
+            if mn is None or mx is None:
+                raise ValueError(f"{c.name}: missing _quantized_min/"
+                                 "_quantized_max siblings")
+            lo = float(np.asarray(mn.value).reshape(-1)[0])
+            hi = float(np.asarray(mx.value).reshape(-1)[0])
+            deq = lo + c.value.astype(np.float32) * ((hi - lo) / 255.0)
+            out.append(GraphConst(name=stem, value=deq))
+        else:
+            out.append(c)
+    return out

@@ -2,10 +2,10 @@
 and small host modules (``utils/files.py``, ``utils/parser.py``,
 ``core/config.py``) against cv2 and the JAX package (CPU).
 
-This host has libjpeg's headers, so the library builds the ``libjpeg``
-route here: its decoder gives cv2.imread's pixels exactly (both are
-libjpeg with JDCT_ISLOW; measured maximum difference 0 on both golden
-images), and its encoder writes cv2.imencode's bytes at the same quality.
+JPEG goes through the port's own codec (``csrc/jpeg_codec.cpp``): its
+decoder gives cv2.imread's pixels exactly and its encoder writes
+cv2.imencode's bytes at the same quality; ``tests/test_torch_jpeg.py``
+holds it to cv2 over samplings, sizes and variants.
 """
 import os
 import threading
@@ -44,18 +44,13 @@ def smooth_frame(h=96, w=160, seed=0):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def test_route_is_libjpeg_here():
-    assert N.io_route() == "libjpeg"
-    assert N.find_route()[0] == "libjpeg"
-
-
 @pytest.mark.parametrize("name", GOLDEN)
 def test_decode_equals_cv2_imread(name):
     path = os.path.join(DATA, name)
     got = N.read_image_bgr(path)
     ref = cv2.imread(path)
     assert got.dtype == np.uint8 and got.shape == ref.shape
-    # stated maximum difference: 0 (both libjpeg, JDCT_ISLOW)
+    # stated maximum difference: 0 (libjpeg's JDCT_ISLOW arithmetic)
     assert int(np.abs(got.astype(int) - ref).max()) == 0
     with open(path, "rb") as f:
         np.testing.assert_array_equal(N.decode_jpeg_bgr(f.read()), got)
@@ -69,7 +64,7 @@ def test_encode_decodes_in_cv2_within_bound():
     # quality 95 on a smooth frame: stated bound, mean < 1 and max <= 8
     assert back.shape == img.shape
     assert err.mean() < 1.0 and err.max() <= 8, (err.mean(), err.max())
-    # the same libjpeg settings as cv2.imencode's defaults
+    # cv2.imencode's bytes at its defaults
     ok, ref = cv2.imencode(".jpg", img)
     assert ok and data == ref.tobytes()
 
@@ -123,13 +118,6 @@ def test_other_formats_and_missing_files(tmp_path):
         N.encode_jpeg_bgr(smooth_frame(), quality=0)
 
 
-def test_no_route_raises_naming_both(monkeypatch):
-    monkeypatch.setattr(N, "INCLUDE_DIRS", ("/nonexistent/include",))
-    monkeypatch.setattr(N, "_cuda_home", lambda: None)
-    with pytest.raises(RuntimeError, match="jpeglib.h.*nvjpeg.h"):
-        N.find_route()
-
-
 @pytest.mark.parametrize("module", ["native", "cuda_kernels"])
 def test_library_is_built_and_bound_once_across_threads(monkeypatch, module):
     """Request threads reach the first build concurrently: the loader's lock
@@ -141,7 +129,7 @@ def test_library_is_built_and_bound_once_across_threads(monkeypatch, module):
     def build():
         calls.append(1)
         threading.Event().wait(0.05)  # a slow build: the others pile up
-        return ("route", "lib.so") if module == "native" else "lib.so"
+        return "lib.so"
 
     monkeypatch.setattr(mod, "_LIB", [])
     monkeypatch.setattr(mod, "build_library", build)
@@ -182,10 +170,11 @@ def test_launch_counts_are_not_lost_across_threads(monkeypatch):
     assert ck.LAUNCHES["crop_resize"] == 16000
 
 
-# The host half of the nvjpeg route (csrc/jpeg_ycc.h: libjpeg's chroma
+# The decoder's finishing step (csrc/jpeg_ycc.h: libjpeg's chroma
 # upsampling and YCbCr -> BGR) on libjpeg's own raw YCbCr planes: a small
 # harness decodes with raw_data_out (libjpeg's IDCT, no upsampling) and
-# finishes with jpeg_ycc.h; it must give libjpeg's full decode bit for bit.
+# finishes with jpeg_ycc.h; it must give the codec's full decode (and so
+# cv2's) bit for bit.
 _YCC_HARNESS = r"""
 #include <cstdio>
 #include <jpeglib.h>
@@ -234,10 +223,12 @@ extern "C" int raw_then_ycc(const unsigned char* data, size_t len,
       for (int x = 0; x < cw[c]; ++x)
         tight[c][(size_t)r * cw[c] + x] = pad[c][(size_t)r * pw[c] + x];
   }
-  const int hf = mh / cinfo.comp_info[1].h_samp_factor;
-  const int vf = mv / cinfo.comp_info[1].v_samp_factor;
-  fdr_ycc::ycc_to_bgr(tight[0].data(), tight[1].data(), tight[2].data(), w,
-                      h, cw[1], ch[1], hf, vf, out);
+  fdr_ycc::Plane p[3];
+  for (int c = 0; c < 3; ++c)
+    p[c] = {tight[c].data(), static_cast<size_t>(cw[c]), cw[c], ch[c],
+            mh / cinfo.comp_info[c].h_samp_factor,
+            mv / cinfo.comp_info[c].v_samp_factor};
+  fdr_ycc::planes_to_bgr(p, w, h, false, out);
   jpeg_abort_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
   return 0;
@@ -265,8 +256,8 @@ def ycc_harness(tmp_path_factory):
 
 @pytest.mark.parametrize("sampling", ["420", "422", "440", "444", "411"])
 @pytest.mark.parametrize("kind", ["noise 97x131", "smooth 96x160"])
-def test_nvjpeg_route_host_upsampling_is_libjpeg(ycc_harness, sampling,
-                                                 kind):
+def test_decoder_finishing_step_jpeg_ycc_is_libjpeg(ycc_harness, sampling,
+                                                    kind):
     if kind.startswith("noise"):
         img = np.random.RandomState(4).randint(0, 256, (97, 131, 3),
                                                np.uint8)

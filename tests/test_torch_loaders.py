@@ -149,9 +149,23 @@ def test_load_embed_and_age_gender_weights(weights, full_engine):
 
 @pytest.mark.parametrize("ext", [".caffemodel", ".pb", ".xml", ""])
 def test_unsupported_weight_files_raise(full_engine, tmp_path, ext):
-    path = str(tmp_path / f"weights{ext}")
+    """Orbax checkpoints and OpenVINO IRs raise from every loader. A
+    .caffemodel or .pb is read against a net: the embedder and age/gender
+    loaders refuse it as a state dict, naming ``load_weights``; a yolov5
+    detector has no .pb importer, and an unreadable caffemodel raises as
+    one."""
+    path = tmp_path / f"weights{ext}"
+    path.write_bytes(b"\x00")
     eng = full_engine
+    if ext in (".caffemodel", ".pb"):
+        with pytest.raises(ValueError, match="not a valid caffemodel"
+                           if ext == ".caffemodel" else "no .pb importer"):
+            eng.load_weights(str(path))
+        for load in (eng.load_embed_weights, eng.load_age_gender_weights):
+            with pytest.raises(ValueError, match="load_weights"):
+                load(str(path))
+        return
     for load in (eng.load_weights, eng.load_embed_weights,
                  eng.load_age_gender_weights):
         with pytest.raises(ValueError, match="not supported yet"):
-            load(path)
+            load(str(path))

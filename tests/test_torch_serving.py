@@ -11,6 +11,7 @@ with the clip, the JAX service's from its gather path, which differ by at
 most 3.1e-5 of 255 (ROADMAP §C), and (x - 127.5) / 127.5 maps that onto
 the (-1, 1) scale.
 """
+import collections
 import json
 import os
 import socket
@@ -242,6 +243,7 @@ def test_batcher_groups_by_shape_and_key():
     for shape, key in seen:
         assert shape[0] <= 3 and key[0] == shape[1:]
     assert sum(s[0] for s, _ in seen) == 6 and b.dispatches == len(seen)
+    assert b.dispatch_sizes == collections.Counter(s[0] for s, _ in seen)
     assert {s[1:] for s, _ in seen} == {(2, 3, 3), (4, 3, 3)}
 
 
