@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
-yolov5 family + embedders, CLI + serving, dataset pipeline and SSD + MTCNN
-paths on one CUDA card.
+yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN and
+res10 + OpenVINO paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -131,7 +131,23 @@ seconds:
    MTCNN's global pass and in ``min`` mode, and B3 pad at 24 and 48,
    timed beside their bounds; the host JPEG codec's decode of a 576 x 1024
    quality-95 frame and encode of the frame and of 112 x 112 crops;
-12. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+12. main path, res10 + openvino: a seeded res10 caffemodel and a seeded
+   ov-0204 IR (``.xml`` + ``.bin``) written under ``build/chip_smoke/``
+   by the port's writers; ``detect_batch`` (8 frames, thresholds 0) and
+   ``detect_image`` of res10-ssd (the caffemodel through
+   ``load_weights``), ov-0204, ov-squeezenet-light and openvino-ir (built
+   from the IR), ``detect_face --md openvino-ir --ckpt`` on a frame's
+   JPEG, and one ``/detect`` to a res10-ssd ``FaceService`` loaded through
+   ``ServiceConfig.ckpt``: one B1 launch a part, and one B3 (the face
+   crops) for ``/detect``. Each part zeroes the counts before it and reads
+   them after. Then every B1 and B3 call of those parts against its plain
+   version bit for bit; the openvino-ir engine and an ov-0204 engine of
+   another seed reloaded from the IR against the ov-0204 engine whose
+   constants the IR holds (equal rows); each detector's rows on the first
+   2 frames against the port on the CPU (1e-4); frames/s, the stage split
+   (``utils/profiling.detect_stages``) and B1 at K = 400 of each detector,
+   timed beside its bound;
+13. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -2561,6 +2577,228 @@ def run_ssd_mtcnn(frames, card):
     return win.total(), stats
 
 
+R10OV_NAMES = ("res10-ssd", "ov-0204", "ov-squeezenet-light", "openvino-ir")
+R10OV_DIR = WORK_DIR / "res10_openvino"
+
+
+def write_res10_caffemodel(net, path):
+    """The res10 deploy table with ``net``'s blobs, written as a
+    caffemodel by the port's writer; ``data_scale`` scales the
+    mean-subtracted input by 1/64, as a trained net's input normalisation
+    does (at the seeded init's 1 the heads reach ~170 and the decoded
+    boxes ~1e9)."""
+    from face_detection_and_recognition_tpu_torch.models.res10 import \
+        res10_deploy_defs
+    from face_detection_and_recognition_tpu_torch.utils.caffe_graph import \
+        write_caffemodel_graph
+
+    defs = res10_deploy_defs()
+    held = set(net.blob_layers())
+    for d in defs:
+        if d.name in held:
+            d.blobs = [b.detach().cpu().numpy()
+                       for b in net.layer_blobs(d.name)]
+        if d.name == "data_scale":
+            d.blobs[0] = np.full_like(d.blobs[0], 1 / 64)
+    path.write_bytes(write_caffemodel_graph(defs))
+
+
+def write_ir(net, xml_path):
+    """``net``'s IR graph with its current constants, written as
+    ``.xml`` + ``.bin`` by the port's writer."""
+    from face_detection_and_recognition_tpu_torch.utils.ir_graph import \
+        write_ir_graph
+
+    layers = copy.deepcopy(net.graph.layers)
+    for la in layers:
+        if la.name in net.weight_names and la.value is not None:
+            la.value = net.weight(la.name).detach().cpu().numpy()
+    xml, blob = write_ir_graph(layers, net.graph.edges)
+    xml_path.write_bytes(xml)
+    xml_path.with_suffix(".bin").write_bytes(blob)
+
+
+def run_res10_openvino(frames, singles, card):
+    """The res10 deploy graph and the OpenVINO IR nets: a seeded res10
+    caffemodel and a seeded ov-0204 IR written by the port's writers,
+    loaded by ``load_weights`` (the res10 blobs by layer name; the IR
+    rebuilds an ov-0204 engine built from another seed) and by
+    ``detect_face --md openvino-ir --ckpt``; ``detect_batch`` of the four
+    detectors on the 8 frames at thresholds 0 (one B1 launch each), their
+    ``detect_image`` on one frame, the CLI, and one ``/detect`` to a
+    res10-ssd ``FaceService`` loaded through ``ServiceConfig.ckpt``. Each
+    part zeroes the counts before it and reads them after. After the
+    read: every B1 (and the service's B3) call of the parts against its
+    plain version bit for bit; the openvino-ir engine and the reloaded
+    ov-0204 engine against the ov-0204 engine whose constants the IR holds
+    (equal rows); each detector's rows on the first frames against the
+    port on the CPU; frames/s, the stage split and B1 at each detector's
+    K timed beside its bound."""
+    from face_detection_and_recognition_tpu_torch.cli import detect_face
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+    from face_detection_and_recognition_tpu_torch.ops import nms as nms_ops
+    from face_detection_and_recognition_tpu_torch.serving.http_server import \
+        serve
+    from face_detection_and_recognition_tpu_torch.serving.service import \
+        ServiceConfig
+    from face_detection_and_recognition_tpu_torch.utils import native
+    from face_detection_and_recognition_tpu_torch.utils.profiling import \
+        detect_stages
+
+    R10OV_DIR.mkdir(parents=True, exist_ok=True)
+    caffemodel, xml = R10OV_DIR / "res10.caffemodel", R10OV_DIR / "ov_0204.xml"
+    win, stats = Windows(), {}
+    t = time.time()
+    cfg = dict(det_thres=0.0, bbox_area_thres=0.0)
+
+    def engine(name, device=None, seed=SEED, **ov):
+        return FaceEngine(EngineConfig(detector=name, seed=seed,
+                                       detector_overrides=ov, **cfg),
+                          device=device)
+
+    write_res10_caffemodel(engine("res10-ssd", "cpu", SEED + 1).net,
+                           caffemodel)
+    engines = {"res10-ssd": engine("res10-ssd"),
+               "ov-0204": engine("ov-0204"),
+               "ov-squeezenet-light": engine("ov-squeezenet-light")}
+    write_ir(engines["ov-0204"].net, xml)
+    engines["res10-ssd"].load_weights(str(caffemodel))
+    engines["openvino-ir"] = engine("openvino-ir", xml=str(xml))
+    reloaded = engine("ov-0204", seed=SEED + 2)
+    reloaded.load_weights(str(xml))
+    say(f"  wrote {caffemodel.name} ({caffemodel.stat().st_size} bytes) and "
+        f"{xml.name} + .bin; engines built and loaded in "
+        f"{time.time() - t:.1f} s; openvino-ir input "
+        f"{engines['openvino-ir'].input_size}")
+    frame0 = np.ascontiguousarray(frames[0])
+    jpg = native.encode_jpeg_bgr(frame0, IO_QUALITY)
+    jpg_path = R10OV_DIR / "frame.jpg"
+    jpg_path.write_bytes(jpg)
+    httpd = serve(ServiceConfig(detector="res10-ssd", with_embedder=False,
+                                with_age_gender=False, ckpt=str(caffemodel)),
+                  host="127.0.0.1", port=free_port(), block=False,
+                  warmup_shapes=())
+    service = httpd.service
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    cli_argv = ["-i", str(jpg_path), "--md", "openvino-ir", "--ckpt", str(xml),
+                "--dt", "0", "--at", "0", "--no-display",
+                "-o", str(R10OV_DIR / "out.jpg")]
+    try:
+        with spied_calls([(nms_ops, "nms_fixpoint"),
+                          (crop_ops, "crop_resize")]) as seen, \
+                torch.inference_mode():
+            dets, images = {}, {}
+            for name in R10OV_NAMES:
+                dets[name] = win.run(name, lambda: engines[name].detect_batch(
+                    frames, 0.0, 0.0))
+                images[name] = win.run(f"{name} image", lambda: engines[
+                    name].detect_image(singles[0], 0.0, 0.0))
+            cli_out, cli_s = win.run("cli", lambda: run_cli(detect_face,
+                                                            cli_argv))
+            answer, detect_ms = win.run("/detect", lambda: http(
+                base + "/detect?det_thres=0&bbox_area_thres=0", jpg))
+        for part, p in win.parts.items():
+            want_b3 = 1 if part == "/detect" else 0
+            if p["nms_fixpoint"] != 1 or p["crop_resize"] != want_b3:
+                raise AssertionError(f"{part}: {p}, not one B1 launch")
+        for name in R10OV_NAMES:
+            check_dets(name, dets[name], 0)
+            res = images[name]
+            if not (np.isfinite(res.boxes).all() and len(res.boxes)):
+                raise AssertionError(f"{name} detect_image: bad boxes")
+        with torch.inference_mode():
+            _, bboxes, confs = service.detect_faces(
+                native.decode_jpeg_bgr(jpg), 0.0, 0.0)
+            want = engines["openvino-ir"].detect_image(
+                native.decode_jpeg_bgr(jpg), 0.0, 0.0)
+        check_answers("/detect res10-ssd", [answer], {"bboxes": bboxes,
+                                                      "confs": confs})
+        boxes, _, _ = printed_faces(cli_out)
+        if not np.array_equal(boxes, want.boxes.astype(np.int64)):
+            raise AssertionError("detect_face --md openvino-ir printed other "
+                                 "boxes than the engine's")
+        say(f"  detect_face --md openvino-ir --ckpt {xml.name}: "
+            f"{len(boxes)} faces in {cli_s:.2f} s, the engine's boxes; "
+            f"/detect res10-ssd: {answer['num_faces']} faces in "
+            f"{detect_ms:.2f} ms, the service's direct answer, on {card}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    say(f"  launches by part: {json.dumps(win.parts)}")
+    ks = sorted({a[0].shape[1] for a, _ in seen["nms_fixpoint"]})
+    say(f"  spied: {len(seen['nms_fixpoint'])} B1 calls at K {ks}, "
+        f"{len(seen['crop_resize'])} B3 calls")
+    check_on_path("nms_fixpoint on the res10 + openvino path",
+                  ck.nms_fixpoint, ck.nms_fixpoint_plain,
+                  seen["nms_fixpoint"])
+    check_on_path("crop_resize of the /detect answer", ck.crop_resize,
+                  ck.crop_resize_plain, seen["crop_resize"])
+
+    # the IR built from the written file, and an ov-0204 engine of another
+    # seed reloaded from it, against the ov-0204 engine whose constants it
+    # holds
+    frames_t = torch.from_numpy(frames).cuda()
+    with torch.inference_mode():
+        ref = engines["ov-0204"]._detect(engines["ov-0204"]._preprocess(
+            frames_t))
+        for label, eng in (("openvino-ir", engines["openvino-ir"]),
+                           ("reloaded ov-0204", reloaded)):
+            got = eng._detect(eng._preprocess(frames_t))
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                                ref[1])):
+                raise AssertionError(f"{label} differs from the ov-0204 "
+                                     "engine with the same constants")
+    say("  openvino-ir from the written IR and the reloaded ov-0204: rows "
+        "equal to the ov-0204 engine's, bit for bit")
+
+    # the card against the CPU on the first frames
+    head = torch.from_numpy(frames[:CPU_FRAMES])
+    cpu = {"res10-ssd": engine("res10-ssd", "cpu"),
+           "ov-0204": engine("ov-0204", "cpu"),
+           "ov-squeezenet-light": engine("ov-squeezenet-light", "cpu"),
+           "openvino-ir": engine("openvino-ir", "cpu", xml=str(xml))}
+    cpu["res10-ssd"].load_weights(str(caffemodel))
+    for name in R10OV_NAMES:
+        eng, c = engines[name], cpu[name]
+        with torch.inference_mode():
+            got = eng._detect(eng._preprocess(frames_t))
+            ref = c._detect(c._preprocess(head))
+        n, err = same_stage(name, got, ref, None)
+        say(f"  {name} on the card against the CPU: {n} rows equal within "
+            f"{CPU_TOL} (max {err:.2e})")
+
+    # frames/s, the stage split, and B1 at each detector's K
+    for name in R10OV_NAMES:
+        eng = engines[name]
+        _, sec = win.run(f"{name} timed", lambda: timed_batches(
+            lambda: eng.detect_batch(frames, 0.0, 0.0), 3))
+        stats[f"{name} fps"] = B / sec
+        stages = win.run(f"{name} stages", lambda: detect_stages(eng, frames))
+        stats[f"{name} stage ms"] = stages
+        say(f"  {name} detect_batch ({eng.input_size[0]}x"
+            f"{eng.input_size[1]}): {B} x 576x1024 frames in "
+            f"{sec * 1e3:.2f} ms = {B / sec:.1f} frames/s on {card}; stages "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()
+                        if isinstance(v, float)) + " ms")
+        (args, kw), = captured_calls(
+            nms_ops, "nms_fixpoint", lambda: eng.detect_batch(frames, 0.0,
+                                                              0.0))
+        with torch.inference_mode():
+            keep = ck.nms_fixpoint(*args, **kw)
+            stats[f"B1 {name} K={args[0].shape[1]}"] = time_kernel(
+                f"nms_fixpoint, {name}: K = {args[0].shape[1]}, B = "
+                f"{args[0].shape[0]}", lambda: ck.nms_fixpoint(*args, **kw),
+                lambda: ck.nms_fixpoint_plain(*args, **kw),
+                nms_work(args[0], args[1], keep), card)
+    stats["windows"] = {k: {n: c for n, c in v.items() if c}
+                        for k, v in win.parts.items()}
+    counted = {k: v for k, v in win.parts.items()
+               if not k.endswith((" timed", " stages"))}
+    return {k: sum(p[k] for p in counted.values()) for k in ck.LAUNCHES}, \
+        stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -2722,6 +2960,16 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the path")
     phase_end("main path: ssd + mtcnn")
 
+    say("[main path: res10 + openvino] res10-ssd, ov-0204, "
+        "ov-squeezenet-light, openvino-ir: detect_batch, detect_image, "
+        "load_weights, detect_face --md openvino-ir, /detect with res10-ssd")
+    r10ov_launches, r10ov = run_res10_openvino(frames, singles, card)
+    say(f"  launches on the res10 + openvino path: {r10ov_launches}")
+    say(f"  res10 + openvino numbers: {json.dumps(r10ov)}")
+    if r10ov_launches["nms_fixpoint"] <= 0:
+        raise AssertionError("kernel nms_fixpoint never launched on the path")
+    phase_end("main path: res10 + openvino")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -2759,7 +3007,8 @@ def main():
                    "yolov5 family + embedders": family_launches[k["name"]],
                    "cli + serving": serving_launches[k["name"]],
                    "pipelines": pipeline_launches[k["name"]],
-                   "ssd + mtcnn": ssd_launches[k["name"]]}
+                   "ssd + mtcnn": ssd_launches[k["name"]],
+                   "res10 + openvino": r10ov_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

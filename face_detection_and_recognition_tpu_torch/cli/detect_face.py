@@ -1,9 +1,8 @@
 """Face detection on an image file: the port's ``detect_face`` CLI.
 
 The counterpart of ``cli/detect_face.py`` in the JAX package, for the
-detectors the port registers (the yolov5 family with its official heads,
-blazeface-front, blazeface-back: ``models.registry.available()``) and
-JPEG images:
+detectors the port registers (``models.registry.available()``) and JPEG
+images:
 
     python -m face_detection_and_recognition_tpu_torch.cli.detect_face \\
         -i img.jpg --md yolov5s --dt 0.7 --at 0.12 --no-display -o out.jpg
@@ -12,7 +11,9 @@ It prints ``N face(s)``, then one ``[x1,y1,x2,y2] conf=...`` line a face,
 with the age/gender label (``--age-gender``) and ``emb[Dd]``
 (``--embedder``) appended, as the JAX CLI does. It runs on the card unless
 ``-d cpu`` is given. ``--ckpt`` loads detector weights from a torch ``.pt``
-/ ``.pth`` state dict; ``--embed-ckpt`` and ``--ag-ckpt`` load the
+/ ``.pth`` state dict, a ``.caffemodel``, a frozen ``.pb`` or an OpenVINO
+``.xml`` (with its sibling ``.bin``); ``--md openvino-ir`` requires the
+``.xml``, which is the net. ``--embed-ckpt`` and ``--ag-ckpt`` load the
 embedder's and the age/gender heads'. Without them the weights are random,
 drawn from a seed. There is no display window (``--no-display`` is
 required) and no video or camera input.
@@ -30,6 +31,15 @@ from ..utils.parser import get_argparse
 
 
 def build_engine(args) -> FaceEngine:
+    ckpt = getattr(args, "ckpt", None)
+    overrides = {}
+    if args.model == "openvino-ir":
+        # the IR is the net: the file defines the topology, so it must be
+        # there at build (the reference's detect_face_openvino.py -m)
+        if not ckpt or not ckpt.endswith(".xml"):
+            raise SystemExit("--md openvino-ir requires --ckpt model.xml")
+        overrides["xml"] = ckpt
+        ckpt = None
     cfg = EngineConfig(
         detector=args.model,
         det_thres=args.det_thres,
@@ -37,10 +47,11 @@ def build_engine(args) -> FaceEngine:
         with_age_gender=getattr(args, "age_gender", False),
         embedder=getattr(args, "embedder", None),
         rect=getattr(args, "rect", False),
+        detector_overrides=overrides,
     )
     engine = FaceEngine(cfg, device=args.device)
-    if getattr(args, "ckpt", None):
-        engine.load_weights(args.ckpt)
+    if ckpt:
+        engine.load_weights(ckpt)
     if getattr(args, "embed_ckpt", None):
         engine.load_embed_weights(args.embed_ckpt)
     if getattr(args, "ag_ckpt", None):
@@ -56,7 +67,8 @@ def main(argv=None) -> int:
                         help="Attach age+gender labels.")
     parser.add_argument("--ckpt", "--weights", dest="ckpt", default=None,
                         help="Detector weights: a torch .pt/.pth state "
-                             "dict.")
+                             "dict, a .caffemodel, a frozen .pb or an "
+                             "OpenVINO .xml (+ its .bin).")
     parser.add_argument("--embedder", dest="embedder", default=None,
                         help="Also embed each detected face (registry name, "
                              "e.g. mobile_facenet) and report the vector "

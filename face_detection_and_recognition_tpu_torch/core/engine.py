@@ -14,9 +14,10 @@ and input shape the engine has run.
 
 Any registered detector and embedder slot serves: detections carry the
 detector's ``n_landmark_cols`` landmark columns (none for the official
-yolov5 heads and the SSD family), and each embedder runs at its own input
-size. A native-resolution detector (MTCNN) takes the frames without a
-preprocess, at their own size; the fused ensemble refuses it.
+yolov5 heads, the SSD family and the graph interpreters), and each
+embedder runs at its own input size. A native-resolution detector (MTCNN)
+takes the frames without a preprocess, at their own size; the fused
+ensemble refuses it.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from .detections import Detections, PostProcessedDetection, postprocess_detectio
 AG_HW = (227, 227)                  # age/gender crop size
 AG_PAD = (-5.0, -5.0, 5.0, 5.0)     # the cascade's +-5 px crop padding
 TORCH_WEIGHTS = (".pt", ".pth")     # the weight files the loaders read
-PROTOBUF_WEIGHTS = (".caffemodel", ".pb")  # read against a net's slots
+NET_WEIGHTS = (".caffemodel", ".pb", ".xml")  # read against a net
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -48,22 +49,24 @@ def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ``state_dict`` or ``model`` when there is one (a pickled module's own
     state dict), with the ``module.`` prefix of a data-parallel save
     stripped. The file is unpickled, which can run code: load only
-    trusted files. A ``.caffemodel`` or ``.pb`` is read against a net
-    (``FaceEngine.load_weights``, ``load_age_gender_weights``), not here;
-    orbax checkpoints and OpenVINO IRs (``.xml``) raise ``ValueError``: the
-    port has no orbax reader, and the IR reader comes with the OpenVINO
-    detectors."""
+    trusted files. A ``.caffemodel``, ``.pb`` or OpenVINO ``.xml`` is read
+    against a net (``FaceEngine.load_weights``; the CaffeNet caffemodels
+    through ``load_age_gender_weights``), not here; orbax checkpoints
+    raise ``ValueError``: the port has no orbax reader."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in PROTOBUF_WEIGHTS:
+    if ext in NET_WEIGHTS:
+        kind = {".caffemodel": "a Caffe .caffemodel", ".pb": "a frozen .pb",
+                ".xml": "an OpenVINO IR (.xml)"}[ext]
         raise ValueError(
-            f"{path}: a {ext} file holds no state dict of its own; "
+            f"{path}: {kind} holds no state dict of its own; "
             "FaceEngine.load_weights (detectors) and "
-            "load_age_gender_weights (age/gender) read it against the net")
+            "load_age_gender_weights (age/gender caffemodels) read it "
+            "against the net")
     if ext not in TORCH_WEIGHTS:
         raise ValueError(
             f"{path}: the port reads torch weight files (.pt, .pth), and "
-            ".caffemodel and .pb through FaceEngine.load_weights; orbax "
-            "checkpoints and OpenVINO IRs (.xml) are not supported yet")
+            ".caffemodel, .pb and .xml through FaceEngine.load_weights; "
+            "orbax checkpoints are not supported yet")
     sd = torch.load(path, map_location="cpu", weights_only=False)
     for key in ("state_dict", "model"):
         if isinstance(sd, dict) and key in sd:
@@ -107,6 +110,13 @@ class EngineConfig:
     detector_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+def _ir_input_size(net) -> Optional[Tuple[int, int]]:
+    """(w, h) of a net that names its NCHW input (``input_dims``), else
+    None."""
+    dims = getattr(net, "input_dims", None)
+    return (int(dims[3]), int(dims[2])) if dims and len(dims) == 4 else None
+
+
 def _full_f32(device: torch.device):
     """cuDNN runs f32 convolutions in TF32 by default; the reference is f32.
     Turn TF32 off for the forward only, leaving every other flag as set."""
@@ -140,6 +150,14 @@ class FaceEngine:
         generator = torch.Generator().manual_seed(cfg.seed)
         self.net, self._decode = self.spec.build(generator, self.device,
                                                  **cfg.detector_overrides)
+        # a graph net (an OpenVINO IR) carries its own input size: the
+        # preprocess recipe follows the IR's Parameter shape
+        size = _ir_input_size(self.net)
+        if size and size != self.spec.input_size:
+            self.spec = dataclasses.replace(
+                self.spec, input_size=size,
+                preprocess=dataclasses.replace(self.spec.preprocess,
+                                               size=size))
         # each stage draws from its own stream of the seed
         self.embed_spec = self.embed_net = None
         if cfg.embedder is not None:
@@ -166,7 +184,8 @@ class FaceEngine:
         at each crop size. The JAX engine compiled one XLA program for each
         and cached it (``_pipeline_cache``); eager PyTorch compiles
         nothing, so this counts the programs that cache would hold. Weight
-        loads do not reset it."""
+        loads do not reset it; an IR ``.xml`` that replaces the net does,
+        as the JAX engine drops its programs then."""
         return len(self._pipelines)
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
@@ -202,27 +221,52 @@ class FaceEngine:
           modules carry the reference's names, so it loads as it is, less
           the yolov5 Detect layer's ``anchors`` / ``anchor_grid`` buffers
           (the port keeps its anchors in ``ARCHS``);
-        - ``.caffemodel`` / ``.pb``: read against the net by the detector's
-          importer (``DetectorSpec.import_caffemodel`` / ``import_pb``):
-          a caffemodel's layers, or an SSD's GraphDef consts, poured slot
-          by slot in execution order (``utils.weights.structural_import``);
-          the blaueck MTCNN cascade's GraphDef
-          (``convert_mtcnn_graphdef``). A detector without one raises
-          ``ValueError``.
+        - ``.caffemodel`` / ``.pb`` / ``.xml`` (with its sibling ``.bin``):
+          read against the net by the detector's importer
+          (``DetectorSpec.import_caffemodel`` / ``import_pb`` /
+          ``import_xml``): a caffemodel's layers, or an SSD's GraphDef or
+          an IR's consts, poured slot by slot in execution order
+          (``utils.weights.structural_import``); res10's blobs by layer
+          name (``pour_blobs``) and its GraphDef through
+          ``convert_res10_graphdef``; the blaueck MTCNN cascade's GraphDef
+          (``convert_mtcnn_graphdef``). An OpenVINO IR net's ``.xml`` is
+          the net: its importer builds it anew, and the engine runs it
+          from then on (an IR of another input size raises ``ValueError``:
+          the engine's preprocess is sized at build). A detector without
+          an importer for the file raises ``ValueError``.
 
         Other formats raise ``ValueError`` (``read_state_dict``)."""
         ext = os.path.splitext(path)[1].lower()
-        if ext in PROTOBUF_WEIGHTS:
-            importer = (self.spec.import_caffemodel if ext == ".caffemodel"
-                        else self.spec.import_pb)
+        if ext in NET_WEIGHTS:
+            importer = {".caffemodel": self.spec.import_caffemodel,
+                        ".pb": self.spec.import_pb,
+                        ".xml": self.spec.import_xml}[ext]
             if importer is None:
                 raise ValueError(f"{path}: no {ext} importer for detector "
                                  f"'{self.spec.name}'")
-            sd = importer(path, self.net, self.spec.input_size)
+            out = importer(path, self.net, self.spec.input_size)
+            if isinstance(out, tuple):  # the file is the net
+                self._replace_net(path, *out)
+                return
+            sd = out
         else:
             sd = {k: v for k, v in read_state_dict(path).items()
                   if not k.endswith((".anchors", ".anchor_grid"))}
         self.net.load_state_dict(sd)
+
+    def _replace_net(self, path: str, net, decode: Callable) -> None:
+        """Run ``net`` and its ``decode`` from now on, in place of the
+        detector the engine was built with; the input shapes run so far
+        are forgotten (the JAX engine drops its compiled programs)."""
+        size = _ir_input_size(net)
+        if size and size != self.spec.input_size:
+            raise ValueError(
+                f"{path}: the IR takes {size[0]}x{size[1]} input, the engine "
+                f"was built for {self.spec.input_size[0]}x"
+                f"{self.spec.input_size[1]}; build an engine for it "
+                "(detector_overrides={'xml': ...})")
+        self.net, self._decode = net, decode
+        self._pipelines.clear()
 
     def save_weights(self, path: str) -> None:
         """Save the detector's state dict with ``torch.save``; reloadable

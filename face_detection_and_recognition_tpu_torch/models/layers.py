@@ -28,6 +28,14 @@ def make_divisible_torch(x: float, divisor: int) -> int:
     return int(math.ceil(x / divisor) * divisor)
 
 
+def param_key(name: str) -> str:
+    """A file's layer or constant name as a module or parameter name:
+    percent-encoded, so that '.' and '/' (which ``nn.Module`` names
+    refuse or split on) become '%2E' and '%2F', one to one."""
+    return (name.replace("%", "%25").replace(".", "%2E")
+            .replace("/", "%2F"))
+
+
 _ACTS = {"silu": nn.SiLU, "relu": nn.ReLU, "relu6": nn.ReLU6,
          None: nn.Identity}
 

@@ -5,14 +5,18 @@ detectors this port has so far: the nine yolov5-face names (yolov5s/m/l,
 yolov5n, yolov5n-0.5, yolov5s6/m6/l6, yolov5n6), the official multiclass
 heads yolov5s-official and yolov5n-official, blazeface-front and
 blazeface-back, the SSD family (ssd-resnet10, ssd-mobilenetv2,
-ssd-squeezenet) and the MTCNN cascade (mtcnn, at native resolution:
-``input_size`` (-1, -1)). ``build`` returns the network and its decode, with
-detections in the normalized contract: rows [xmin, ymin, xmax, ymax, (lmk
-xy pairs...), conf] in [0, 1] wrt the model input size.
+ssd-squeezenet), the exact res10_300x300 Caffe deploy graph (res10-ssd),
+the OpenVINO IR nets (openvino-ir, which executes the ``.xml`` given as
+``detector_overrides={"xml": ...}``; ov-0204 and ov-squeezenet-light, the
+reference's two IR topologies) and the MTCNN cascade (mtcnn, at native
+resolution: ``input_size`` (-1, -1)). ``build`` returns the network and
+its decode, with detections in the normalized contract: rows [xmin, ymin,
+xmax, ymax, (lmk xy pairs...), conf] in [0, 1] wrt the model input size.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -21,6 +25,9 @@ import torch
 from ..ops import preprocess as P
 from .blazeface import BlazeFaceConfig, make_blazeface
 from .mtcnn import MTCNNConfig, make_mtcnn
+from .ov_graph import OVGraphNet, make_ov_detect
+from .ov_topologies import build_ov_topology
+from .res10 import build_res10
 from .ssd import SSDConfig, make_ssd_face
 from .yolov5_face import (ARCHS, OFFICIAL_ANCHORS, YoloV5FaceConfig,
                           YoloV5FaceNet, yolov5_face_detect_maps,
@@ -29,7 +36,8 @@ from .yolov5_face import (ARCHS, OFFICIAL_ANCHORS, YoloV5FaceConfig,
 
 # ---------------- weight-file importers ----------------
 # fn(path, net, input_size) -> net's state_dict; FaceEngine.load_weights
-# calls the spec's importer for the file's extension
+# calls the spec's importer for the file's extension. An .xml importer may
+# instead return (net, decode): the file is the net
 
 
 def example_input(input_size: Tuple[int, int]) -> torch.Tensor:
@@ -82,6 +90,60 @@ def import_mtcnn_graphdef(path: str, net: torch.nn.Module,
     return W.convert_mtcnn_graphdef(MF.read_tf_graphdef(path), net)
 
 
+def import_xml_structural(path: str, net: torch.nn.Module,
+                          input_size: Tuple[int, int]
+                          ) -> Dict[str, torch.Tensor]:
+    """An OpenVINO IR's float consts (sibling ``.bin``), 4-D ones as
+    flax kernels, poured as a caffemodel's are (JAX
+    ``core/engine.py:336-346``)."""
+    from ..utils import model_formats as MF
+    from ..utils import weights as W
+
+    consts = MF.read_openvino_ir(path, os.path.splitext(path)[0] + ".bin")
+    arrays = [W.c2f_conv(c.value) if c.value.ndim == 4 else c.value
+              for c in consts if np.issubdtype(c.value.dtype, np.floating)]
+    return W.structural_import(arrays, net, example_input(input_size))
+
+
+def import_ir_net(path: str, net: torch.nn.Module,
+                  input_size: Tuple[int, int]):
+    """An IR net's ``.xml`` (sibling ``.bin``): the file is the net, so
+    the importer builds it anew, on the old net's device: (net, decode)
+    (JAX ``core/engine.py:314-335``)."""
+    from ..utils.ir_graph import parse_ir_graph
+
+    new = OVGraphNet(parse_ir_graph(path, os.path.splitext(path)[0]
+                                    + ".bin"))
+    new = new.to(next(net.parameters()).device).eval()
+    return new, make_ov_detect(new)
+
+
+def import_res10_caffemodel(path: str, net: torch.nn.Module,
+                            input_size: Tuple[int, int]
+                            ) -> Dict[str, torch.Tensor]:
+    """A res10 caffemodel's blobs poured by layer NAME into the deploy
+    graph (``CaffeGraphNet.pour_blobs``, a per-layer diff on mismatch;
+    JAX ``core/engine.py:270-273``)."""
+    from ..utils.caffe_graph import read_caffemodel_graph
+    from ..utils.weights import caffe_graph_state_dict
+
+    return caffe_graph_state_dict(net.pour_blobs(read_caffemodel_graph(path)))
+
+
+def import_res10_graphdef(path: str, net: torch.nn.Module,
+                          input_size: Tuple[int, int]
+                          ) -> Dict[str, torch.Tensor]:
+    """OpenCV's ``opencv_face_detector_uint8.pb`` flavour of res10:
+    dequantized and poured into the deploy graph
+    (``utils.weights.convert_res10_graphdef``; JAX
+    ``core/engine.py:285-293``)."""
+    from ..utils import model_formats as MF
+    from ..utils import weights as W
+
+    return W.caffe_graph_state_dict(
+        W.convert_res10_graphdef(MF.read_tf_graphdef(path), net))
+
+
 @dataclasses.dataclass(frozen=True)
 class DetectorSpec:
     """A detector registry entry.
@@ -104,6 +166,7 @@ class DetectorSpec:
     # the weight-file importers (above); None: no such file for this net
     import_caffemodel: Optional[Callable] = import_caffemodel_structural
     import_pb: Optional[Callable] = None
+    import_xml: Optional[Callable] = import_xml_structural
 
 
 _REGISTRY = {}
@@ -251,6 +314,69 @@ register(DetectorSpec("ssd-mobilenetv2", (448, 448),
 register(DetectorSpec("ssd-squeezenet", (300, 300), P.OPENCV_SSD, 0,
                       _build_ssd("squeezenet", (300, 300)),
                       import_pb=import_graphdef_structural))
+
+
+def _build_res10(generator: torch.Generator, device: torch.device, **kw):
+    if kw.pop("input_size", None) not in (None, (300, 300)):
+        raise ValueError("res10 runs the fixed 300x300 deploy graph")
+    return build_res10(generator, device)
+
+
+# the exact public res10_300x300 deploy graph (models/res10.py): the import
+# target of OpenCV's res10_300x300_ssd_iter_140000.caffemodel and its
+# opencv_face_detector_uint8.pb (the reference's opencv2_dnn/model.py:21,
+# 30-32); ssd-resnet10 above is the trainable twin of its class
+register(DetectorSpec("res10-ssd", (300, 300), P.OPENCV_SSD, 0, _build_res10,
+                      import_caffemodel=import_res10_caffemodel,
+                      import_pb=import_res10_graphdef))
+
+
+# ---------------- OpenVINO IR nets ----------------
+
+
+def _build_ov_ir(generator: torch.Generator, device: torch.device, **kw):
+    """The IR named by ``xml`` (``bin``: the sibling .bin by default);
+    its input size is the IR's own."""
+    from ..utils.ir_graph import parse_ir_graph
+
+    xml = kw.pop("xml", None)
+    kw.pop("input_size", None)  # the size comes from the IR itself
+    if xml is None:
+        raise ValueError(
+            "detector='openvino-ir' executes a REAL IR: pass "
+            "detector_overrides={'xml': 'model.xml'} (bin defaults to "
+            "the sibling .bin)")
+    bin_path = kw.pop("bin", os.path.splitext(xml)[0] + ".bin")
+    net = OVGraphNet(parse_ir_graph(xml, bin_path)).to(device).eval()
+    return net, make_ov_detect(net)
+
+
+def _build_ov_topology(topology: str):
+    def build(generator: torch.Generator, device: torch.device, **kw):
+        kw.pop("input_size", None)  # the size comes from the topology
+        # the He-init constants are the topology's, from a seed drawn
+        # from the engine's generator
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
+        net = OVGraphNet(build_ov_topology(topology, seed=seed))
+        net = net.to(device).eval()
+        return net, make_ov_detect(net)
+
+    return build
+
+
+# any real OpenVINO detector IR (face-detection-0204, SqueezeNet-light, ...:
+# the reference's modules/openvino/model.py loads any model.xml this way);
+# the engine sizes its preprocess to the IR's Parameter
+register(DetectorSpec("openvino-ir", (448, 448), P.OPENVINO, 0, _build_ov_ir,
+                      import_caffemodel=None, import_xml=import_ir_net))
+# the reference's two IR topologies (models/ov_topologies.py)
+register(DetectorSpec("ov-0204", (448, 448), P.OPENVINO, 0,
+                      _build_ov_topology("ov-0204"),
+                      import_caffemodel=None, import_xml=import_ir_net))
+register(DetectorSpec("ov-squeezenet-light", (300, 300),
+                      dataclasses.replace(P.OPENVINO, size=(300, 300)), 0,
+                      _build_ov_topology("ov-squeezenet-light"),
+                      import_caffemodel=None, import_xml=import_ir_net))
 
 
 # ---------------- MTCNN ----------------

@@ -47,6 +47,9 @@ BLAZEFACE_BACK = dataclasses.replace(BLAZEFACE_FRONT, size=(256, 256))
 # the OpenCV SSD's blobFromImage mean subtraction (opencv2_dnn/model.py:30-32)
 # on a 300x300 letterbox, as the JAX package's recipe places it
 OPENCV_SSD = PreprocessSpec(size=(300, 300), mean=(104.0, 117.0, 123.0))
+# OpenVINO's detectors (OVModel.__call__, openvino/model.py:44-49): a
+# letterbox to the IR's input size on raw BGR values, no mean, no scaling
+OPENVINO = PreprocessSpec(size=(448, 448))
 AGE_GENDER = PreprocessSpec(
     size=(227, 227),
     resize="stretch",

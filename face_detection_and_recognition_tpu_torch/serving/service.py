@@ -56,8 +56,9 @@ class ServiceConfig:
     # rect letterbox inference (yolov5 families): the smallest
     # stride-multiple canvas a source resolution fits in
     rect: bool = False
-    # torch .pt/.pth weight files loaded at construction (FaceEngine's
-    # load_weights / load_embed_weights / load_age_gender_weights). None =
+    # weight files loaded at construction: ckpt through FaceEngine's
+    # load_weights (.pt/.pth, .caffemodel, .pb, .xml), the others through
+    # load_embed_weights / load_age_gender_weights (.pt/.pth). None =
     # random weights from a seed: fine for shape and speed tests, not for
     # serving
     ckpt: Optional[str] = None

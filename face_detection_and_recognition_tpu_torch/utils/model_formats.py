@@ -1,20 +1,21 @@
-"""Readers of the reference's protobuf weight files: the Caffe
-``.caffemodel`` (NetParameter) and the frozen TensorFlow GraphDef ``.pb``.
+"""Readers of the reference's weight files: the Caffe ``.caffemodel``
+(NetParameter), the frozen TensorFlow GraphDef ``.pb`` and the OpenVINO IR
+(``.xml`` + ``.bin``).
 
-The counterpart of ``utils/model_formats.py`` in the JAX package, readers
-only: a minimal protobuf wire decoder (varints and length-delimited fields,
-unknown fields skipped), ``read_caffemodel`` (V2 ``layer`` and legacy V1
-``layers``) and ``read_tf_graphdef`` (every Const tensor, with half-precision
-and negative-integer encodings). The JAX package's writers build the test
-fixtures; its OpenVINO IR reader comes with the OpenVINO detectors. The
-arrays come out in the files' own layouts; ``utils/weights.py`` maps them
-onto the port's modules.
+The counterpart of ``utils/model_formats.py`` in the JAX package: a minimal
+protobuf wire decoder (varints and length-delimited fields, unknown fields
+skipped) and its encoder primitives, ``read_caffemodel`` (V2 ``layer`` and
+legacy V1 ``layers``), ``read_tf_graphdef`` (every Const tensor, with
+half-precision and negative-integer encodings), ``read_openvino_ir`` (the
+IR's constants, in layer order) and its fixture writer
+``write_openvino_ir``. The arrays come out in the files' own layouts;
+``utils/weights.py`` maps them onto the port's modules.
 """
 from __future__ import annotations
 
 import dataclasses
 import struct
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -62,6 +63,32 @@ def iter_fields(buf: bytes):
         else:
             raise ValueError(f"unsupported wire type {wire} (field {field})")
         yield field, wire, val
+
+
+def _write_varint(value: int) -> bytes:
+    if value < 0:  # two's-complement 64-bit (10-byte varint), like protobuf
+        value &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _field(field: int, wire: int, payload: bytes) -> bytes:
+    return _write_varint((field << 3) | wire) + payload
+
+
+def _len_field(field: int, payload: bytes) -> bytes:
+    return _field(field, _LEN, _write_varint(len(payload)) + payload)
+
+
+def _varint_field(field: int, value: int) -> bytes:
+    return _field(field, _VARINT, _write_varint(value))
 
 
 def _packed_varints(buf: bytes) -> List[int]:
@@ -280,3 +307,92 @@ def _read_graphdef_consts(buf, consts):
         if op == "Const" and tensor is not None:
             consts.append(GraphConst(name=name, value=tensor))
     return consts
+
+
+# ---------------------------------------------------------------------------
+# OpenVINO IR (.xml + .bin)
+# ---------------------------------------------------------------------------
+
+_IR_DTYPES = {"f32": np.float32, "fp32": np.float32, "f16": np.float16,
+              "fp16": np.float16, "i64": np.int64, "i32": np.int32,
+              "i8": np.int8, "u8": np.uint8, "boolean": np.bool_}
+
+
+def parse_ir_xml(xml_src: Union[str, bytes]):
+    """The IR's XML root; a file that is not XML raises ``ValueError``."""
+    import xml.etree.ElementTree as ET
+
+    text = open(xml_src, "rb").read() if isinstance(xml_src, str) else xml_src
+    try:
+        return ET.fromstring(text)
+    except ET.ParseError as e:
+        raise ValueError(f"not a valid OpenVINO IR: {e}") from e
+
+
+def ir_array(blob: bytes, offset: int, size: int, etype: str,
+             shape: Optional[Sequence[int]]) -> np.ndarray:
+    """``size`` bytes at ``offset`` of the ``.bin`` as little-endian
+    ``etype`` (an IR element type or precision, f32 where unknown),
+    reshaped to ``shape`` where the element count fits."""
+    dt = _IR_DTYPES.get(etype.lower(), np.float32)
+    arr = np.frombuffer(blob[offset:offset + size],
+                        np.dtype(dt).newbyteorder("<")).copy()
+    if shape and int(np.prod(shape)) == arr.size:
+        arr = arr.reshape(shape)
+    return arr
+
+
+def read_openvino_ir(xml_src: Union[str, bytes],
+                     bin_src: Union[str, bytes]) -> List[GraphConst]:
+    """Parse an OpenVINO IR into named constant tensors, in layer order:
+    IR v10/v11 ``type="Const"`` layers (``<data element_type=.. offset=..
+    size=.. shape=..>``) and the older v7-style ``<blobs>`` (``<weights
+    offset=.. size=../>`` / ``<biases ../>``, in the layer's
+    ``precision``). The reference compiles these files with the OpenVINO
+    runtime (``modules/openvino/model.py:8-23``); here they feed
+    ``utils.weights.structural_import``, or ``models.ov_graph`` executes
+    the whole graph (``utils.ir_graph``)."""
+    root = parse_ir_xml(xml_src)
+    blob = open(bin_src, "rb").read() if isinstance(bin_src, str) else bin_src
+    out: List[GraphConst] = []
+    for layer in root.iter("layer"):
+        name = layer.get("name", "")
+        data = layer.find("data")
+        if layer.get("type", "") == "Const" and data is not None \
+                and data.get("offset") is not None:
+            shape = [int(s) for s in data.get("shape", "").split(",")
+                     if s.strip()]
+            out.append(GraphConst(name=name, value=ir_array(
+                blob, int(data.get("offset")), int(data.get("size")),
+                data.get("element_type", "f32"), shape)))
+            continue
+        blobs = layer.find("blobs")
+        if blobs is not None:
+            prec = (layer.get("precision") or "f32").lower()
+            for kind in ("weights", "biases"):
+                b = blobs.find(kind)
+                if b is not None:
+                    out.append(GraphConst(
+                        name=f"{name}/{kind}",
+                        value=ir_array(blob, int(b.get("offset")),
+                                       int(b.get("size")), prec, None)))
+    return out
+
+
+def write_openvino_ir(consts: Sequence[GraphConst]) -> Tuple[bytes, bytes]:
+    """Encode constants as an IR v10-style (xml, bin) pair of f32 Const
+    layers (test fixtures)."""
+    xml_parts = ['<?xml version="1.0"?>', '<net name="net" version="10">',
+                 "<layers>"]
+    blob = bytearray()
+    for i, c in enumerate(consts):
+        arr = np.ascontiguousarray(c.value, dtype="<f4")
+        offset = len(blob)
+        blob += arr.tobytes()
+        shape = ",".join(str(d) for d in arr.shape)
+        xml_parts.append(
+            f'<layer id="{i}" name="{c.name}" type="Const">'
+            f'<data element_type="f32" offset="{offset}" '
+            f'size="{arr.nbytes}" shape="{shape}"/></layer>')
+    xml_parts += ["</layers>", "</net>"]
+    return "\n".join(xml_parts).encode(), bytes(blob)

@@ -6,8 +6,12 @@ and the importers of the reference's protobuf weight files
 (``utils/model_formats.py`` reads them): a caffemodel's or GraphDef's array
 stream poured into a net's slots in execution order
 (``structural_import``), the CaffeNet age/gender heads
-(``convert_caffenet_head``) and the frozen MTCNN graph
-(``convert_mtcnn_graphdef``).
+(``convert_caffenet_head``), the frozen MTCNN graph
+(``convert_mtcnn_graphdef``) and the res10 GraphDef poured into the deploy
+graph (``convert_res10_graphdef``); and the bridges of the graph
+interpreters, whose weights are the files' own blobs and constants:
+``caffe_graph_state_dict`` (res10-ssd) and ``ov_graph_state_dict`` (the
+OpenVINO IR nets).
 
 The inverse of ``convert_yolov5_face`` / ``convert_blazeface`` /
 ``convert_mobile_facenet`` / ``convert_caffenet_head`` in the JAX package's
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers import param_key
 from ..models.yolov5_face import ARCHS, graph_depth
 
 
@@ -643,4 +648,135 @@ def dequantize_graphdef_consts(consts) -> list:
             out.append(GraphConst(name=stem, value=deq))
         else:
             out.append(c)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the graph interpreters: res10-ssd (Caffe) and the OpenVINO IR nets
+# ---------------------------------------------------------------------------
+
+
+def caffe_graph_state_dict(blobs: Mapping) -> Dict[str, torch.Tensor]:
+    """{caffe layer name: [blobs]} (the JAX package's res10 variables, or
+    ``CaffeGraphNet.pour_blobs``) -> a ``CaffeGraphNet`` state_dict: the
+    blobs as they are, under ``blobs.<param_key(layer)>.<i>``."""
+    return {f"blobs.{param_key(layer)}.{i}": _t(b)
+            for layer, bl in blobs.items() for i, b in enumerate(bl)}
+
+
+def ov_graph_state_dict(consts: Mapping) -> Dict[str, torch.Tensor]:
+    """{IR constant name: array} (the JAX package's OpenVINO variables)
+    -> an ``OVGraphNet`` state_dict: each weight under
+    ``consts.<param_key(name)>``, f32."""
+    return {f"consts.{param_key(name)}": _t(v) for name, v in consts.items()}
+
+
+def _gd_name_kind(cname: str):
+    base = cname.lower().rsplit("/", 1)[-1].split(":")[0]
+    if "gamma" in base or base in ("scale", "mul", "w"):
+        return "gamma"
+    if "beta" in base or "offset" in base:
+        return "beta"
+    if "mean" in base:
+        return "mean"
+    if "var" in base:
+        return "var"
+    if "bias" in base or base in ("b",):
+        return "bias"
+    if "weight" in base or "kernel" in base or "conv" in base:
+        return "kernel"
+    return None
+
+
+def convert_res10_graphdef(consts, net) -> Dict[str, List[np.ndarray]]:
+    """A TF-GraphDef face SSD's consts poured into the res10 deploy graph
+    (``models/res10.py``; OpenCV builds this net from both its
+    ``.caffemodel`` and its ``opencv_face_detector_uint8.pb``), as the JAX
+    package's ``convert_res10_graphdef`` pours them: {layer: [blobs]} in
+    the net's Caffe layouts (``caffe_graph_state_dict`` loads it).
+
+    The GraphDef is transform-optimized: weights as uint8 triplets
+    (dequantized first, ``dequantize_graphdef_consts``) and batch norms
+    folded. Convolution kernels and biases come from the file, by layer
+    name prefix (``<layer>/...`` or ``<layer>_...``) first, then graph
+    order and shape; a BatchNorm takes the identity statistics (mean 0,
+    var 1, scale factor 1) and a Scale the identity affine, unless the
+    graph carries layer-prefixed consts for them (gamma / beta / mean /
+    var by name). TF kernels are HWIO: a 4-D const is transposed
+    (3, 2, 0, 1) where that, and not its raw shape, fits the slot. Raises
+    ``ValueError`` with a per-layer table where a convolution slot cannot
+    fill."""
+    consts = dequantize_graphdef_consts(consts)
+    used = [False] * len(consts)
+    bn_layers = {st.name for st in net.steps if st.op == "batchnorm"}
+    scale_layers = {st.name for st in net.steps if st.op == "scale"}
+
+    def owner_prefix(cname: str, layer: str) -> bool:
+        return (cname == layer or cname.startswith(layer + "/")
+                or cname.startswith(layer + "_"))
+
+    def fit(value, want):
+        """f32 ``value`` in the slot's layout (shape ``want``), or None."""
+        v = np.asarray(value, np.float32)
+        if v.ndim == 4:
+            hwio = np.transpose(v, (3, 2, 0, 1))
+            if tuple(hwio.shape) == want:
+                return hwio
+        if tuple(v.shape) == want:
+            return v
+        if v.size == int(np.prod(want)) and v.ndim <= 1:
+            return v.reshape(want)
+        return None
+
+    def take_prefixed(layer: str, want, kind=None):
+        for j, c in enumerate(consts):
+            if used[j] or not owner_prefix(c.name, layer):
+                continue
+            if kind is not None and _gd_name_kind(c.name) != kind:
+                continue
+            f = fit(c.value, want)
+            if f is not None:
+                used[j] = True
+                return f
+        return None
+
+    out: Dict[str, List[np.ndarray]] = {}
+    problems = []
+    for layer in net.blob_layers():
+        shapes = [tuple(b.shape) for b in net.layer_blobs(layer)]
+        if layer in bn_layers or layer in scale_layers:
+            # BatchNorm [mean, var, scale factor] (the factor has no TF
+            # counterpart: always 1), Scale [gamma(, beta)]: the identity
+            # unless the graph carries them
+            kinds = (("mean", np.zeros), ("var", np.ones), (None, np.ones)) \
+                if layer in bn_layers else (("gamma", np.ones),
+                                            ("beta", np.zeros))
+            blobs = []
+            for want, (kind, ident) in zip(shapes, kinds):
+                v = take_prefixed(layer, want, kind) if kind else None
+                blobs.append(v if v is not None
+                             else ident(want, np.float32))
+            out[layer] = blobs
+            continue
+        poured = []
+        for want in shapes:
+            f = take_prefixed(layer, want,
+                              "kernel" if len(want) == 4 else "bias")
+            if f is None:
+                f = take_prefixed(layer, want)       # prefixed, any kind
+            if f is None:                            # graph order + shape
+                for j, c in enumerate(consts):
+                    if not used[j]:
+                        f = fit(c.value, want)
+                        if f is not None:
+                            used[j] = True
+                            break
+            if f is None:
+                problems.append(f"  {layer}: no const left for slot {want}")
+                break
+            poured.append(f)
+        else:
+            out[layer] = poured
+    if problems:
+        raise ValueError("GraphDef pour failed:\n" + "\n".join(problems))
     return out

@@ -38,7 +38,7 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
     # ops, models, core, utils, pipelines, cli, serving and their modules
     # were all imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 52, out.stdout
+    assert n >= 58, out.stdout
     names = out.stdout.split("NAMES ")[1].split()
     for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
                 "models.embedders", "models.blazeface", "models.facenet",
@@ -54,7 +54,9 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "cli.extract_faces", "cli.extract_features",
                 "cli.extract_and_label", "cli.extract_imdb_wiki",
                 "cli.filter_faces", "models.mtcnn",
-                "utils.model_formats"):
+                "utils.model_formats", "utils.caffe_graph",
+                "utils.ir_graph", "models.caffe_ssd", "models.res10",
+                "models.ov_graph", "models.ov_topologies"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 

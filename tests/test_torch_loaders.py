@@ -149,17 +149,19 @@ def test_load_embed_and_age_gender_weights(weights, full_engine):
 
 @pytest.mark.parametrize("ext", [".caffemodel", ".pb", ".xml", ""])
 def test_unsupported_weight_files_raise(full_engine, tmp_path, ext):
-    """Orbax checkpoints and OpenVINO IRs raise from every loader. A
-    .caffemodel or .pb is read against a net: the embedder and age/gender
+    """Orbax checkpoints raise from every loader. A .caffemodel, .pb or
+    OpenVINO .xml is read against a net: the embedder and age/gender
     loaders refuse it as a state dict, naming ``load_weights``; a yolov5
-    detector has no .pb importer, and an unreadable caffemodel raises as
-    one."""
+    detector has no .pb importer, and an unreadable caffemodel or IR
+    raises as one."""
     path = tmp_path / f"weights{ext}"
     path.write_bytes(b"\x00")
     eng = full_engine
-    if ext in (".caffemodel", ".pb"):
-        with pytest.raises(ValueError, match="not a valid caffemodel"
-                           if ext == ".caffemodel" else "no .pb importer"):
+    if ext in (".caffemodel", ".pb", ".xml"):
+        with pytest.raises(ValueError, match={
+                ".caffemodel": "not a valid caffemodel",
+                ".pb": "no .pb importer",
+                ".xml": "not a valid OpenVINO IR"}[ext]):
             eng.load_weights(str(path))
         for load in (eng.load_embed_weights, eng.load_age_gender_weights):
             with pytest.raises(ValueError, match="load_weights"):

@@ -283,17 +283,29 @@ def test_protobuf_weights_load_like_jax(golden, tmp_path, arch, fmt):
         assert len(got) > 0
 
 
+IR_NETS = ("openvino-ir", "ov-0204", "ov-squeezenet-light")
+
+
 @pytest.mark.parametrize("name", TR.available())
 def test_weight_importers_sit_on_the_spec(name):
     """``load_weights`` calls the spec's importer for the file's extension
-    and tests no detector name: every detector but the cascade reads a
-    caffemodel by structure; the SSD family and the cascade read a .pb."""
+    and tests no detector name: every detector but the cascade and the IR
+    nets reads a caffemodel by structure, res10-ssd by layer name; the
+    SSD family, res10-ssd and the cascade read a .pb; the IR nets rebuild
+    themselves from an .xml, every other detector pours its consts by
+    structure."""
     spec = TR.get(name)
-    assert (spec.import_caffemodel is None) == (name == "mtcnn")
-    want_pb = {"mtcnn": TR.import_mtcnn_graphdef}.get(
+    want_caffe = (None if name == "mtcnn" or name in IR_NETS else
+                  TR.import_res10_caffemodel if name == "res10-ssd" else
+                  TR.import_caffemodel_structural)
+    assert spec.import_caffemodel is want_caffe
+    want_pb = {"mtcnn": TR.import_mtcnn_graphdef,
+               "res10-ssd": TR.import_res10_graphdef}.get(
         name, TR.import_graphdef_structural if name.startswith("ssd-")
         else None)
     assert spec.import_pb is want_pb
+    assert spec.import_xml is (TR.import_ir_net if name in IR_NETS
+                               else TR.import_xml_structural)
 
 
 def test_load_weights_follows_the_spec_not_the_name(golden, tmp_path):
