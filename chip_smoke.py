@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
-yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN and
-res10 + OpenVINO paths on one CUDA card.
+yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
+res10 + OpenVINO and int8 + keras + eval paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -147,7 +147,30 @@ seconds:
    2 frames against the port on the CPU (1e-4); frames/s, the stage split
    (``utils/profiling.detect_stages``) and B1 at K = 400 of each detector,
    timed beside its bound;
-13. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+13. main path, int8 + keras + eval: yolov5n and yolov5s at full width
+   built with ``detector_overrides={"quantized": True}`` and ``"static"``
+   (seeded f32 weights folded and quantized by ``utils/quantize.py``; the
+   static scales calibrated again on the 8 frames), ``detect_batch`` of
+   the 8 frames at thresholds 0 (square 640): Q1 (``csrc/conv_int8.cu``)
+   on every quantized ConvBN (82 calls a yolov5n forward, 61 a yolov5s
+   one); a keras FaceNet SavedModel written by the port's TensorBundle
+   writer and loaded by ``load_embed_weights`` into an engine of another
+   seed (embeddings equal to the state-dict engine's); the ``eval_wider``
+   CLI with the static yolov5n's ``.pt`` on a seeded WIDER-format tree of
+   16 JPEGs, equal to ``evaluate_engine_on_wider`` in process. Each part
+   zeroes the counts before it and reads them after. Then every Q1 call of
+   one forward of each net and mode, captured by a spy, against its plain
+   version (the pre-activation bit for bit, SiLU within 4 ulps), and
+   yolov5n's dynamic ones against the plain version on the CPU on the
+   same inputs (the pre-activation bit for bit, SiLU's ulps printed); Q1
+   timed
+   call by call over yolov5n's dynamic forward and yolov5s's static one
+   (the sums, the profiler's device ms, the plain version's, ``F.conv2d``
+   in float64 on the same codes as the library call, and the bound: bytes
+   over 3.35 TB/s against int8 operations over 1979 TOPS); each net's rows
+   on the first 2 frames against the port on the CPU (the difference
+   printed); frames/s and network ms of int8 against f32;
+14. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -2799,6 +2822,380 @@ def run_res10_openvino(frames, singles, card):
         stats
 
 
+# ---------------- int8 + keras + eval ----------------
+
+INT8_ARCHS = ("yolov5n", "yolov5s")
+INT8_MODES = (True, "static")
+INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor-core rate
+SILU_ULPS = 4                # Q1's SiLU (expf) against PyTorch's exp
+IKE_DIR = WORK_DIR / "int8_keras_eval"
+WIDER_N = 16                 # images of the phase's WIDER-format tree
+
+
+def mode_name(q):
+    return "static" if q == "static" else "dynamic"
+
+
+def q1_work(args):
+    """(int8 operations, bytes) that one Q1 call needs: 2 * M * C_out * K
+    operations; the f32 input read once, the codes, scales and bias, and
+    the f32 output written once."""
+    x, kq, _, _, stride, pad, _, _, ascale = args
+    b, _, h, w = x.shape
+    cout, k, _, cg = kq.shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    ops = 2 * b * ho * wo * cout * k * k * cg
+    nbytes = (4 * x.numel() + kq.numel() + 8 * cout
+              + (4 if ascale is not None else 0) + 4 * b * ho * wo * cout)
+    return ops, nbytes
+
+
+def q1_bound(ops, nbytes):
+    """(bound_ms, bound_by) of Q1: bytes over the memory rate against int8
+    operations over the dense int8 tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else \
+        "operations"
+
+
+def q1_library(args):
+    """The one PyTorch call that computes Q1's integers, ``F.conv2d`` in
+    float64 on the same codes (the codes are made outside the timing)."""
+    import torch.nn.functional as F
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    x, kq, _, _, stride, pad, groups, _, ascale = args
+    s = int8_conv.act_scale(x) if ascale is None else ascale
+    xq = int8_conv.quantize_codes(x, s).double()
+    w = kq.permute(0, 3, 1, 2).double()
+    return lambda: F.conv2d(xq, w, None, stride, pad, 1, groups)
+
+
+def check_q1_calls(label, calls):
+    """Each Q1 call of a forward against its plain version on the same
+    inputs: the pre-activation (the call again without its activation) bit
+    for bit, the call's own output within SILU_ULPS. Returns (calls,
+    largest ulps, max |kernel - plain|)."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    worst, err = 0, 0.0
+    with torch.inference_mode():
+        for args, _ in calls:
+            lin = args[:7] + (None, args[8])
+            pre = ck.conv_int8(*lin)
+            if not same_bits(pre, int8_conv.conv_int8_plain(*lin)):
+                raise AssertionError(f"{label}: Q1's pre-activation differs "
+                                     f"from its plain version at "
+                                     f"{tuple(args[0].shape)} -> "
+                                     f"{tuple(args[1].shape)}")
+            got, ref = ck.conv_int8(*args), int8_conv.conv_int8_plain(*args)
+            worst = max(worst, max_ulps(got, ref))
+            err = max(err, float((got - ref).abs().max()))
+    if worst > SILU_ULPS:
+        raise AssertionError(f"{label}: Q1's SiLU {worst} ulps from its "
+                             "plain version")
+    return len(calls), worst, err
+
+
+def q1_card_against_cpu(label, calls):
+    """Each Q1 call of a forward on the card against the plain version on
+    the CPU, on the same inputs copied there: the pre-activation bit for
+    bit (both convolve the same codes exactly), and SiLU's largest
+    distance in ulps (the card's expf against PyTorch's exp on the CPU).
+    Returns that distance."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    worst = 0
+    with torch.inference_mode():
+        for args, _ in calls:
+            host = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+            lin, host_lin = args[:7] + (None, args[8]), \
+                host[:7] + (None, host[8])
+            if not same_bits(ck.conv_int8(*lin).cpu(),
+                             int8_conv.conv_int8_plain(*host_lin)):
+                raise AssertionError(f"{label}: Q1's pre-activation on the "
+                                     "card differs from the CPU's at "
+                                     f"{tuple(args[0].shape)} -> "
+                                     f"{tuple(args[1].shape)}")
+            worst = max(worst, max_ulps(ck.conv_int8(*args).cpu(),
+                                        int8_conv.conv_int8_plain(*host)))
+    say(f"  Q1 on {label}, card against the CPU's plain version, layer by "
+        f"layer on the card's inputs: {len(calls)} calls, pre-activation "
+        f"bit for bit, SiLU within {worst} ulps")
+    return worst
+
+
+def time_q1(label, calls, card):
+    """Q1 over one forward's calls: the sums of each call's ms between
+    events, of the plain version's and of ``F.conv2d`` in float64, the
+    device ms of the whole set from the profiler, and the bound."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    ms = plain_ms = library_ms = bound_ms = 0.0
+    ops = nbytes = 0
+    rows = []
+    with torch.inference_mode():
+        for args, _ in calls:
+            k_ms = cuda_ms(lambda: ck.conv_int8(*args), 20)
+            b_ms, _ = q1_bound(*q1_work(args))
+            ms += k_ms
+            bound_ms += b_ms
+            plain_ms += cuda_ms(lambda: int8_conv.conv_int8_plain(*args), 2)
+            library_ms += cuda_ms(q1_library(args), 5)
+            o, n = q1_work(args)
+            ops, nbytes = ops + o, nbytes + n
+            rows.append((k_ms, b_ms, tuple(args[0].shape),
+                         tuple(args[1].shape), args[4], args[6]))
+        dev, _ = device_ms(lambda: [ck.conv_int8(*a) for a, _ in calls], 3)
+    _, bound_by = q1_bound(ops, nbytes)
+    say(f"  Q1 conv_int8, {label}: {len(calls)} calls, {ms:.4f} ms between "
+        f"events, {dev:.4f} ms device, plain {plain_ms:.3f} ms, F.conv2d "
+        f"float64 {library_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by};"
+        f" {ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.1f} MB) on {card}")
+    for k_ms, b_ms, xs, ws, stride, groups in sorted(rows, reverse=True)[:6]:
+        say(f"    {k_ms:.4f} ms (bound {b_ms:.5f}): x {xs}, w {ws}, stride "
+            f"{stride}, groups {groups}")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def write_facenet_savedmodel(net, path):
+    """A keras FaceNet SavedModel directory of ``net``'s weights, written
+    by the port's TensorBundle writer: the stream of
+    ``utils.weights.execution_slots`` (HWIO kernels, [in, out] Dense, no BN
+    scales), one ``layer_with_weights-i`` a module, keras attribute
+    names."""
+    from torch.nn.modules.batchnorm import _BatchNorm
+
+    from face_detection_and_recognition_tpu_torch.utils import weights as W
+    from face_detection_and_recognition_tpu_torch.utils.tensor_bundle import \
+        write_tensor_bundle
+
+    mods, sd = dict(net.named_modules()), net.state_dict()
+    layers, named = {}, []
+    for name, leaf, _ in W.execution_slots(
+            net, torch.zeros(W.FACENET_EXAMPLE), ("scale",)):
+        mod = name.rsplit(".", 1)[0]
+        arr = sd[name].detach().cpu().numpy()
+        if leaf == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        attr = {"kernel": "kernel", "mean": "moving_mean",
+                "var": "moving_variance",
+                "bias": "beta" if isinstance(mods[mod], _BatchNorm)
+                else "bias"}[leaf]
+        i = layers.setdefault(mod, len(layers))
+        named.append((f"layer_with_weights-{i}/{attr}/.ATTRIBUTES/"
+                      "VARIABLE_VALUE", np.ascontiguousarray(arr)))
+    (path / "variables").mkdir(parents=True, exist_ok=True)
+    (path / "saved_model.pb").write_bytes(b"\x08\x01")
+    write_tensor_bundle(str(path / "variables" / "variables"), named)
+    return len(named)
+
+
+def write_wider_tree(root):
+    """WIDER_N seeded frames (576x1024 and 480x640) as JPEGs through the
+    port's codec, and a WIDER-format annotation file with 1-3 seeded boxes
+    an image. Returns (ann path, images root)."""
+    from face_detection_and_recognition_tpu_torch.utils import native
+
+    rng = np.random.RandomState(SEED + 7)
+    images = root / "images"
+    (images / "0--Seeded").mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i in range(WIDER_N):
+        hw = IO_HW if i % 2 else (480, 640)
+        rel = f"0--Seeded/s{i:03d}.jpg"
+        native.write_image_bgr(str(images / rel), smooth_frame(SEED + i, hw))
+        n = rng.randint(1, 4)
+        lines += [rel, str(n)]
+        for _ in range(n):
+            w, h = rng.randint(20, 200, 2)
+            x, y = rng.randint(0, hw[1] - w), rng.randint(0, hw[0] - h)
+            lines.append(f"{x} {y} {w} {h} 0 0 0 0 0 0")
+    ann = root / "gt.txt"
+    ann.write_text("\n".join(lines) + "\n")
+    return str(ann), str(images)
+
+
+def run_int8_keras_eval(frames, card):
+    """The int8 yolov5 detectors, the keras FaceNet reader and the WIDER
+    eval on the card. yolov5n and yolov5s at full width, seeded f32
+    weights folded and quantized by ``utils/quantize.py`` in the registry
+    (``detector_overrides={"quantized": True | "static"}``), the static
+    scales then calibrated again on the path's own 8 frames;
+    ``detect_batch`` of the 8 576x1024 frames at thresholds 0 (square
+    640). A FaceNet SavedModel written by the port's TensorBundle writer,
+    loaded into an engine of another seed with ``load_embed_weights``, and
+    ``embed_crops``; the ``eval_wider`` CLI with the static yolov5n's
+    ``.pt`` on a seeded WIDER-format tree, and ``evaluate_engine_on_wider``
+    in process on the same file. Each part zeroes the counts before it and
+    reads them after. After the read: every Q1 call of one int8 forward of
+    each net and mode against its plain version (pre-activation bit for
+    bit, SiLU within SILU_ULPS) and, for yolov5n's dynamic forward,
+    against the plain version on the CPU too; Q1 timed over yolov5n's
+    dynamic forward and yolov5s's static one, the card's rows and raw maps
+    against the port on the CPU (the differences printed; an int8 net
+    turns the ulps of exp into flipped codes, and those compound), frames/s of int8 against
+    f32, the embeddings against the state-dict engine's (equal) and the
+    CLI's metrics against the in-process ones (equal)."""
+    from face_detection_and_recognition_tpu_torch.cli import eval_wider
+    from face_detection_and_recognition_tpu_torch.eval.coco_eval import \
+        evaluate_engine_on_wider
+    from face_detection_and_recognition_tpu_torch.utils import quantize as Q
+
+    IKE_DIR.mkdir(parents=True, exist_ok=True)
+    win, stats = Windows(), {}
+    frames_t = torch.from_numpy(frames).cuda()
+    cfg = dict(det_thres=0.0, bbox_area_thres=0.0, seed=SEED)
+    engines, f32 = {}, {}
+    for arch in INT8_ARCHS:
+        f32[arch] = FaceEngine(EngineConfig(detector=arch, **cfg))
+        with torch.inference_mode(), _full_f32(torch.device("cuda")):
+            scales = Q.calibrate_activation_scales(
+                f32[arch].net, [f32[arch]._preprocess(frames_t)])
+        static = Q.pour_activation_scales(
+            Q.quantize_state_dict(f32[arch].net.state_dict()), scales)
+        for q in INT8_MODES:
+            eng = FaceEngine(EngineConfig(detector=arch, **cfg,
+                                          detector_overrides={"quantized": q}))
+            if q == "static":
+                eng.load_state_dict(static)
+            engines[arch, q] = eng
+    say(f"  engines built; {len(scales)} calibrated scales a static net")
+
+    for (arch, q), eng in engines.items():
+        label = f"{arch} int8 {mode_name(q)}"
+        dets = win.run(label, lambda: eng.detect_batch(frames))
+        check_dets(label, dets, 10)
+        say(f"  {label} detect_batch: detections per frame "
+            f"{dets.valid.sum(1).tolist()}, Q1 launches "
+            f"{win.parts[label]['conv_int8']}")
+        if win.parts[label]["conv_int8"] <= 0:
+            raise AssertionError(f"{label}: Q1 never launched")
+
+    # the keras FaceNet SavedModel, written by the port and read on the card
+    sm = IKE_DIR / "facenet_keras_p38"
+    shutil.rmtree(sm, ignore_errors=True)
+    ref_eng = FaceEngine(EngineConfig(detector="blazeface-front",
+                                      embedder="facenet", seed=SEED))
+    n_arrays = write_facenet_savedmodel(ref_eng.embed_net, sm)
+    crops = np.random.RandomState(SEED + 3).randint(0, 256, (64, 150, 130, 3),
+                                                    np.uint8)
+    keras_eng = FaceEngine(EngineConfig(detector="blazeface-front",
+                                        embedder="facenet", seed=SEED + 5))
+
+    def keras_part():
+        keras_eng.load_embed_weights(str(sm))
+        return keras_eng.embed_crops(crops)
+
+    emb = win.run("facenet savedmodel", keras_part)
+    ref_emb = ref_eng.embed_crops(crops)
+    if not np.array_equal(emb, ref_emb):
+        raise AssertionError("the SavedModel's embeddings differ from the "
+                             "state-dict engine's")
+    say(f"  facenet SavedModel ({n_arrays} arrays) on the card: {len(emb)} "
+        "embeddings equal to the state-dict engine's")
+
+    # eval_wider: the CLI and the in-process runner on the same int8 .pt
+    ann, images = write_wider_tree(IKE_DIR / "wider")
+    pt = IKE_DIR / "yolov5n_int8_static.pt"
+    engines["yolov5n", "static"].save_weights(str(pt))
+    out, sec = win.run("eval_wider cli", lambda: run_cli(eval_wider, [
+        "--ann", ann, "--images", images, "--md", "yolov5n", "--ckpt",
+        str(pt)]))
+    cli_metrics = json.loads(out.strip().splitlines()[-1])
+    ev = FaceEngine(EngineConfig(detector="yolov5n", det_thres=0.02,
+                                 bbox_area_thres=0.0, max_det=300))
+    ev.load_weights(str(pt))
+    metrics = win.run("evaluate_engine_on_wider",
+                      lambda: evaluate_engine_on_wider(ev, ann, images))
+    if cli_metrics != metrics:
+        raise AssertionError(f"eval_wider printed {cli_metrics}, the runner "
+                             f"gave {metrics}")
+    say(f"  eval_wider on {WIDER_N} seeded images (int8 static yolov5n, "
+        f"seeded weights: the AP means nothing): {cli_metrics} in "
+        f"{sec:.2f} s, equal to evaluate_engine_on_wider")
+    stats["eval_wider"] = cli_metrics
+
+    # after the counts: Q1 against its plain version on the path's inputs
+    q1 = {}
+    for (arch, q), eng in engines.items():
+        label = f"{arch} int8 {mode_name(q)}"
+        calls = captured_calls(ck, "conv_int8",
+                               lambda: eng.detect_batch(frames))
+        n, worst, err = check_q1_calls(label, calls)
+        q1[label] = (calls, err)
+        say(f"  Q1 on {label}: {n} calls, pre-activation bit for bit, SiLU "
+            f"within {worst} ulps (max |kernel - plain| {err:.2e})")
+    stats["Q1 card vs cpu silu ulps"] = q1_card_against_cpu(
+        "yolov5n int8 dynamic", q1["yolov5n int8 dynamic"][0])
+    timing = time_q1("yolov5n int8 dynamic, B = 8, 640x640",
+                     q1["yolov5n int8 dynamic"][0], card)
+    time_q1("yolov5s int8 static, B = 8, 640x640",
+            q1["yolov5s int8 static"][0], card)
+
+    # the card against the CPU, and int8 against f32
+    head = torch.from_numpy(frames[:CPU_FRAMES])
+    for (arch, q), eng in engines.items():
+        label = f"{arch} int8 {mode_name(q)}"
+        cpu = FaceEngine(EngineConfig(detector=arch, **cfg,
+                                      detector_overrides={"quantized": q}),
+                         device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             eng.net.state_dict().items()})
+        # the same frames on both (a dynamic scale is the whole batch's):
+        # the rows, and the raw maps under them (an int8 code flipped by an
+        # ulp of exp moves scores enough to reorder a seeded net's rows)
+        with torch.inference_mode():
+            xg = eng._preprocess(frames_t[:CPU_FRAMES])
+            xc = cpu._preprocess(head)
+            got = [m.cpu() for m in eng._network(xg)]
+            ref = cpu._network(xc)
+            (gb, gv), (rb, rv) = eng._detect(xg), cpu._detect(xc)
+        gb, gv = gb.cpu(), gv.cpu()
+        rows = float((gb - rb)[gv & rv].abs().max()) if (gv & rv).any() \
+            else 0.0
+        rel = max(float((g - r).abs().max() / r.abs().max())
+                  for g, r in zip(got, ref))
+        share = sum(int(((g - r).abs() > 1e-3 * r.abs().max()).sum())
+                    for g, r in zip(got, ref)) / sum(r.numel() for r in ref)
+        say(f"  {label} on the card against the CPU, {CPU_FRAMES} frames: "
+            f"rows {gv.sum(1).tolist()} / {rv.sum(1).tolist()}, max |card - "
+            f"cpu| of the row slots both fill {rows:.3e}; raw maps max "
+            f"|card - cpu| / max |cpu| = {rel:.3e}, {share:.2e} of the "
+            "elements beyond 1e-3 of their level's max")
+        stats[f"{label} card vs cpu"] = dict(rows=rows, maps=rel,
+                                             share=share)
+        _, sec = win.run(f"{label} timed", lambda: timed_batches(
+            lambda: eng.detect_batch(frames), 5))
+        _, f32_sec = win.run(f"{arch} f32 timed", lambda: timed_batches(
+            lambda: f32[arch].detect_batch(frames), 5))
+        stats[f"{label} fps"] = B / sec
+        stats[f"{arch} f32 fps"] = B / f32_sec
+        with torch.inference_mode():
+            x = eng._preprocess(frames_t)
+            net_ms = cuda_ms(lambda: eng._network(x), 10)
+            f32_ms = cuda_ms(lambda: f32[arch]._network(x), 10)
+        stats[f"{label} network ms"] = net_ms
+        stats[f"{arch} f32 network ms"] = f32_ms
+        say(f"  {label}: {B / sec:.1f} frames/s (network {net_ms:.3f} ms) "
+            f"against f32 {B / f32_sec:.1f} frames/s (network {f32_ms:.3f}"
+            f" ms) on {card}")
+
+    stats["windows"] = {k: {n: c for n, c in v.items() if c}
+                        for k, v in win.parts.items()}
+    counted = {k: v for k, v in win.parts.items() if not k.endswith(" timed")}
+    launches = {k: sum(p[k] for p in counted.values()) for k in ck.LAUNCHES}
+    kernel = dict(
+        name="conv_int8", route="cuda",
+        source="face_detection_and_recognition_tpu_torch/csrc/conv_int8.cu",
+        replaces="face_detection_and_recognition_tpu/models/layers.py:80 "
+                 "(ConvBN quantized: lax.conv_general_dilated int8 x int8 -> "
+                 "int32; no Pallas kernel)",
+        max_abs_err=max(err for _, err in q1.values()), **timing)
+    return launches, stats, kernel
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -2812,8 +3209,9 @@ def main():
         f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
     say(f"  kernels: {sorted(ck.LAUNCHES)} (B1 NMS keep mask, B2 candidate"
         " row gather, B3 crop + bilinear resize, B4 gallery top-k, B5"
-        " weighted-blend NMS: standalone, and fused with BlazeFace's decode),"
-        " CUDA C++ for sm_90a")
+        " weighted-blend NMS: standalone, and fused with BlazeFace's decode;"
+        " Q1 the int8 convolution of the quantized yolov5 nets), CUDA C++ "
+        "for sm_90a")
     phase_end("environment")
 
     say("[build]")
@@ -2970,6 +3368,20 @@ def main():
         raise AssertionError("kernel nms_fixpoint never launched on the path")
     phase_end("main path: res10 + openvino")
 
+    say("[main path: int8 + keras + eval] yolov5n and yolov5s int8 "
+        "(dynamic and static scales), a keras FaceNet SavedModel, "
+        "eval_wider")
+    ike_launches, ike, q1_kernel = run_int8_keras_eval(frames, card)
+    kernels.append(q1_kernel)
+    say(f"  launches on the int8 + keras + eval path: {ike_launches}, by "
+        f"part {json.dumps(ike['windows'])}")
+    say(f"  int8 + keras + eval numbers: "
+        f"{json.dumps({k: v for k, v in ike.items() if k != 'windows'})}")
+    for name in ("conv_int8", "nms_fixpoint", "rows_gather"):
+        if ike_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    phase_end("main path: int8 + keras + eval")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -3008,7 +3420,8 @@ def main():
                    "cli + serving": serving_launches[k["name"]],
                    "pipelines": pipeline_launches[k["name"]],
                    "ssd + mtcnn": ssd_launches[k["name"]],
-                   "res10 + openvino": r10ov_launches[k["name"]]}
+                   "res10 + openvino": r10ov_launches[k["name"]],
+                   "int8 + keras + eval": ike_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

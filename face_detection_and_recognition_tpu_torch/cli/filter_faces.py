@@ -10,9 +10,10 @@ host (``host_resize``, cv2's INTER_LINEAR). A file that does not decode
 embeds as a blank image, as in the JAX CLI. It runs on the card unless
 ``-d cpu`` is given.
 
-``-m`` takes the embedder's weights as a torch ``.pt`` / ``.pth`` state
-dict. The keras SavedModel directory and ``.h5`` file the JAX CLI also
-reads are not ported yet (ROADMAP A5), nor are orbax checkpoints.
+``-m`` takes the embedder's weights as the JAX CLI does: a keras FaceNet
+SavedModel directory (the reference's ``models/facenet/facenet_keras_p38``)
+or ``.h5`` file, or, in place of the JAX CLI's orbax checkpoint, a torch
+``.pt`` / ``.pth`` state dict (``FaceEngine.load_embed_weights``).
 
     python -m face_detection_and_recognition_tpu_torch.cli.filter_faces \\
         --data_dir data/ -r refs/ -t out/ --embedder facenet
@@ -20,7 +21,6 @@ reads are not ported yet (ROADMAP A5), nor are orbax checkpoints.
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 
@@ -29,10 +29,6 @@ from ..ops.geometry import host_resize
 from ..pipelines.similarity import SimilarFaceFilter
 from ..utils.native import IMAGE_EXTENSIONS, read_image_bgr
 from ..utils.parser import add_device_flag
-
-NO_KERAS = ("{}: keras SavedModel and .h5 FaceNet weights are not read by "
-            "the port yet (ROADMAP A5); pass a torch .pt/.pth state dict")
-
 
 def _read(path: str):
     """The image at ``path``, or None where cv2.imread would give None."""
@@ -51,15 +47,14 @@ def main(argv=None) -> int:
     ap.add_argument("--embedder", default="facenet",
                     help="embedder registry name (reference uses 128-d facenet)")
     ap.add_argument("-m", "--savedmodel_path", default=None,
-                    help="embedder weights: a torch .pt/.pth state dict")
+                    help="embedder weights: a keras SavedModel dir (the "
+                         "reference's models/facenet/facenet_keras_p38), a "
+                         ".h5, or a torch .pt/.pth state dict")
     ap.add_argument("--batch", type=int, default=32)
     add_device_flag(ap, ("--device",))
     args = ap.parse_args(argv)
 
     path = args.savedmodel_path
-    if path and (path.endswith(".h5") or os.path.exists(
-            os.path.join(path, "saved_model.pb"))):
-        raise ValueError(NO_KERAS.format(path))
     engine = FaceEngine(EngineConfig(detector="blazeface-front",
                                      embedder=args.embedder),
                         device=args.device)

@@ -36,6 +36,7 @@ from ..ops import preprocess as P
 from ..ops.crop import crop_and_resize, crop_for_net, pad_boxes
 from ..ops.geometry import rect_letterbox_size, resize_bilinear
 from ..ops.platform import resolve_device
+from ..utils.quantize import quantized_mode
 from .detections import Detections, PostProcessedDetection, postprocess_detections
 
 AG_HW = (227, 227)                  # age/gender crop size
@@ -107,6 +108,9 @@ class EngineConfig:
     # input_size (576x1024 -> 384x640)
     rect: bool = False
     seed: int = 0
+    # build-time detector settings: input_size, conf_thres... and, for the
+    # yolov5-face family, {"quantized": True | "static"}: the int8 net
+    # (utils/quantize.py; Q1 on the card)
     detector_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -220,7 +224,10 @@ class FaceEngine:
           or BlazeFace one, or one ``save_weights`` wrote): the port's
           modules carry the reference's names, so it loads as it is, less
           the yolov5 Detect layer's ``anchors`` / ``anchor_grid`` buffers
-          (the port keeps its anchors in ``ARCHS``);
+          (the port keeps its anchors in ``ARCHS``). An int8 yolov5 state
+          dict (``utils/quantize.py``: ``kernel_q``, ``wscale``, ``bias``
+          and, static, ``ascale`` a ConvBN) rebuilds the net in its mode
+          first;
         - ``.caffemodel`` / ``.pb`` / ``.xml`` (with its sibling ``.bin``):
           read against the net by the detector's importer
           (``DetectorSpec.import_caffemodel`` / ``import_pb`` /
@@ -252,7 +259,26 @@ class FaceEngine:
         else:
             sd = {k: v for k, v in read_state_dict(path).items()
                   if not k.endswith((".anchors", ".anchor_grid"))}
+            self._match_quantized(path, quantized_mode(sd))
         self.net.load_state_dict(sd)
+
+    def _match_quantized(self, path: str, mode) -> None:
+        """Rebuild the detector net in the int8 mode of the weight file
+        (``mode``: False, True or "static", ``utils.quantize.
+        quantized_mode``) when it is not the net's: an int8 ``.pt`` serves
+        through the same entry points (the CLI's ``--ckpt``,
+        ``ServiceConfig.ckpt``). A detector without an int8 build raises
+        ``ValueError`` for an int8 file."""
+        if mode == getattr(self.net, "quantized", False):
+            return
+        if not self.spec.quantizable:
+            raise ValueError(f"{path}: int8 weights, and detector "
+                             f"'{self.spec.name}' has no int8 build")
+        overrides = {**self.cfg.detector_overrides, "quantized": mode}
+        self.net, self._decode = self.spec.build(
+            torch.Generator().manual_seed(self.cfg.seed), self.device,
+            **overrides)
+        self._pipelines.clear()
 
     def _replace_net(self, path: str, net, decode: Callable) -> None:
         """Run ``net`` and its ``decode`` from now on, in place of the
@@ -274,14 +300,38 @@ class FaceEngine:
         torch.save(self.net.state_dict(), path)
 
     def load_embed_weights(self, path: str) -> None:
-        """Load the embedder slot's weights from a torch weight file (a
-        reference MobileFaceNet state dict, or any slot's state dict that
-        ``load_embed_state_dict`` takes, saved with ``torch.save``). The
-        JAX engine's keras FaceNet SavedModel and HDF5 readers are not
-        ported yet: such paths raise ``ValueError``."""
+        """Load the embedder slot's weights, by the artifact's kind:
+
+        - a directory holding ``saved_model.pb``: a keras FaceNet
+          SavedModel, the similar-face filter's model
+          (``filter_faces_using_reference.py:131``), its variables read
+          without TensorFlow from the TensorBundle
+          (``utils/tensor_bundle.py``);
+        - ``.h5``: a keras FaceNet HDF5 file (``h5py`` is needed for it);
+        - anything else: a torch weight file (a reference MobileFaceNet
+          state dict, or any slot's state dict that
+          ``load_embed_state_dict`` takes, saved with ``torch.save``).
+
+        The keras files pour into the slot's net in execution order
+        (``utils.weights.convert_facenet_keras``): the facenet and
+        facenet-512 slots."""
         if self.embed_net is None:
             raise ValueError("engine built without an embedder")
-        self.embed_net.load_state_dict(read_state_dict(path))
+        from ..utils import weights as W
+
+        if os.path.isdir(path) and os.path.exists(
+                os.path.join(path, "saved_model.pb")):
+            from ..utils.tensor_bundle import read_tensor_bundle
+
+            stream = W.keras_bundle_stream(read_tensor_bundle(
+                os.path.join(path, "variables", "variables")))
+            sd = W.convert_facenet_keras(stream, self.embed_net)
+        elif os.path.splitext(path)[1].lower() == ".h5":
+            sd = W.convert_facenet_keras(W.read_keras_h5_stream(path),
+                                         self.embed_net)
+        else:
+            sd = read_state_dict(path)
+        self.embed_net.load_state_dict(sd)
 
     def load_age_gender_weights(self, path: str = None,
                                 age_caffemodel: str = None,

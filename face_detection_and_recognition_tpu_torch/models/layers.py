@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8_conv import conv_int8
+
 
 def autopad(k: int, p: Optional[int] = None) -> int:
     """'same' padding for odd kernels."""
@@ -59,15 +61,61 @@ class ConvBN(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
+class QConvBN(nn.Module):
+    """The int8 ConvBN (the JAX package's ``ConvBN(quantized=True |
+    "static")``): BN folded into per-output-channel int8 weights
+    ``kernel_q`` [C_out, k, k, C_in / g] (OHWI) with scales ``wscale`` and
+    a ``bias``; the input quantized per tensor, from its absmax over the
+    whole batch or, ``static``, from the calibrated ``ascale``; the codes
+    convolved into int32 sums (``ops.int8_conv.conv_int8``: the Q1 kernel
+    on the card), then dequantized, biased and passed through SiLU or
+    none. ``utils.quantize`` builds the weights."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
+                 p: Optional[int] = None, groups: int = 1,
+                 act: Optional[str] = "silu", static: bool = False):
+        super().__init__()
+        self.stride, self.pad, self.groups, self.act = s, autopad(k, p), \
+            groups, act
+        self.register_buffer("kernel_q", torch.zeros(
+            (c_out, k, k, c_in // groups), dtype=torch.int8))
+        self.register_buffer("wscale", torch.ones(c_out))
+        self.register_buffer("bias", torch.zeros(c_out))
+        self.register_buffer("ascale", torch.ones(()) if static else None)
+
+    def _apply(self, fn, *args, **kwargs):
+        # Module.to(memory_format=channels_last) restrides every 4-D
+        # buffer; the kernel reads the codes as dense OHWI
+        out = super()._apply(fn, *args, **kwargs)
+        self.kernel_q = self.kernel_q.contiguous()
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_int8(x, self.kernel_q, self.wscale, self.bias,
+                         self.stride, self.pad, self.groups, self.act,
+                         self.ascale)
+
+
+def conv_bn(c_in: int, c_out: int, k: int = 1, s: int = 1,
+            p: Optional[int] = None, groups: int = 1,
+            act: Optional[str] = "silu", quantized=False) -> nn.Module:
+    """A ConvBN, or its int8 form when ``quantized`` (True: dynamic
+    activation scales; "static": calibrated ones)."""
+    if quantized:
+        return QConvBN(c_in, c_out, k, s, p, groups, act,
+                       static=quantized == "static")
+    return ConvBN(c_in, c_out, k, s, p, groups, act)
+
+
 class Bottleneck(nn.Module):
     """Standard bottleneck, with a residual when shapes allow."""
 
     def __init__(self, c_in: int, c_out: int, shortcut: bool = True,
-                 e: float = 0.5):
+                 e: float = 0.5, quantized=False):
         super().__init__()
         c_ = int(c_out * e)
-        self.cv1 = ConvBN(c_in, c_, 1, 1)
-        self.cv2 = ConvBN(c_, c_out, 3, 1)
+        self.cv1 = conv_bn(c_in, c_, 1, 1, quantized=quantized)
+        self.cv2 = conv_bn(c_, c_out, 3, 1, quantized=quantized)
         self.add = shortcut and c_in == c_out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -79,13 +127,14 @@ class C3(nn.Module):
     """CSP bottleneck with 3 convs."""
 
     def __init__(self, c_in: int, c_out: int, n: int = 1,
-                 shortcut: bool = True, e: float = 0.5):
+                 shortcut: bool = True, e: float = 0.5, quantized=False):
         super().__init__()
         c_ = int(c_out * e)
-        self.cv1 = ConvBN(c_in, c_, 1, 1)
-        self.cv2 = ConvBN(c_in, c_, 1, 1)
-        self.cv3 = ConvBN(2 * c_, c_out, 1)
-        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, e=1.0)
+        self.cv1 = conv_bn(c_in, c_, 1, 1, quantized=quantized)
+        self.cv2 = conv_bn(c_in, c_, 1, 1, quantized=quantized)
+        self.cv3 = conv_bn(2 * c_, c_out, 1, quantized=quantized)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, e=1.0,
+                                            quantized=quantized)
                                  for _ in range(n)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -96,11 +145,12 @@ class SPP(nn.Module):
     """Spatial pyramid pooling: stride-1 'same' max pools of several sizes."""
 
     def __init__(self, c_in: int, c_out: int,
-                 kernels: Sequence[int] = (5, 9, 13)):
+                 kernels: Sequence[int] = (5, 9, 13), quantized=False):
         super().__init__()
         c_ = c_in // 2
-        self.cv1 = ConvBN(c_in, c_, 1, 1)
-        self.cv2 = ConvBN(c_ * (len(kernels) + 1), c_out, 1, 1)
+        self.cv1 = conv_bn(c_in, c_, 1, 1, quantized=quantized)
+        self.cv2 = conv_bn(c_ * (len(kernels) + 1), c_out, 1, 1,
+                           quantized=quantized)
         self.m = nn.ModuleList(nn.MaxPool2d(k, 1, k // 2) for k in kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,13 +162,15 @@ class StemBlock(nn.Module):
     """PeleeNet-style stem; its 2x2 max pool rounds up (ceil_mode), as the
     JAX package's SAME-padded pool does."""
 
-    def __init__(self, c_in: int, c_out: int, k: int = 3, s: int = 2):
+    def __init__(self, c_in: int, c_out: int, k: int = 3, s: int = 2,
+                 quantized=False):
         super().__init__()
-        self.stem_1 = ConvBN(c_in, c_out, k, s)
-        self.stem_2a = ConvBN(c_out, c_out // 2, 1, 1, 0)
-        self.stem_2b = ConvBN(c_out // 2, c_out, 3, 2, 1)
+        q = dict(quantized=quantized)
+        self.stem_1 = conv_bn(c_in, c_out, k, s, **q)
+        self.stem_2a = conv_bn(c_out, c_out // 2, 1, 1, 0, **q)
+        self.stem_2b = conv_bn(c_out // 2, c_out, 3, 2, 1, **q)
         self.stem_2p = nn.MaxPool2d(2, 2, ceil_mode=True)
-        self.stem_3 = ConvBN(c_out * 2, c_out, 1, 1, 0)
+        self.stem_3 = conv_bn(c_out * 2, c_out, 1, 1, 0, **q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s1 = self.stem_1(x)
@@ -145,19 +197,33 @@ class ShuffleV2Block(nn.Module):
     """ShuffleNetV2 unit with SiLU activations (yolov5n). The branches are
     the reference's ``nn.Sequential``s, so their indices are its state_dict
     names: branch1 = (dw conv, bn, conv, bn, SiLU) when strided, branch2 =
-    (conv, bn, SiLU, dw conv, bn, conv, bn, SiLU)."""
+    (conv, bn, SiLU, dw conv, bn, conv, bn, SiLU). ``quantized``: each
+    (conv, bn) pair is one ``QConvBN`` (the depthwise ones linear), so
+    branch1 = (dw, 1x1) and branch2 = (1x1, dw, 1x1)."""
 
-    def __init__(self, c_in: int, c_out: int, stride: int):
+    def __init__(self, c_in: int, c_out: int, stride: int, quantized=False):
         super().__init__()
         self.stride = stride
         bf = c_out // 2
+        c2 = c_in if stride > 1 else c_in // 2
+        if quantized:
+            q = dict(quantized=quantized)
+            self.branch1 = nn.Sequential(
+                conv_bn(c_in, c_in, 3, stride, 1, c_in, None, **q),
+                conv_bn(c_in, bf, 1, 1, 0, **q)) if stride > 1 \
+                else nn.Sequential()
+            self.branch2 = nn.Sequential(
+                conv_bn(c2, bf, 1, 1, 0, **q),
+                conv_bn(bf, bf, 3, stride, 1, bf, None, **q),
+                conv_bn(bf, bf, 1, 1, 0, **q))
+            return
         if stride > 1:
             self.branch1 = nn.Sequential(*_conv_bn(c_in, c_in, 3, stride, c_in),
                                          *_conv_bn(c_in, bf, 1, 1), nn.SiLU())
         else:
             self.branch1 = nn.Sequential()
         self.branch2 = nn.Sequential(
-            *_conv_bn(c_in if stride > 1 else c_in // 2, bf, 1, 1), nn.SiLU(),
+            *_conv_bn(c2, bf, 1, 1), nn.SiLU(),
             *_conv_bn(bf, bf, 3, stride, bf), *_conv_bn(bf, bf, 1, 1),
             nn.SiLU())
 

@@ -9,7 +9,9 @@ ssd-squeezenet), the exact res10_300x300 Caffe deploy graph (res10-ssd),
 the OpenVINO IR nets (openvino-ir, which executes the ``.xml`` given as
 ``detector_overrides={"xml": ...}``; ov-0204 and ov-squeezenet-light, the
 reference's two IR topologies) and the MTCNN cascade (mtcnn, at native
-resolution: ``input_size`` (-1, -1)). ``build`` returns the network and
+resolution: ``input_size`` (-1, -1)). The nine yolov5-face names also
+build int8 nets (``detector_overrides={"quantized": True | "static"}``).
+``build`` returns the network and
 its decode, with detections in the normalized contract: rows [xmin, ymin,
 xmax, ymax, (lmk xy pairs...), conf] in [0, 1] wrt the model input size.
 """
@@ -167,6 +169,10 @@ class DetectorSpec:
     import_caffemodel: Optional[Callable] = import_caffemodel_structural
     import_pb: Optional[Callable] = None
     import_xml: Optional[Callable] = import_xml_structural
+    # the build takes detector_overrides={"quantized": True | "static"}
+    # (the int8 yolov5-face nets); load_weights rebuilds the net to the
+    # mode of an int8 state dict
+    quantizable: bool = False
 
 
 _REGISTRY = {}
@@ -190,11 +196,25 @@ def get(name: str) -> DetectorSpec:
 # ---------------- yolov5-face family ----------------
 
 
+CALIBRATION_BATCH = (2, 256, 256, 3)  # a static int8 net's seeded frames
+
+
 def _build_yolov5(arch: str, input_size):
     def build(generator: torch.Generator, device: torch.device, **kw):
         kw.setdefault("input_size", input_size)
+        # quantized is a build-time graph switch, not a config field, as
+        # in the JAX registry: the seeded f32 net is folded and quantized
+        # into the int8 one, whose static scales are calibrated on seeded
+        # noise frames (utils/quantize.py)
+        quantized = kw.pop("quantized", False)
         cfg = YoloV5FaceConfig(arch=arch, **kw)
         net = YoloV5FaceNet(arch, cfg.nc).init_random_(generator)
+        if quantized:
+            from ..utils.quantize import quantize_net
+
+            net = quantize_net(
+                net, YoloV5FaceNet(arch, cfg.nc, quantized=quantized),
+                [torch.rand(CALIBRATION_BATCH, generator=generator)])
         net = net.to(device=device, memory_format=torch.channels_last).eval()
         spec = ARCHS[arch]
 
@@ -226,6 +246,7 @@ for _arch in ("yolov5s", "yolov5m", "yolov5l", "yolov5n", "yolov5n-0.5",
         n_landmark_cols=10,
         build=_build_yolov5(_arch, (640, 640)),
         rect_stride=64 if _arch.endswith("6") else 32,
+        quantizable=True,
     ))
 
 

@@ -24,7 +24,7 @@ from ..ops.boxes import xywh2xyxy
 from ..ops.cuda_kernels import (_candidate_grid_params, candidate_decode,
                                 nms_fixpoint)
 from ..ops.nms import multiclass_nms, sort_by_score
-from .layers import (C3, SPP, ConvBN, ShuffleV2Block, StemBlock,
+from .layers import (C3, SPP, ShuffleV2Block, StemBlock, conv_bn,
                      make_divisible_torch)
 
 FACE_ANCHORS = (
@@ -221,11 +221,17 @@ class YoloV5FaceNet(nn.Module):
     """Graph-executing yolov5-face network. Takes NHWC [B, h, w, 3] RGB in
     [0, 1] and returns the raw per-level maps [B, na, ny, nx, no]
     (no = nc + 5 + 10; ``with_landmarks=False`` is the official yolov5
-    head, no = nc + 5). Layers are ``model.{i}`` in graph order."""
+    head, no = nc + 5). Layers are ``model.{i}`` in graph order.
+    ``quantized`` (True, or "static" for calibrated activation scales)
+    builds every ConvBN as an int8 ``QConvBN``; the Detect head's 1x1
+    convolutions stay f32, as in the JAX package
+    (``utils.quantize.quantize_net`` fills the weights)."""
 
     def __init__(self, arch: str = "yolov5s", nc: int = 1,
-                 with_landmarks: bool = True):
+                 with_landmarks: bool = True, quantized=False):
         super().__init__()
+        self.quantized = quantized
+        q = dict(quantized=quantized)
         spec = ARCHS[arch]
         gd, gw = spec["gd"], spec["gw"]
         na = len(spec["anchors"][0])
@@ -241,23 +247,23 @@ class YoloV5FaceNet(nn.Module):
                                              else None)
             if mod == "Conv":
                 c_out = width(args[0])
-                m = ConvBN(c_in, c_out, args[1], args[2])
+                m = conv_bn(c_in, c_out, args[1], args[2], **q)
             elif mod == "C3":
                 c_out = width(args[0])
                 shortcut = args[1] if len(args) > 1 else True
-                m = C3(c_in, c_out, graph_depth(n, gd), shortcut)
+                m = C3(c_in, c_out, graph_depth(n, gd), shortcut, **q)
             elif mod == "SPP":
                 c_out = width(args[0])
-                m = SPP(c_in, c_out, tuple(args[1]))
+                m = SPP(c_in, c_out, tuple(args[1]), **q)
             elif mod == "StemBlock":
                 c_out = width(args[0])
-                m = StemBlock(c_in, c_out, args[1], args[2])
+                m = StemBlock(c_in, c_out, args[1], args[2], **q)
             elif mod == "ShuffleV2Block":
                 # repeats are model.{i}.{r}, a single block model.{i}
                 c_out = width(args[0])
                 reps = graph_depth(n, gd)
                 blocks = [ShuffleV2Block(c_in if r == 0 else c_out, c_out,
-                                         args[1]) for r in range(reps)]
+                                         args[1], **q) for r in range(reps)]
                 m = blocks[0] if reps == 1 else nn.Sequential(*blocks)
             elif mod == "Upsample":
                 c_out = c_in

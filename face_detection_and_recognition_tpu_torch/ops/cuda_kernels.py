@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the port (the detect, ensemble,
-similarity and BlazeFace paths), their plain PyTorch versions, and the build
-that turns ``csrc/*.cu`` into one shared library.
+similarity and BlazeFace paths, and the int8 convolution of the quantized
+yolov5 nets), their plain PyTorch versions, and the build that turns
+``csrc/*.cu`` into one shared library.
 
 Each wrapper takes the plain version for tensors on the CPU (the tests) and
 launches its kernel for CUDA tensors; there is no fallback between the two.
@@ -40,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0,
-            "topk_gallery": 0, "blend_nms": 0, "blaze_decode_blend": 0}
+            "topk_gallery": 0, "blend_nms": 0, "blaze_decode_blend": 0,
+            "conv_int8": 0}
 
 _LIB = []  # the loaded library, once built
 # request threads reach the first build and bind, and count launches,
@@ -149,6 +151,9 @@ def _bind(path: Path):
     lib.blaze_decode_blend_launch.argtypes = [p, p, p, p, p, i, i, f, f, f,
                                               f, i, p]
     lib.blaze_decode_blend_launch.restype = i
+    lib.conv_int8_launch.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i,
+                                     i, i, i, i, i, i, i, i, i, p]
+    lib.conv_int8_launch.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib
@@ -853,3 +858,65 @@ def blaze_decode_blend(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
     _check(err, "blaze_decode_blend")
     _count("blaze_decode_blend")
     return out, out_valid
+
+
+# ---------------- Q1: the int8 convolution of a quantized ConvBN ----------------
+
+CONV_INT8_THREADS = 256  # csrc/conv_int8.cu's block size
+CONV_INT8_MAX_PARTS = 1024
+
+
+def conv_int8(x: torch.Tensor, kernel_q: torch.Tensor, wscale: torch.Tensor,
+              bias: torch.Tensor, stride: int, pad: int, groups: int,
+              act: Optional[str], ascale: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """A quantized ConvBN in three launches (``csrc/conv_int8.cu``): the
+    input's absmax (skipped with a static ``ascale``), its int8 codes, and
+    the int8 convolution with int32 sums and the fused epilogue (dequantize,
+    bias, SiLU or none). Equal to ``ops.int8_conv.conv_int8_plain``: the
+    pre-activation bit for bit, SiLU within a few ulp.
+
+    x: [B, C, H, W] f32 on the card, read as NHWC (the channels-last
+    memory format; any other layout is copied into it first); kernel_q:
+    [C_out, k, k, C / groups] int8, contiguous; wscale, bias: [C_out] f32;
+    ascale: 0-d f32 or None; groups 1, or C == C_out (depthwise). Returns
+    [B, C_out, Ho, Wo] f32 in the channels-last memory format."""
+    xh = x.permute(0, 2, 3, 1)
+    if not xh.is_contiguous():
+        xh = xh.contiguous()
+    extra = [ascale] if ascale is not None else []
+    _require_cuda("conv_int8", xh, kernel_q, wscale, bias, *extra)
+    b, h, w, c = xh.shape
+    cout, k, k2, cg = kernel_q.shape
+    if xh.dtype != torch.float32 or kernel_q.dtype != torch.int8 \
+            or any(t.dtype != torch.float32 for t in [wscale, bias, *extra]):
+        raise ValueError("conv_int8: f32 input, int8 weights and f32 "
+                         "scales and bias expected")
+    if k != k2 or wscale.shape != (cout,) or bias.shape != (cout,) \
+            or (ascale is not None and ascale.dim() != 0):
+        raise ValueError(f"conv_int8: weights {tuple(kernel_q.shape)}, "
+                         f"wscale {tuple(wscale.shape)}, bias "
+                         f"{tuple(bias.shape)} do not fit")
+    if not ((groups == 1 and cg == c) or (groups == c == cout and cg == 1)):
+        raise ValueError(f"conv_int8: groups = {groups} with C = {c}, C_out "
+                         f"= {cout} and C/g = {cg}: only 1 or depthwise")
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    out = torch.empty((b, ho, wo, cout), dtype=torch.float32,
+                      device=xh.device)
+    xq = torch.empty((b, h, w, c), dtype=torch.int8, device=xh.device)
+    if ascale is None:
+        nparts = max(1, min(CONV_INT8_MAX_PARTS,
+                            -(-xh.numel() // (CONV_INT8_THREADS * 8))))
+        partial = torch.empty(nparts, dtype=torch.float32, device=xh.device)
+        s_out = torch.empty(1, dtype=torch.float32, device=xh.device)
+        ptrs = (None, partial.data_ptr(), nparts, s_out.data_ptr())
+    else:
+        ptrs = (ascale.data_ptr(), None, 0, None)
+    err = _lib().conv_int8_launch(
+        xh.data_ptr(), kernel_q.data_ptr(), wscale.data_ptr(),
+        bias.data_ptr(), *ptrs, xq.data_ptr(), out.data_ptr(), b, h, w, c,
+        cout, k, int(stride), int(pad), int(groups), ho, wo,
+        1 if act == "silu" else 0, _stream(xh))
+    _check(err, "conv_int8")
+    _count("conv_int8")
+    return out.permute(0, 3, 1, 2)

@@ -11,7 +11,11 @@ stream poured into a net's slots in execution order
 graph (``convert_res10_graphdef``); and the bridges of the graph
 interpreters, whose weights are the files' own blobs and constants:
 ``caffe_graph_state_dict`` (res10-ssd) and ``ov_graph_state_dict`` (the
-OpenVINO IR nets).
+OpenVINO IR nets); the int8 yolov5 trees of the JAX package's
+``utils/quantize.py`` (``yolov5_face_state_dict`` maps them onto the
+port's quantized net); and the keras FaceNet readers
+(``keras_bundle_stream`` for a SavedModel's TensorBundle,
+``read_keras_h5_stream`` for an ``.h5``, ``convert_facenet_keras``).
 
 The inverse of ``convert_yolov5_face`` / ``convert_blazeface`` /
 ``convert_mobile_facenet`` / ``convert_caffenet_head`` in the JAX package's
@@ -54,55 +58,77 @@ def _bn(sd: Dict[str, torch.Tensor], tp: str, p: Mapping, s: Mapping) -> None:
     sd[f"{tp}.num_batches_tracked"] = torch.tensor(0)
 
 
+def _qconvbn(sd: Dict[str, torch.Tensor], tp: str, p: Mapping) -> None:
+    """A quantized flax ConvBN {kernel_q (HWIO int8), wscale, bias[,
+    ascale]} -> the port's ``QConvBN`` at ``tp`` (kernel_q OHWI)."""
+    sd[f"{tp}.kernel_q"] = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(p["kernel_q"], np.int8), (3, 0, 1, 2))))
+    for leaf in ("wscale", "bias", "ascale"):
+        if leaf in p:
+            sd[f"{tp}.{leaf}"] = _t(p[leaf])
+
+
 def yolov5_face_state_dict(variables: Mapping, arch: str
                            ) -> Dict[str, torch.Tensor]:
     """Map a ``YoloV5FaceNet`` flax tree {"params", "batch_stats"} of numpy
-    arrays onto the port's ``YoloV5FaceNet(arch)`` state_dict."""
+    arrays onto the port's ``YoloV5FaceNet(arch)`` state_dict; a quantized
+    tree ({"params"} with {kernel_q, wscale, bias[, ascale]} ConvBNs, the
+    JAX ``quantize_variables`` / ``pour_activation_scales``) onto the
+    port's ``YoloV5FaceNet(arch, quantized=...)``, whose ShuffleV2
+    branches hold one ``QConvBN`` a (conv, bn) pair."""
     spec = ARCHS[arch]
-    params, stats = variables["params"], variables["batch_stats"]
+    params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
 
-    def conv_bn(conv: str, bn: str, p: Mapping, s: Mapping) -> None:
+    def conv_bn(conv: str, bn: str, p: Mapping, s: Mapping,
+                qpath: str) -> None:
+        if "kernel_q" in p:
+            _qconvbn(sd, qpath, p)
+            return
         sd[f"{conv}.weight"] = f2t_conv(p["Conv_0"]["kernel"])
         _bn(sd, bn, p["BatchNorm_0"], s["BatchNorm_0"])
 
     def convbn(tp: str, p: Mapping, s: Mapping) -> None:
-        conv_bn(f"{tp}.conv", f"{tp}.bn", p, s)
+        conv_bn(f"{tp}.conv", f"{tp}.bn", p, s, tp)
 
     def children(tp: str, p: Mapping, s: Mapping, names) -> None:
         for k, sub in enumerate(names):
-            convbn(f"{tp}.{sub}", p[f"ConvBN_{k}"], s[f"ConvBN_{k}"])
+            convbn(f"{tp}.{sub}", p[f"ConvBN_{k}"], s.get(f"ConvBN_{k}"))
 
     for i, (frm, n, mod, args) in enumerate(spec["graph"]):
         t, name = f"model.{i}", f"layer{i}"
         if mod == "Conv":
-            convbn(t, params[name], stats[name])
+            convbn(t, params[name], stats.get(name))
         elif mod == "C3":
-            p, s = params[name], stats[name]
+            p, s = params[name], stats.get(name, {})
             children(t, p, s, ("cv1", "cv2", "cv3"))
             for j in range(graph_depth(n, spec["gd"])):
                 children(f"{t}.m.{j}", p[f"Bottleneck_{j}"],
-                         s[f"Bottleneck_{j}"], ("cv1", "cv2"))
+                         s.get(f"Bottleneck_{j}", {}), ("cv1", "cv2"))
         elif mod == "SPP":
-            children(t, params[name], stats[name], ("cv1", "cv2"))
+            children(t, params[name], stats.get(name, {}), ("cv1", "cv2"))
         elif mod == "StemBlock":
-            children(t, params[name], stats[name],
+            children(t, params[name], stats.get(name, {}),
                      ("stem_1", "stem_2a", "stem_2b", "stem_3"))
         elif mod == "ShuffleV2Block":
             # flax: layer{i}_{r} with ConvBN_k in call order (branch1's two
             # when strided, then branch2's three); torch: the branches'
-            # Sequential indices of each (conv, bn) pair
-            pairs = ([("branch1.0", "branch1.1"), ("branch1.2", "branch1.3")]
+            # Sequential indices of each (conv, bn) pair, or of each
+            # QConvBN in a quantized net
+            pairs = ([("branch1.0", "branch1.1", "branch1.0"),
+                      ("branch1.2", "branch1.3", "branch1.1")]
                      if args[1] > 1 else [])
-            pairs += [("branch2.0", "branch2.1"), ("branch2.3", "branch2.4"),
-                      ("branch2.5", "branch2.6")]
+            pairs += [("branch2.0", "branch2.1", "branch2.0"),
+                      ("branch2.3", "branch2.4", "branch2.1"),
+                      ("branch2.5", "branch2.6", "branch2.2")]
             reps = graph_depth(n, spec["gd"])
             for r in range(reps):
                 tp = t if reps == 1 else f"{t}.{r}"
-                p, s = params[f"layer{i}_{r}"], stats[f"layer{i}_{r}"]
-                for k, (cp, bp) in enumerate(pairs):
+                p = params[f"layer{i}_{r}"]
+                s = stats.get(f"layer{i}_{r}", {})
+                for k, (cp, bp, qp) in enumerate(pairs):
                     conv_bn(f"{tp}.{cp}", f"{tp}.{bp}", p[f"ConvBN_{k}"],
-                            s[f"ConvBN_{k}"])
+                            s.get(f"ConvBN_{k}"), f"{tp}.{qp}")
         elif mod == "Detect":
             for li in range(len(frm)):
                 det = params[f"detect_m{li}"]
@@ -529,16 +555,20 @@ _SLOT_LEAVES = (
     (nn.Linear, (("weight", "kernel"), ("bias", "bias"))),
     (nn.BatchNorm2d, (("weight", "scale"), ("bias", "bias"),
                       ("running_mean", "mean"), ("running_var", "var"))),
+    (nn.BatchNorm1d, (("weight", "scale"), ("bias", "bias"),
+                      ("running_mean", "mean"), ("running_var", "var"))),
     (nn.PReLU, (("weight", "alpha"),)),
 )
 
 
-def execution_slots(net: nn.Module, example: torch.Tensor):
+def execution_slots(net: nn.Module, example: torch.Tensor,
+                    skip: Sequence[str] = ()):
     """The net's weight slots in the order a serialized file streams them:
     parameter modules by their first call on ``example`` (the flax call
     order the JAX package records, since the port's forwards call in it),
-    each module's leaves in the JAX walk's order. Returns [(state_dict
-    name, flax leaf, flax shape)]."""
+    each module's leaves in the JAX walk's order, less the flax leaves
+    named in ``skip`` (a BatchNorm without a scale has no ``scale`` slot).
+    Returns [(state_dict name, flax leaf, flax shape)]."""
     names = {m: n for n, m in net.named_modules()}
     order: List[nn.Module] = []
 
@@ -562,7 +592,7 @@ def execution_slots(net: nn.Module, example: torch.Tensor):
         leaves = next(lv for t, lv in _SLOT_LEAVES if isinstance(mod, t))
         for attr, leaf in leaves:
             t = getattr(mod, attr, None)
-            if t is None:
+            if t is None or leaf in skip:
                 continue
             shape = tuple(t.shape)
             if leaf == "kernel":  # the flax layout of the file's array
@@ -573,16 +603,20 @@ def execution_slots(net: nn.Module, example: torch.Tensor):
 
 
 def structural_import(arrays: Sequence[np.ndarray], net: nn.Module,
-                      example: torch.Tensor, strict: bool = True
+                      example: torch.Tensor, strict: bool = True,
+                      skip: Sequence[str] = (), omit: Sequence[str] = ()
                       ) -> Dict[str, torch.Tensor]:
     """Pour an ordered array stream (``caffe_layers_to_arrays``, or a
     GraphDef's float consts) into ``net``'s slots in execution order, as
     the JAX package's ``structural_import`` with ``execution_module_order``
     pours it into a flax tree: the same arrays land on the same layers.
     Arrays are in the flax layouts (HWIO kernels, [in, out] Dense); every
-    shape is checked against the slot, a mismatch naming the slot. Returns
-    ``net``'s full state_dict with every slot replaced."""
-    slots = execution_slots(net, example)
+    shape is checked against the slot, a mismatch naming the slot; the
+    flax leaves in ``skip`` take no array (``execution_slots``), nor do the
+    state dict entries named in ``omit``. Returns ``net``'s full state_dict
+    with every slot replaced."""
+    slots = [sl for sl in execution_slots(net, example, skip)
+             if sl[0] not in omit]
     if strict and len(arrays) != len(slots):
         raise ValueError(f"weight stream has {len(arrays)} arrays but the "
                          f"model has {len(slots)} leaves")
@@ -593,6 +627,102 @@ def structural_import(arrays: Sequence[np.ndarray], net: nn.Module,
             raise ValueError(f"shape mismatch at {name}: file "
                              f"{tuple(arr.shape)} vs model {shape}")
         sd[name] = _flax_leaf_to_torch(leaf, arr).to(sd[name].device)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# keras FaceNet importer (SavedModel TensorBundle / HDF5)
+# ---------------------------------------------------------------------------
+
+# keras attribute -> its place in a layer's stream, the JAX walk's leaf
+# order (kernel, scale/gamma, bias/beta, mean, var)
+_KERAS_ATTR_PRI = {"kernel": 0, "depthwise_kernel": 0, "gamma": 1,
+                   "beta": 2, "bias": 2, "moving_mean": 3,
+                   "moving_variance": 4}
+
+
+def keras_bundle_stream(named) -> List[np.ndarray]:
+    """(name, array) pairs of a TF2 SavedModel's variables bundle
+    (``utils.tensor_bundle.read_tensor_bundle``) -> the model's layer
+    stream.
+
+    TF2 object-graph keys look like
+    ``layer_with_weights-12/kernel/.ATTRIBUTES/VARIABLE_VALUE``: layers are
+    numbered in build order and their attributes sorted by name (a conv's
+    ``bias`` before its ``kernel``), so the pairs are regrouped by layer and
+    each layer's emitted as kernel, gamma, beta, mean, var. Optimizer slots
+    and the step counter are dropped."""
+    groups: dict = {}
+    for name, arr in named:
+        if "/.OPTIMIZER_SLOT" in name \
+                or ".ATTRIBUTES/VARIABLE_VALUE" not in name:
+            continue
+        m = re.search(r"layer_with_weights-(\d+)/([a-z_]+)/", name)
+        if not m or m.group(2) not in _KERAS_ATTR_PRI:
+            continue
+        groups.setdefault(int(m.group(1)), []).append(
+            (_KERAS_ATTR_PRI[m.group(2)], arr))
+    return [arr for idx in sorted(groups)
+            for _, arr in sorted(groups[idx], key=lambda t: t[0])]
+
+
+def read_keras_h5_stream(path: str) -> List[np.ndarray]:
+    """A keras ``.h5`` file's weight arrays in the model's own layer order
+    (the ``model_weights`` group's ``layer_names`` and each layer's
+    ``weight_names``: [kernel, bias] / [gamma, beta, moving_mean,
+    moving_variance], already the stream order). Reading HDF5 needs
+    ``h5py``, imported here only: without it this raises ``ImportError``."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"{path}: reading a keras .h5 needs h5py, which "
+                          "is not installed") from e
+
+    def names(attrs, key):
+        return [n.decode() if isinstance(n, bytes) else n
+                for n in attrs.get(key, [])]
+
+    out = []
+    with h5py.File(path, "r") as f:
+        g = f["model_weights"] if "model_weights" in f else f
+        for lname in names(g.attrs, "layer_names") or list(g.keys()):
+            lg = g[lname]
+            out += [np.asarray(lg[wn]) for wn in names(lg.attrs,
+                                                         "weight_names")]
+    return out
+
+
+FACENET_EXAMPLE = (1, 160, 160, 3)  # the input FaceNet's call order is read on
+
+
+def convert_facenet_keras(stream: Sequence[np.ndarray], net: nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """Pour a keras FaceNet weight stream (``read_keras_h5_stream`` or
+    ``keras_bundle_stream``) into the port's ``InceptionResNetV1``: keras
+    and flax are both HWIO, so this is ``structural_import`` in execution
+    order, every shape checked. FaceNet's BatchNorms have no scale
+    (keras ``scale=False``): their weights stay 1 and take no array. The
+    reference loads the model with ``tf.keras.models.load_model``
+    (``similar_face_filtering/filter_faces_using_reference.py:131``).
+
+    A keras FaceNet stores the final BatchNorm's moving mean and variance
+    like every other's. The JAX package's stream stops short of them (its
+    slot walk gives statistics only to modules named ``BatchNorm_*``, and
+    the bottleneck's is ``bottleneck_bn``), so its files are two arrays
+    shorter; such a stream is taken too, and those two statistics are
+    then mean 0 and variance 1, the values the JAX import leaves there.
+    Returns ``net``'s state dict."""
+    stream = list(stream)
+    example = torch.zeros(FACENET_EXAMPLE)
+    slots = execution_slots(net, example, ("scale",))
+    last = slots[-1][0].rsplit(".", 1)[0]
+    stats = (f"{last}.running_mean", f"{last}.running_var")
+    if len(stream) != len(slots) - 2 or \
+            tuple(sl[0] for sl in slots[-2:]) != stats:
+        return structural_import(stream, net, example, skip=("scale",))
+    sd = structural_import(stream, net, example, skip=("scale",), omit=stats)
+    sd[stats[0]] = torch.zeros_like(sd[stats[0]])
+    sd[stats[1]] = torch.ones_like(sd[stats[1]])
     return sd
 
 

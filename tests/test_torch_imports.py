@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: it and ``chip_smoke.py`` load with
-jax, flax, orbax, cv2, PIL and grpc made unimportable (the gRPC front door
-imports grpc inside its functions), and pull in no module of the JAX
-package; its entry points refuse to fall back to the CPU."""
+jax, flax, orbax, cv2, PIL, grpc and h5py made unimportable (the gRPC
+front door imports grpc inside its functions, the keras ``.h5`` reader
+h5py inside its own), and pull in no module of the JAX package; its entry
+points refuse to fall back to the CPU."""
 import os
 import subprocess
 import sys
@@ -13,7 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL", "grpc"):
+for name in ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL", "grpc", "h5py"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import face_detection_and_recognition_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
@@ -38,7 +39,7 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
     # ops, models, core, utils, pipelines, cli, serving and their modules
     # were all imported
     n = int(out.stdout.split("MODULES ")[1].split()[0])
-    assert n >= 58, out.stdout
+    assert n >= 64, out.stdout
     names = out.stdout.split("NAMES ")[1].split()
     for mod in ("ops.crop", "models.mobile_facenet", "models.age_gender",
                 "models.embedders", "models.blazeface", "models.facenet",
@@ -56,7 +57,9 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "cli.filter_faces", "models.mtcnn",
                 "utils.model_formats", "utils.caffe_graph",
                 "utils.ir_graph", "models.caffe_ssd", "models.res10",
-                "models.ov_graph", "models.ov_topologies"):
+                "models.ov_graph", "models.ov_topologies",
+                "ops.int8_conv", "utils.quantize", "utils.tensor_bundle",
+                "eval", "eval.coco_eval", "cli.eval_wider"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 

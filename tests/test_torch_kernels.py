@@ -260,10 +260,21 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     for got, ref in zip(ck.blaze_decode_blend(*args),
                         ck.blaze_decode_blend_plain(*args)):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    x = torch.from_numpy(rng.normal(0, 1, (2, 8, 9, 7)).astype(np.float32))
+    kq = torch.from_numpy(rng.randint(-127, 128, (6, 3, 3, 8))
+                          .astype(np.int8))
+    ws, bias = torch.full((6,), 0.01), torch.zeros(6)
+    torch.testing.assert_close(
+        int8_conv.conv_int8(x, kq, ws, bias, 2, 1, 1, "silu"),
+        int8_conv.conv_int8_plain(x, kq, ws, bias, 2, 1, 1, "silu"),
+        rtol=0, atol=0)
     # the CPU path launches nothing and builds nothing
     assert ck.LAUNCHES == {"nms_fixpoint": 0, "rows_gather": 0,
                            "crop_resize": 0, "topk_gallery": 0,
-                           "blend_nms": 0, "blaze_decode_blend": 0}
+                           "blend_nms": 0, "blaze_decode_blend": 0,
+                           "conv_int8": 0}
     assert ck._LIB == []
     # the wrapper's k cap holds on every device
     with pytest.raises(ValueError, match="outside"):
