@@ -163,11 +163,17 @@ seconds:
    version (the pre-activation bit for bit, SiLU within 4 ulps), and
    yolov5n's dynamic ones against the plain version on the CPU on the
    same inputs (the pre-activation bit for bit, SiLU's ulps printed); Q1
-   timed
+   on a fixed sweep of its edge shapes (``Q1_SWEEP``: ragged C_in, C_out
+   and M, k = 5, depthwise, channel-slice and NCHW inputs; both modes)
+   against its plain version the same way; Q1 timed
    call by call over yolov5n's dynamic forward and yolov5s's static one
    (the sums, the profiler's device ms, the plain version's, ``F.conv2d``
    in float64 on the same codes as the library call, and the bound: bytes
-   over 3.35 TB/s against int8 operations over 1979 TOPS); each net's rows
+   over 3.35 TB/s against int8 operations over 1979 TOPS), its device ms
+   by call class (stem, dense 1x1, dense 3x3, depthwise) beside each
+   class's launches and bound, the kernels one call launches (the
+   profiler's names), and ``torch._int_mm`` on the codes of the 1x1 calls
+   it takes, beside Q1's device ms of the same calls; each net's rows
    on the first 2 frames against the port on the CPU (the difference
    printed); frames/s and network ms of int8 against f32;
 14. reference: the detector's raw maps, MobileFaceNet's embeddings, the
@@ -2838,14 +2844,14 @@ def mode_name(q):
 
 def q1_work(args):
     """(int8 operations, bytes) that one Q1 call needs: 2 * M * C_out * K
-    operations; the f32 input read once, the codes, scales and bias, and
-    the f32 output written once."""
-    x, kq, _, _, stride, pad, _, _, ascale = args
-    b, _, h, w = x.shape
-    cout, k, _, cg = kq.shape
+    operations; the f32 input read once, the weights' codes (unpadded),
+    scales and bias, and the f32 output written once."""
+    x, _, ws, _, k, stride, pad, groups, _, ascale = args
+    b, c, h, w = x.shape
+    cout, cg = ws.shape[0], c // groups
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     ops = 2 * b * ho * wo * cout * k * k * cg
-    nbytes = (4 * x.numel() + kq.numel() + 8 * cout
+    nbytes = (4 * x.numel() + cout * k * k * cg + 8 * cout
               + (4 if ascale is not None else 0) + 4 * b * ho * wo * cout)
     return ops, nbytes
 
@@ -2858,17 +2864,66 @@ def q1_bound(ops, nbytes):
         "operations"
 
 
+def q1_codes(args):
+    """The int8 codes [B, C, H, W] of a Q1 call's input, and its OHWI
+    weights (made outside any timing)."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    x, wpack, ws, _, k, _, _, groups, _, ascale = args
+    s = int8_conv.act_scale(x) if ascale is None else ascale
+    kq = int8_conv.unpack_kernel_q(wpack, k, x.shape[1] // groups,
+                                   ws.shape[0], groups)
+    return int8_conv.quantize_codes(x, s), kq
+
+
 def q1_library(args):
     """The one PyTorch call that computes Q1's integers, ``F.conv2d`` in
     float64 on the same codes (the codes are made outside the timing)."""
     import torch.nn.functional as F
+
+    _, _, _, _, _, stride, pad, groups, _, _ = args
+    xq, kq = q1_codes(args)
+    xq, w = xq.double(), kq.permute(0, 3, 1, 2).double()
+    return lambda: F.conv2d(xq, w, None, stride, pad, 1, groups)
+
+
+def q1_int_mm(args):
+    """For a dense 1x1 call whose shape ``torch._int_mm`` takes (int8
+    [M, K] @ [K, N], M > 16, K and N multiples of 8): that product on the
+    same codes, the int8 tensor cores' yardstick (the port never calls
+    it). Else None."""
+    x, _, ws, _, k, stride, pad, groups, _, _ = args
+    b, c, h, w = x.shape
+    cout = ws.shape[0]
+    if k != 1 or stride != 1 or pad or groups != 1 or c % 8 or cout % 8 \
+            or b * h * w <= 16:
+        return None
+    xq, kq = q1_codes(args)
+    a = xq.permute(0, 2, 3, 1).reshape(-1, c).contiguous()
+    wt = kq.reshape(cout, c).t()  # [K, N], column-major
+    return lambda: torch._int_mm(a, wt)
+
+
+def q1_class(args):
+    """A Q1 call's class: the stem (C_in 3), dense 1x1, dense k x k, or
+    depthwise."""
+    x, _, _, _, k, _, _, groups, _, _ = args
+    if groups > 1:
+        return "depthwise"
+    if x.shape[1] == 3:
+        return "stem"
+    return "dense 1x1" if k == 1 else f"dense {k}x{k}"
+
+
+def q1_plain(args):
     from face_detection_and_recognition_tpu_torch.ops import int8_conv
 
-    x, kq, _, _, stride, pad, groups, _, ascale = args
-    s = int8_conv.act_scale(x) if ascale is None else ascale
-    xq = int8_conv.quantize_codes(x, s).double()
-    w = kq.permute(0, 3, 1, 2).double()
-    return lambda: F.conv2d(xq, w, None, stride, pad, 1, groups)
+    return int8_conv.conv_int8_packed_plain(*args)
+
+
+def q1_linear(args):
+    """The same call without its activation: the pre-activation."""
+    return args[:8] + (None, args[9])
 
 
 def check_q1_calls(label, calls):
@@ -2876,19 +2931,16 @@ def check_q1_calls(label, calls):
     inputs: the pre-activation (the call again without its activation) bit
     for bit, the call's own output within SILU_ULPS. Returns (calls,
     largest ulps, max |kernel - plain|)."""
-    from face_detection_and_recognition_tpu_torch.ops import int8_conv
-
     worst, err = 0, 0.0
     with torch.inference_mode():
         for args, _ in calls:
-            lin = args[:7] + (None, args[8])
-            pre = ck.conv_int8(*lin)
-            if not same_bits(pre, int8_conv.conv_int8_plain(*lin)):
+            lin = q1_linear(args)
+            if not same_bits(ck.conv_int8(*lin), q1_plain(lin)):
                 raise AssertionError(f"{label}: Q1's pre-activation differs "
                                      f"from its plain version at "
                                      f"{tuple(args[0].shape)} -> "
                                      f"{tuple(args[1].shape)}")
-            got, ref = ck.conv_int8(*args), int8_conv.conv_int8_plain(*args)
+            got, ref = ck.conv_int8(*args), q1_plain(args)
             worst = max(worst, max_ulps(got, ref))
             err = max(err, float((got - ref).abs().max()))
     if worst > SILU_ULPS:
@@ -2897,66 +2949,174 @@ def check_q1_calls(label, calls):
     return len(calls), worst, err
 
 
+# the redesign's edge shapes (B, C_in, H, W, C_out, k, stride, groups,
+# input): the C_in = 3 stem path, ragged C_in (12, 92, 5), C_out off the N
+# tile (40, 360 over two tiles, 520 over three, 300 at k = 5), ragged M
+# (odd frames), depthwise at C % 16 != 0 and C % 4 != 0, two real widths;
+# the input channels-last ("nhwc"), the second half of a channels-last
+# tensor's channels ("slice": read in place, its pixel stride 2 C), or
+# NCHW ("nchw": copied first)
+Q1_SWEEP = ((1, 3, 33, 31, 16, 3, 2, 1, "nhwc"),
+            (2, 12, 17, 23, 40, 1, 1, 1, "nhwc"),
+            (1, 16, 21, 19, 40, 3, 2, 1, "nhwc"),
+            (1, 92, 13, 11, 360, 3, 1, 1, "nhwc"),
+            (3, 5, 9, 14, 7, 3, 1, 1, "nhwc"),
+            (1, 8, 9, 9, 300, 5, 1, 1, "nhwc"),
+            (1, 64, 7, 9, 520, 1, 1, 1, "nhwc"),
+            (2, 20, 19, 17, 20, 3, 1, 20, "nhwc"),
+            (1, 6, 11, 13, 6, 3, 2, 6, "nhwc"),
+            (2, 32, 15, 17, 48, 1, 1, 1, "slice"),
+            (1, 64, 13, 11, 64, 3, 2, 64, "slice"),
+            (1, 24, 9, 10, 36, 3, 1, 1, "nchw"),
+            (8, 184, 40, 40, 360, 3, 2, 1, "nhwc"),
+            (8, 720, 20, 20, 360, 1, 1, 1, "nhwc"),
+            (8, 256, 40, 40, 256, 3, 2, 256, "nhwc"))
+
+
+def check_q1_sweep():
+    """Q1 against its plain version on Q1_SWEEP's seeded layers, dynamic
+    and static: the pre-activation bit for bit, SiLU within SILU_ULPS.
+    Returns (calls, largest ulps)."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n, worst = 0, 0
+    with torch.inference_mode():
+        for b, c, h, w, cout, k, stride, groups, view in Q1_SWEEP:
+            x = (torch.randn((b, 2 * c if view == "slice" else c, h, w),
+                             generator=gen) * 2).cuda()
+            if view != "nchw":
+                x = x.contiguous(memory_format=torch.channels_last)
+            if view == "slice":
+                x = x[:, c:]
+            kq = torch.randint(-127, 128, (cout, k, k, c // groups),
+                               generator=gen, dtype=torch.int8).cuda()
+            ws = (torch.rand(cout, generator=gen) * 1e-3 + 1e-4).cuda()
+            bias = torch.randn(cout, generator=gen).cuda()
+            static = (x.abs().amax() * 0.8 / 127).reshape(())
+            wpack = int8_conv.pack_kernel_q(kq, groups)
+            for ascale in (None, static):
+                args = (x, wpack, ws, bias, k, stride, k // 2, groups,
+                        "silu", ascale)
+                lin = q1_linear(args)
+                if not same_bits(ck.conv_int8(*lin), q1_plain(lin)):
+                    raise AssertionError(
+                        f"Q1 sweep: pre-activation differs at B {b}, C {c}, "
+                        f"{h}x{w} -> {cout}, k {k}, stride {stride}, groups "
+                        f"{groups}, {view}, "
+                        f"{'static' if ascale is not None else 'dynamic'}")
+                worst = max(worst, max_ulps(ck.conv_int8(*args),
+                                            q1_plain(args)))
+                n += 1
+    if worst > SILU_ULPS:
+        raise AssertionError(f"Q1 sweep: SiLU {worst} ulps from the plain "
+                             "version")
+    return n, worst
+
+
 def q1_card_against_cpu(label, calls):
     """Each Q1 call of a forward on the card against the plain version on
     the CPU, on the same inputs copied there: the pre-activation bit for
     bit (both convolve the same codes exactly), and SiLU's largest
     distance in ulps (the card's expf against PyTorch's exp on the CPU).
     Returns that distance."""
-    from face_detection_and_recognition_tpu_torch.ops import int8_conv
-
     worst = 0
     with torch.inference_mode():
         for args, _ in calls:
             host = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
-            lin, host_lin = args[:7] + (None, args[8]), \
-                host[:7] + (None, host[8])
-            if not same_bits(ck.conv_int8(*lin).cpu(),
-                             int8_conv.conv_int8_plain(*host_lin)):
+            if not same_bits(ck.conv_int8(*q1_linear(args)).cpu(),
+                             q1_plain(q1_linear(host))):
                 raise AssertionError(f"{label}: Q1's pre-activation on the "
                                      "card differs from the CPU's at "
                                      f"{tuple(args[0].shape)} -> "
                                      f"{tuple(args[1].shape)}")
             worst = max(worst, max_ulps(ck.conv_int8(*args).cpu(),
-                                        int8_conv.conv_int8_plain(*host)))
+                                        q1_plain(host)))
     say(f"  Q1 on {label}, card against the CPU's plain version, layer by "
         f"layer on the card's inputs: {len(calls)} calls, pre-activation "
         f"bit for bit, SiLU within {worst} ulps")
     return worst
 
 
+def q1_launches_a_call(calls):
+    """The kernels a Q1 call puts on the card, from the profiler's names
+    over all of a forward's calls (so that one record the profiler misses
+    moves the mean by a fraction, not to 0): {name: launches / calls}."""
+    ops = device_ops(lambda: [ck.conv_int8(*a) for a, _ in calls], 3)
+    names = {}
+    for name, (_, n) in ops.items():
+        short = re.sub(r"\(anonymous namespace\)::", "", name)
+        short = re.split(r"[<(]", short.replace("void ", ""))[0]
+        names[short] = names.get(short, 0) + n
+    return {name: round(n / len(calls), 3) for name, n in names.items()}
+
+
 def time_q1(label, calls, card):
     """Q1 over one forward's calls: the sums of each call's ms between
     events, of the plain version's and of ``F.conv2d`` in float64, the
-    device ms of the whole set from the profiler, and the bound."""
-    from face_detection_and_recognition_tpu_torch.ops import int8_conv
-
+    device ms of the whole set from the profiler and of each call class
+    (stem, dense 1x1, dense 3x3, depthwise) with its launches and bound,
+    ``torch._int_mm`` on the codes of the 1x1 calls it takes beside Q1's
+    device ms of the same calls, and the kernels a call launches."""
     ms = plain_ms = library_ms = bound_ms = 0.0
     ops = nbytes = 0
-    rows = []
+    rows, classes, mm = [], {}, []
     with torch.inference_mode():
         for args, _ in calls:
             k_ms = cuda_ms(lambda: ck.conv_int8(*args), 20)
-            b_ms, _ = q1_bound(*q1_work(args))
+            o, n = q1_work(args)
+            b_ms, _ = q1_bound(o, n)
             ms += k_ms
             bound_ms += b_ms
-            plain_ms += cuda_ms(lambda: int8_conv.conv_int8_plain(*args), 2)
-            library_ms += cuda_ms(q1_library(args), 5)
-            o, n = q1_work(args)
             ops, nbytes = ops + o, nbytes + n
+            plain_ms += cuda_ms(lambda: q1_plain(args), 2)
+            library_ms += cuda_ms(q1_library(args), 5)
+            cls = classes.setdefault(q1_class(args), dict(
+                calls=[], bound_ms=0.0, ops=0, nbytes=0))
+            cls["calls"].append(args)
+            cls["bound_ms"] += b_ms
+            cls["ops"], cls["nbytes"] = cls["ops"] + o, cls["nbytes"] + n
+            int_mm = q1_int_mm(args)
+            if int_mm is not None:
+                mm.append((args, cuda_ms(int_mm, 10)))
             rows.append((k_ms, b_ms, tuple(args[0].shape),
-                         tuple(args[1].shape), args[4], args[6]))
+                         tuple(args[1].shape), args[5], args[7]))
         dev, _ = device_ms(lambda: [ck.conv_int8(*a) for a, _ in calls], 3)
+        per_call = q1_launches_a_call(calls)
+        for cls in classes.values():
+            cls["device_ms"], cls["launches"] = device_ms(
+                lambda: [ck.conv_int8(*a) for a in cls["calls"]], 3)
+        mm_q1, _ = device_ms(lambda: [ck.conv_int8(*a) for a, _ in mm], 3) \
+            if mm else (0.0, 0)
     _, bound_by = q1_bound(ops, nbytes)
+    mode = "static" if calls[0][0][9] is not None else "dynamic"
     say(f"  Q1 conv_int8, {label}: {len(calls)} calls, {ms:.4f} ms between "
         f"events, {dev:.4f} ms device, plain {plain_ms:.3f} ms, F.conv2d "
         f"float64 {library_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by};"
         f" {ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.1f} MB) on {card}")
+    say(f"    kernels a call ({mode}, from the profiler's names over the "
+        f"{len(calls)} calls): {sum(per_call.values()):.3f}: {per_call}")
+    for name, cls in sorted(classes.items()):
+        say(f"    {name}: {len(cls['calls'])} calls, {cls['launches']} "
+            f"launches, device {cls['device_ms']:.4f} ms, bound "
+            f"{cls['bound_ms']:.5f} ms ({cls['nbytes'] / 1e6:.1f} MB, "
+            f"{cls['ops'] / 1e9:.2f} G ops)")
+    mm_ms = sum(t for _, t in mm)
+    say(f"    torch._int_mm on the codes of the {len(mm)} 1x1 calls it takes:"
+        f" {mm_ms:.4f} ms between events, against Q1's {mm_q1:.4f} ms "
+        "device on the same calls (yardstick only; the port never calls it)")
     for k_ms, b_ms, xs, ws, stride, groups in sorted(rows, reverse=True)[:6]:
         say(f"    {k_ms:.4f} ms (bound {b_ms:.5f}): x {xs}, w {ws}, stride "
             f"{stride}, groups {groups}")
     return dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                launches_a_call=round(sum(per_call.values()), 3),
+                classes={n: dict(calls=len(c["calls"]),
+                                 launches=c["launches"],
+                                 device_ms=c["device_ms"],
+                                 bound_ms=c["bound_ms"])
+                         for n, c in classes.items()},
+                int_mm_1x1=dict(calls=len(mm), ms=mm_ms, q1_device_ms=mm_q1))
 
 
 def write_facenet_savedmodel(net, path):
@@ -3127,12 +3287,18 @@ def run_int8_keras_eval(frames, card):
         q1[label] = (calls, err)
         say(f"  Q1 on {label}: {n} calls, pre-activation bit for bit, SiLU "
             f"within {worst} ulps (max |kernel - plain| {err:.2e})")
+    n, worst = check_q1_sweep()
+    say(f"  Q1 on the sweep of the redesign's edge shapes ({len(Q1_SWEEP)} "
+        f"layers, dynamic and static): {n} calls, pre-activation bit for "
+        f"bit, SiLU within {worst} ulps")
+    stats["Q1 sweep"] = dict(calls=n, silu_ulps=worst)
     stats["Q1 card vs cpu silu ulps"] = q1_card_against_cpu(
         "yolov5n int8 dynamic", q1["yolov5n int8 dynamic"][0])
     timing = time_q1("yolov5n int8 dynamic, B = 8, 640x640",
                      q1["yolov5n int8 dynamic"][0], card)
-    time_q1("yolov5s int8 static, B = 8, 640x640",
-            q1["yolov5s int8 static"][0], card)
+    stats["Q1 yolov5s int8 static"] = time_q1(
+        "yolov5s int8 static, B = 8, 640x640", q1["yolov5s int8 static"][0],
+        card)
 
     # the card against the CPU, and int8 against f32
     head = torch.from_numpy(frames[:CPU_FRAMES])

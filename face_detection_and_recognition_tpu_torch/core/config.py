@@ -1,9 +1,9 @@
 """Config layer: every runtime config dataclass serializes to and from JSON.
 
 The port's copy of ``core/config.py`` in the JAX package: a CLI flag file, a
-service deployment config and a pipeline job spec share one format. A
-``dtype`` field maps to a ``torch`` dtype (the port's ``EngineConfig`` has
-none yet).
+service deployment config and a pipeline job spec share one format, and a
+file written by either package's ``save_config`` loads in the other. A
+``dtype`` field maps to a ``torch`` dtype (``as_dtype``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,18 @@ import torch
 T = TypeVar("T")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def as_dtype(v: Any) -> torch.dtype:
+    """A ``torch`` dtype, from one or from its name in any spelling
+    ``to_dict`` writes: "float32", "torch.float32", or the JAX package's
+    "<class 'jax.numpy.float32'>"."""
+    if isinstance(v, torch.dtype):
+        return v
+    name = str(v).split(".")[-1].replace("'>", "")
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {v!r}: one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
 
 
 def to_dict(cfg: Any) -> Dict[str, Any]:
@@ -54,7 +66,6 @@ def load_config(cls: Type[T], path: str, **overrides) -> T:
         if isinstance(default, tuple) and isinstance(v, list):
             v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
         if k == "dtype" and isinstance(v, str):
-            # "torch.bfloat16" (to_dict's str of a dtype) or "bfloat16"
-            v = _DTYPES.get(v.split(".")[-1], torch.float32)
+            v = as_dtype(v)
         kwargs[k] = v
     return cls(**kwargs)

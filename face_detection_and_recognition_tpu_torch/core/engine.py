@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models import registry
+from .config import as_dtype
 from ..models.age_gender import labels_from_probs, make_age_gender
 from ..models.embedders import get_embedder, preprocess_crops
 from ..ops import preprocess as P
@@ -94,8 +95,9 @@ class EnsembleResult:
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Engine settings, the JAX package's less ``dtype`` (the port runs
-    f32)."""
+    """Engine settings, the JAX package's. ``dtype`` is the compute type:
+    float32, in any spelling ``core.config.as_dtype`` reads; bfloat16
+    raises until the port runs it (ROADMAP.md A8)."""
 
     detector: str = "yolov5s"
     det_thres: float = 0.70
@@ -107,11 +109,19 @@ class EngineConfig:
     # stride-multiple canvas its letterbox fits in, instead of the square
     # input_size (576x1024 -> 384x640)
     rect: bool = False
+    dtype: Any = torch.float32
     seed: int = 0
     # build-time detector settings: input_size, conf_thres... and, for the
     # yolov5-face family, {"quantized": True | "static"}: the int8 net
     # (utils/quantize.py; Q1 on the card)
     detector_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        self.dtype = as_dtype(self.dtype)
+        if self.dtype != torch.float32:
+            raise ValueError(f"EngineConfig.dtype {self.dtype}: the port runs "
+                             "float32 only; bfloat16 is ROADMAP.md A8, not "
+                             "ported yet")
 
 
 def _ir_input_size(net) -> Optional[Tuple[int, int]]:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_conv import conv_int8
+from ..ops.int8_conv import conv_int8, pack_kernel_q
 
 
 def autopad(k: int, p: Optional[int] = None) -> int:
@@ -69,7 +69,9 @@ class QConvBN(nn.Module):
     whole batch or, ``static``, from the calibrated ``ascale``; the codes
     convolved into int32 sums (``ops.int8_conv.conv_int8``: the Q1 kernel
     on the card), then dequantized, biased and passed through SiLU or
-    none. ``utils.quantize`` builds the weights."""
+    none. ``utils.quantize`` builds the weights. On the card the kernel
+    reads them packed (``pack_kernel_q``), packed once for each new or
+    changed ``kernel_q``."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, groups: int = 1,
@@ -82,6 +84,7 @@ class QConvBN(nn.Module):
         self.register_buffer("wscale", torch.ones(c_out))
         self.register_buffer("bias", torch.zeros(c_out))
         self.register_buffer("ascale", torch.ones(()) if static else None)
+        self._wpack = self._wpack_of = None
 
     def _apply(self, fn, *args, **kwargs):
         # Module.to(memory_format=channels_last) restrides every 4-D
@@ -90,10 +93,26 @@ class QConvBN(nn.Module):
         self.kernel_q = self.kernel_q.contiguous()
         return out
 
+    def _packed(self) -> Optional[torch.Tensor]:
+        """Q1's packed weights for the current ``kernel_q`` (None on the
+        CPU): made again after ``to()`` or a weight load, which replace the
+        tensor or bump its version. An inference tensor has no version:
+        its pack is made every call."""
+        kq = self.kernel_q
+        if kq.device.type == "cpu":
+            return None
+        if kq.is_inference():
+            return pack_kernel_q(kq, self.groups)
+        of = self._wpack_of
+        if of is None or of[0] is not kq or of[1] != kq._version:
+            self._wpack = pack_kernel_q(kq, self.groups)
+            self._wpack_of = (kq, kq._version)
+        return self._wpack
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_int8(x, self.kernel_q, self.wscale, self.bias,
                          self.stride, self.pad, self.groups, self.act,
-                         self.ascale)
+                         self.ascale, self._packed())
 
 
 def conv_bn(c_in: int, c_out: int, k: int = 1, s: int = 1,
@@ -180,8 +199,14 @@ class StemBlock(nn.Module):
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """ShuffleNet channel shuffle of NCHW ``x``: channel j of the output is
-    channel (j % groups) * (C / groups) + j // groups of the input."""
+    channel (j % groups) * (C / groups) + j // groups of the input. A
+    channels-last ``x`` gives a channels-last result (the permutation made
+    within each pixel's NHWC row), so the next layers read it in place."""
     b, c, h, w = x.shape
+    if x.dim() == 4 and not x.is_contiguous() \
+            and x.is_contiguous(memory_format=torch.channels_last):
+        return x.permute(0, 2, 3, 1).reshape(b, h, w, groups, c // groups) \
+            .transpose(3, 4).reshape(b, h, w, c).permute(0, 3, 1, 2)
     return x.reshape(b, groups, c // groups, h, w).transpose(1, 2) \
         .reshape(b, c, h, w)
 

@@ -42,6 +42,13 @@ from ..ops.crop import crop_and_resize_padded
 from ..ops.cuda_kernels import _fma_f32
 from ..ops.geometry import resize_bilinear
 from ..ops.nms import greedy_nms_mask, sort_by_score, top_k
+from ..ops.platform import check_kernel_choice
+
+# crop_method's values (the JAX package's): "pallas" the hand-written crop
+# (B3), "gather" and "gemm" (JAX's two exact crops) the plain one, None /
+# "auto" by device
+CROP_METHODS = {None: None, "auto": None, "pallas": True, "gather": False,
+                "gemm": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +60,17 @@ class MTCNNConfig:
     max_stage1: int = 256
     max_stage2: int = 128
     max_faces: int = 64
+    crop_method: Optional[str] = None  # a key of CROP_METHODS
+
+
+def check_crop_method(cfg: MTCNNConfig, device) -> None:
+    """Validate ``cfg.crop_method`` against the engine's device
+    (``ops.platform.check_kernel_choice``): the device alone routes the
+    R/O-Net crops through B3's wrapper."""
+    if cfg.crop_method not in CROP_METHODS:
+        raise ValueError(f"crop_method {cfg.crop_method!r} is not one of "
+                         f"{sorted(map(str, CROP_METHODS))}")
+    check_kernel_choice(CROP_METHODS[cfg.crop_method], device, "crop_method")
 
 
 def _ceil_pool(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -310,6 +328,7 @@ def make_mtcnn(cfg: MTCNNConfig, generator: torch.Generator,
     ``decode(frames [B, H, W, 3] BGR, in_hw) -> (dets [B, max_faces, 15]
     normalized, valid)``: a native-resolution detector runs whole in its
     decode."""
+    check_crop_method(cfg, device)
     net = MTCNN(cfg).init_random_(generator).to(device)
 
     def decode(frames: torch.Tensor, in_hw: Tuple[int, int]):

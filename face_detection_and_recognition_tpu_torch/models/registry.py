@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import preprocess as P
+from ..ops.platform import check_kernel_choice
 from .blazeface import BlazeFaceConfig, make_blazeface
 from .mtcnn import MTCNNConfig, make_mtcnn
 from .ov_graph import OVGraphNet, make_ov_detect
@@ -208,6 +209,7 @@ def _build_yolov5(arch: str, input_size):
         # noise frames (utils/quantize.py)
         quantized = kw.pop("quantized", False)
         cfg = YoloV5FaceConfig(arch=arch, **kw)
+        check_kernel_choice(cfg.pallas_nms, device, "pallas_nms")
         net = YoloV5FaceNet(arch, cfg.nc).init_random_(generator)
         if quantized:
             from ..utils.quantize import quantize_net
@@ -260,6 +262,7 @@ def _build_yolov5_official(arch: str, input_size):
         kw.setdefault("conf_thres", 0.4)   # the reference's official call
         kw.setdefault("iou_thres", 0.5)
         cfg = YoloV5FaceConfig(arch=arch, **kw)
+        check_kernel_choice(cfg.pallas_nms, device, "pallas_nms")
         net = YoloV5FaceNet(arch, cfg.nc, with_landmarks=False) \
             .init_random_(generator)
         net = net.to(device=device, memory_format=torch.channels_last).eval()

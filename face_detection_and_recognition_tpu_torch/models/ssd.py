@@ -19,7 +19,7 @@ MobileNetV2 trunk also carries the ``reid-mnv2`` embedder
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import greedy_nms, top_k
+from ..ops.platform import check_kernel_choice
 from .layers import ConvBN
 
 
@@ -44,6 +45,10 @@ class SSDConfig:
     iou_thres: float = 0.45
     top_k: int = 400
     keep_top_k: int = 200
+    # the JAX key, checked against the device at build time: None, True
+    # on the card (B1), False on the CPU (its plain version)
+    # (ops.platform.check_kernel_choice)
+    pallas_nms: Optional[bool] = None
 
 
 def generate_priors(cfg: SSDConfig) -> np.ndarray:
@@ -289,6 +294,7 @@ def make_ssd_face(cfg: SSDConfig, generator: torch.Generator,
     and ``decode((locs, conf_logits), in_hw) -> (dets [B, keep_top_k, 5]
     normalized, valid)``; the net takes [B, h, w, 3] mean-subtracted BGR
     at ``cfg.input_size``."""
+    check_kernel_choice(cfg.pallas_nms, device, "pallas_nms")
     net = SSDFaceNet(cfg).init_random_(generator)
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     priors = torch.from_numpy(generate_priors(cfg)).to(device)

@@ -15,7 +15,7 @@ layout's) and reaches the NMS kernel through ``ops.nms.multiclass_nms``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -372,6 +372,10 @@ class YoloV5FaceConfig:
     iou_thres: float = 0.3
     max_candidates: int = 1024
     max_det: int = 300
+    # the JAX key, checked against the device at build time: None, True
+    # on the card (B1), False on the CPU (its plain version)
+    # (ops.platform.check_kernel_choice). The device alone routes the NMS.
+    pallas_nms: Optional[bool] = None
 
 
 def _nms_candidate_rows(p: torch.Tensor, boxes: torch.Tensor,

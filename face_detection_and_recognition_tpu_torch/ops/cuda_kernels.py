@@ -13,11 +13,12 @@ into ``build/fdr_kernels_<hash>.so`` at the repository root, on first use.
 The name carries a hash of the sources and flags, so a later process finds
 the library and skips the build. The sources have a plain C interface and
 include no PyTorch header, so the build takes seconds; the library is bound
-with ``ctypes``. ``nvcc`` and ``ctypes`` are reached only inside the first
-launch, so this module imports on a machine without either.
+with ``ctypes``. ``nvcc`` is reached only inside the first launch, so
+this module imports on a machine without it.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import hashlib
 import math
@@ -151,8 +152,7 @@ def _bind(path: Path):
     lib.blaze_decode_blend_launch.argtypes = [p, p, p, p, p, i, i, f, f, f,
                                               f, i, p]
     lib.blaze_decode_blend_launch.restype = i
-    lib.conv_int8_launch.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i,
-                                     i, i, i, i, i, i, i, i, i, p]
+    lib.conv_int8_launch.argtypes = [p, p, i, p, i, i, i, p, i, p]
     lib.conv_int8_launch.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
@@ -863,60 +863,138 @@ def blaze_decode_blend(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
 # ---------------- Q1: the int8 convolution of a quantized ConvBN ----------------
 
 CONV_INT8_THREADS = 256  # csrc/conv_int8.cu's block size
-CONV_INT8_MAX_PARTS = 1024
+CONV_INT8_KSTEP = 64     # codes of K a stage of csrc/conv_int8.cu
+CONV_INT8_PARTS = 264    # the absmax pass's blocks: 2 an SM of 132
 
 
-def conv_int8(x: torch.Tensor, kernel_q: torch.Tensor, wscale: torch.Tensor,
-              bias: torch.Tensor, stride: int, pad: int, groups: int,
+class _Q1LayerC(ctypes.Structure):
+    """``struct Q1Layer`` of ``csrc/conv_int8.cu``: a layer's static
+    arguments."""
+    _fields_ = [("w", ctypes.c_void_p), ("wscale", ctypes.c_void_p),
+                ("bias", ctypes.c_void_p), ("ascale", ctypes.c_void_p),
+                ("kpad", ctypes.c_int), ("C", ctypes.c_int),
+                ("Cout", ctypes.c_int), ("k", ctypes.c_int),
+                ("stride", ctypes.c_int), ("pad", ctypes.c_int),
+                ("groups", ctypes.c_int), ("act", ctypes.c_int)]
+
+
+class _Q1Layer:
+    """What ``conv_int8`` checked of a layer's weights, scales and options
+    for an input of C channels, kept on the packed weights
+    (``wpack._q1_layer``) so that the next call with the same tensors
+    checks only its input."""
+
+    def __init__(self, c: int, wpack: torch.Tensor, wscale: torch.Tensor,
+                 bias: torch.Tensor, k: int, stride: int, pad: int,
+                 groups: int, act: Optional[str],
+                 ascale: Optional[torch.Tensor]):
+        extra = [ascale] if ascale is not None else []
+        _require_cuda("conv_int8", wpack, wscale, bias, *extra)
+        if wpack.dtype != torch.int8 \
+                or any(t.dtype != torch.float32 for t in [wscale, bias, *extra]):
+            raise ValueError("conv_int8: int8 weights and f32 scales and "
+                             "bias expected")
+        cout = wscale.shape[0]
+        c4 = c + (-c) % 4
+        if groups == 1:
+            kpad = wpack.shape[1] if wpack.dim() == 2 else -1
+            ok = wpack.dim() == 2 and wpack.shape[0] == cout \
+                and kpad % CONV_INT8_KSTEP == 0 and kpad >= k * k * c4
+        elif groups == c == cout:
+            kpad = 0
+            ok = tuple(wpack.shape) == (k * k, c4)
+        else:
+            raise ValueError(f"conv_int8: groups = {groups} with C = {c}, "
+                             f"C_out = {cout}: only 1 or depthwise")
+        if not ok or wscale.shape != (cout,) or bias.shape != (cout,) \
+                or (ascale is not None and ascale.dim() != 0):
+            raise ValueError(f"conv_int8: packed weights "
+                             f"{tuple(wpack.shape)}, wscale "
+                             f"{tuple(wscale.shape)}, bias "
+                             f"{tuple(bias.shape)} do not fit k = {k}, C = "
+                             f"{c}")
+        self.key = (c, k, stride, pad, groups, act)
+        self.tensors = (wscale, bias, ascale)
+        self.device = wpack.device
+        self.cout, self.dynamic = cout, ascale is None
+        self.args = _Q1LayerC(
+            wpack.data_ptr(), wscale.data_ptr(), bias.data_ptr(),
+            ascale.data_ptr() if ascale is not None else None, kpad, c, cout,
+            k, stride, pad, groups, 1 if act == "silu" else 0)
+        self.ptr = ctypes.addressof(self.args)
+
+    def fits(self, c, wscale, bias, k, stride, pad, groups, act, ascale):
+        t = self.tensors
+        return t[0] is wscale and t[1] is bias and t[2] is ascale \
+            and self.key == (c, k, stride, pad, groups, act)
+
+
+def _pixel_pitch(x: torch.Tensor) -> Optional[int]:
+    """The pixel stride in floats of NCHW ``x`` read as NHWC, where its
+    channels are adjacent and its pixels evenly spaced (channels-last, or a
+    channel slice of a channels-last tensor: ``chunk`` on dim 1), so that
+    Q1 reads it in place; else None."""
+    b, c, h, w = x.shape
+    sb, sc, sh, sw = x.stride()
+    if sc == 1 and sh == w * sw and sb == h * sh \
+            and (sw == c or (sw > c and sw % 4 == 0 and c % 4 == 0)):
+        return sw
+    return c if x.is_contiguous(memory_format=torch.channels_last) else None
+
+
+def conv_int8(x: torch.Tensor, wpack: torch.Tensor, wscale: torch.Tensor,
+              bias: torch.Tensor, k: int, stride: int, pad: int, groups: int,
               act: Optional[str], ascale: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
-    """A quantized ConvBN in three launches (``csrc/conv_int8.cu``): the
-    input's absmax (skipped with a static ``ascale``), its int8 codes, and
-    the int8 convolution with int32 sums and the fused epilogue (dequantize,
-    bias, SiLU or none). Equal to ``ops.int8_conv.conv_int8_plain``: the
-    pre-activation bit for bit, SiLU within a few ulp.
+    """A quantized ConvBN on the int8 tensor cores (``csrc/conv_int8.cu``):
+    with a static ``ascale`` one launch, the convolution quantizing its
+    input as it loads it; with the dynamic scale two, the input's absmax
+    first. No int8 scratch. Equal to ``ops.int8_conv.conv_int8_plain``:
+    the pre-activation bit for bit, SiLU within a few ulp.
 
-    x: [B, C, H, W] f32 on the card, read as NHWC (the channels-last
-    memory format; any other layout is copied into it first); kernel_q:
-    [C_out, k, k, C / groups] int8, contiguous; wscale, bias: [C_out] f32;
-    ascale: 0-d f32 or None; groups 1, or C == C_out (depthwise). Returns
-    [B, C_out, Ho, Wo] f32 in the channels-last memory format."""
-    xh = x.permute(0, 2, 3, 1)
-    if not xh.is_contiguous():
-        xh = xh.contiguous()
-    extra = [ascale] if ascale is not None else []
-    _require_cuda("conv_int8", xh, kernel_q, wscale, bias, *extra)
-    b, h, w, c = xh.shape
-    cout, k, k2, cg = kernel_q.shape
-    if xh.dtype != torch.float32 or kernel_q.dtype != torch.int8 \
-            or any(t.dtype != torch.float32 for t in [wscale, bias, *extra]):
-        raise ValueError("conv_int8: f32 input, int8 weights and f32 "
-                         "scales and bias expected")
-    if k != k2 or wscale.shape != (cout,) or bias.shape != (cout,) \
-            or (ascale is not None and ascale.dim() != 0):
-        raise ValueError(f"conv_int8: weights {tuple(kernel_q.shape)}, "
-                         f"wscale {tuple(wscale.shape)}, bias "
-                         f"{tuple(bias.shape)} do not fit")
-    if not ((groups == 1 and cg == c) or (groups == c == cout and cg == 1)):
-        raise ValueError(f"conv_int8: groups = {groups} with C = {c}, C_out "
-                         f"= {cout} and C/g = {cg}: only 1 or depthwise")
+    x: [B, C, H, W] f32 on the card, read as NHWC in place when it is
+    channels-last, or a channel slice of a channels-last tensor (its pixel
+    stride passed to the kernel); any other layout, or a base not 16-byte
+    aligned, is copied first; wpack: ``ops.int8_conv.pack_kernel_q(kernel_q,
+    groups)`` of the [C_out, k, k, C / groups] int8 weights; wscale, bias:
+    [C_out] f32; ascale: 0-d f32 or None; groups 1, or C == C_out
+    (depthwise). The checks of everything but ``x`` are kept on ``wpack``
+    for the next call with the same tensors. Returns [B, C_out, Ho, Wo] f32
+    in the channels-last memory format."""
+    b, c, h, w = x.shape
+    layer = getattr(wpack, "_q1_layer", None)
+    if layer is None or not layer.fits(c, wscale, bias, k, stride, pad,
+                                       groups, act, ascale):
+        layer = _Q1Layer(c, wpack, wscale, bias, k, stride, pad, groups, act,
+                         ascale)
+        wpack._q1_layer = layer
+    if x.dtype != torch.float32 or x.device != layer.device:
+        raise ValueError(f"conv_int8: an f32 input on {layer.device} "
+                         f"expected, got {x.dtype} on {x.device}")
+    xp = _pixel_pitch(x)
+    if xp is None or x.data_ptr() % 16:
+        x = x.contiguous(memory_format=torch.channels_last) \
+            if xp is None else x.clone(memory_format=torch.channels_last)
+        xp = c
+    if b * h * w * xp >= 2 ** 31:
+        raise ValueError("conv_int8: the input spans 2^31 elements or more")
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
-    out = torch.empty((b, ho, wo, cout), dtype=torch.float32,
-                      device=xh.device)
-    xq = torch.empty((b, h, w, c), dtype=torch.int8, device=xh.device)
-    if ascale is None:
-        nparts = max(1, min(CONV_INT8_MAX_PARTS,
-                            -(-xh.numel() // (CONV_INT8_THREADS * 8))))
-        partial = torch.empty(nparts, dtype=torch.float32, device=xh.device)
-        s_out = torch.empty(1, dtype=torch.float32, device=xh.device)
-        ptrs = (None, partial.data_ptr(), nparts, s_out.data_ptr())
+    cout = layer.cout
+    out = torch.empty((b, cout, ho, wo), dtype=torch.float32,
+                      device=layer.device, memory_format=torch.channels_last)
+    stream = torch._C._cuda_getCurrentRawStream(layer.device.index)
+    if layer.dynamic:
+        nparts = max(1, min(CONV_INT8_PARTS,
+                            -(-(b * h * w * c) // (CONV_INT8_THREADS * 16))))
+        # the absmax partials, from the caching allocator and held until
+        # both launches are queued: a buffer kept across calls would be
+        # shared by host threads on one stream
+        part = torch.empty(nparts, dtype=torch.float32, device=layer.device)
     else:
-        ptrs = (ascale.data_ptr(), None, 0, None)
+        nparts, part = 0, None
     err = _lib().conv_int8_launch(
-        xh.data_ptr(), kernel_q.data_ptr(), wscale.data_ptr(),
-        bias.data_ptr(), *ptrs, xq.data_ptr(), out.data_ptr(), b, h, w, c,
-        cout, k, int(stride), int(pad), int(groups), ho, wo,
-        1 if act == "silu" else 0, _stream(xh))
+        layer.ptr, x.data_ptr(), xp, out.data_ptr(), b, h, w,
+        None if part is None else part.data_ptr(), nparts, stream)
     _check(err, "conv_int8")
     _count("conv_int8")
-    return out.permute(0, 3, 1, 2)
+    return out

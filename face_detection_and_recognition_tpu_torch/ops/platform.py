@@ -17,3 +17,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+def check_kernel_choice(choice: Optional[bool],
+                        device: Union[str, torch.device], field: str) -> None:
+    """Validate a config field that the JAX package named after its Pallas
+    kernel (``pallas_nms``; ``crop_method`` read as True / False / None)
+    against the engine's device. The device alone routes a stage: its
+    wrapper launches the hand-written kernel on a CUDA tensor and takes the
+    plain version on a CPU one. None agrees with either device. True asks
+    for the kernel, so a CPU engine raises; False asks for the plain
+    version, so a CUDA engine raises. A stage never leaves its kernel for
+    the plain version on the card."""
+    on_card = torch.device(device).type == "cuda"
+    if choice is True and not on_card:
+        raise ValueError(f"{field} asks for the hand-written CUDA kernel, "
+                         f"but the engine runs on {device}: leave it None "
+                         "(decided by device) or ask for the plain version")
+    if choice is False and on_card:
+        raise ValueError(f"{field} asks for the plain version, but the "
+                         f"engine runs on {device}, where the stage always "
+                         "launches its hand-written kernel: leave it None "
+                         "(decided by device) or run the engine on the CPU")

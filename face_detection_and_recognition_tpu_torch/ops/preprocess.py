@@ -2,8 +2,6 @@
 
 The counterpart of ``ops/preprocess.py`` in the JAX package. Frames come in
 as [B, H, W, 3] BGR (uint8 or float) and leave as [B, h, w, 3] model input.
-Per-image standardization (the FaceNet recipe) arrives with the slice that
-ports that recipe.
 """
 from __future__ import annotations
 
@@ -12,7 +10,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .geometry import GRAY_FILL, letterbox_params, resize_bilinear
+from .geometry import (GRAY_FILL, letterbox_params, resize_bilinear,
+                       standardize_image)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +25,7 @@ class PreprocessSpec:
         scale: multiplicative factor applied after mean subtraction.
         mean: per-channel mean subtracted (in the post-swap channel order).
         std: per-channel divisor (after scale), or None.
+        standardize: apply per-image prewhitening instead of mean/scale.
         fill: letterbox fill color (pre-swap order, like the reference's BGR).
     """
 
@@ -35,6 +35,7 @@ class PreprocessSpec:
     scale: float = 1.0
     mean: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     std: Optional[Tuple[float, float, float]] = None
+    standardize: bool = False
     fill: Tuple[float, float, float] = GRAY_FILL
 
 
@@ -59,11 +60,14 @@ MOBILE_FACENET = PreprocessSpec(
     size=(112, 112), resize="stretch", scale=1 / 127.5,
     mean=(127.5, 127.5, 127.5)
 )
+FACENET = PreprocessSpec(size=(160, 160), resize="stretch", standardize=True)
 
 
 def _normalize(x: torch.Tensor, spec: PreprocessSpec) -> torch.Tensor:
     if spec.bgr_to_rgb:
         x = x.flip(-1)
+    if spec.standardize:
+        return standardize_image(x)  # per image, f32
     kw = dict(dtype=x.dtype, device=x.device)
     x = (x - torch.tensor(spec.mean, **kw)) * torch.tensor(spec.scale, **kw)
     if spec.std is not None:
@@ -76,9 +80,10 @@ def apply_preprocess_batch(imgs: torch.Tensor, spec: PreprocessSpec,
     """Preprocess [B, H, W, 3] same-sized BGR images -> [B, h, w, 3].
 
     The letterbox resizes the interior, places it on a canvas of the fill
-    colour and normalizes the whole canvas; normalization is elementwise, so
-    this equals the JAX package's normalize-then-place order value for
-    value."""
+    colour and normalizes the whole canvas. Mean and scale are elementwise,
+    so this equals the JAX package's normalize-then-place order value for
+    value; ``standardize`` takes its statistics over the whole canvas, the
+    JAX package's pad-then-normalize order for that case."""
     if spec.size is not None and spec.resize == "letterbox":
         w, h = spec.size
         b, in_h, in_w = imgs.shape[:3]

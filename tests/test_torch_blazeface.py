@@ -109,9 +109,8 @@ def test_anchors_config_and_registry_match_jax():
         assert (ts.input_size, ts.rect_stride) == \
             (js.input_size, js.rect_stride)
         assert js.n_landmark_cols == 12      # the port's: Detections.lmarks
-        assert dataclasses.asdict(ts.preprocess) == {
-            k: v for k, v in dataclasses.asdict(js.preprocess).items()
-            if k != "standardize"}
+        assert dataclasses.asdict(ts.preprocess) == \
+            dataclasses.asdict(js.preprocess)
     assert TP.BLAZEFACE_FRONT.size == JP.BLAZEFACE_FRONT.size == (128, 128)
     assert TP.BLAZEFACE_BACK.size == JP.BLAZEFACE_BACK.size == (256, 256)
     with pytest.raises(ValueError, match="fixed by the architecture"):

@@ -73,26 +73,36 @@ def _jax_codes(x, ascale):
     return jnp.clip(jnp.round(xf / s), -127, 127).astype(jnp.int8)
 
 
-LAYERS = [  # (c_in, c_out, k, stride, groups, silu, batch)
-    pytest.param(16, 32, 3, 2, 1, True, 1, id="k3-s2"),
-    pytest.param(24, 40, 1, 1, 1, True, 1, id="k1-s1"),
-    pytest.param(20, 16, 3, 1, 1, True, 1, id="k3-s1-c20"),
-    pytest.param(24, 24, 3, 2, 24, False, 1, id="depthwise-s2"),
-    pytest.param(3, 16, 3, 2, 1, True, 1, id="stem-c3"),
-    pytest.param(8, 16, 3, 1, 1, True, 2, id="batch2"),
+HW = (20, 18)
+LAYERS = [  # (c_in, c_out, k, stride, groups, silu, batch, frame h x w)
+    pytest.param(16, 32, 3, 2, 1, True, 1, HW, id="k3-s2"),
+    pytest.param(24, 40, 1, 1, 1, True, 1, HW, id="k1-s1"),
+    pytest.param(20, 16, 3, 1, 1, True, 1, HW, id="k3-s1-c20"),
+    pytest.param(24, 24, 3, 2, 24, False, 1, HW, id="depthwise-s2"),
+    pytest.param(3, 16, 3, 2, 1, True, 1, HW, id="stem-c3"),
+    pytest.param(8, 16, 3, 1, 1, True, 2, HW, id="batch2"),
+    # the edges of Q1's tiling: ragged C_in (12, 92, 5: words of fewer
+    # than 4 channels past the stem), C_out off the N tile (40, and 360
+    # over two tiles), M off the M tile (odd frames), depthwise at a C
+    # that is no multiple of its 16-channel blocks
+    pytest.param(12, 40, 1, 1, 1, True, 2, (17, 23), id="c12-cout40"),
+    pytest.param(12, 24, 3, 2, 1, True, 1, (17, 23), id="c12-k3-s2-ragged-m"),
+    pytest.param(92, 360, 3, 1, 1, True, 1, (13, 11), id="c92-cout360"),
+    pytest.param(5, 7, 3, 1, 1, False, 3, (9, 14), id="c5-cout7"),
+    pytest.param(20, 20, 3, 1, 20, True, 2, (19, 17), id="depthwise-c20"),
 ]
 
 
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
-@pytest.mark.parametrize("c_in,c_out,k,stride,groups,silu,b", LAYERS)
-def test_qconvbn_matches_jax(c_in, c_out, k, stride, groups, silu, b,
+@pytest.mark.parametrize("c_in,c_out,k,stride,groups,silu,b,hw", LAYERS)
+def test_qconvbn_matches_jax(c_in, c_out, k, stride, groups, silu, b, hw,
                              static):
     """QConvBN against the jitted JAX ConvBN on the same folded weights:
     the same int8 codes, the pre-activation equal, SiLU outputs within
     rtol 1e-5 and atol 1e-5 * max|ref|. The batch of 2 holds two frames
     of different ranges: the dynamic scale is the absmax of both."""
     rng = np.random.RandomState(c_in * 100 + k * 10 + b)
-    x = rng.uniform(-1, 1, (b, 20, 18, c_in)).astype(np.float32)
+    x = rng.uniform(-1, 1, (b,) + hw + (c_in,)).astype(np.float32)
     if b == 2:
         x[1] *= 6.0  # frame 1 sets the batch's scale
     act = jax.nn.silu if silu else None
@@ -133,6 +143,71 @@ def test_qconvbn_matches_jax(c_in, c_out, k, stride, groups, silu, b,
     np.testing.assert_array_equal(got_pre, ref_pre)
     np.testing.assert_allclose(got, ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
+
+
+# ---------------- Q1's packed weights ----------------
+
+
+PACKS = [  # (c_out, k, c_in / g, groups)
+    pytest.param(32, 3, 3, 1, id="stem-ohwi4"),
+    pytest.param(40, 1, 12, 1, id="c12"),
+    pytest.param(360, 3, 92, 1, id="c92"),
+    pytest.param(7, 5, 5, 1, id="c5-k5"),
+    pytest.param(20, 3, 1, 20, id="depthwise-c20"),
+]
+
+
+@pytest.mark.parametrize("cout,k,cg,groups", PACKS)
+def test_pack_kernel_q_round_trips(cout, k, cg, groups):
+    """``pack_kernel_q`` (the layout Q1 reads) and back: ``unpack_kernel_q``
+    gives kernel_q again; every code past the real ones is zero; a dense
+    row is the OHWI4 codes flattened tap-major, padded to KSTEP."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv as IC
+
+    g = torch.Generator().manual_seed(cout + k + cg)
+    kq = torch.randint(-127, 128, (cout, k, k, cg), generator=g,
+                       dtype=torch.int8)
+    wp = IC.pack_kernel_q(kq, groups)
+    assert wp.dtype == torch.int8 and wp.is_contiguous()
+    assert torch.equal(IC.unpack_kernel_q(wp, k, cg, cout, groups), kq)
+    if groups == 1:
+        c4 = cg + (-cg) % 4
+        assert wp.shape[0] == cout and wp.shape[1] % IC.KSTEP == 0
+        ohwi4 = IC.pad_channels4(kq)
+        assert ohwi4.shape == (cout, k, k, c4)
+        assert torch.equal(wp[:, :k * k * c4], ohwi4.reshape(cout, -1))
+        assert not wp[:, k * k * c4:].any() and not ohwi4[..., cg:].any()
+    else:
+        assert wp.shape == (k * k, cout + (-cout) % 4)
+        assert not wp[:, cout:].any()
+    assert int(wp.abs().sum()) == int(kq.abs().sum())
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_padded_codes_add_nothing(static):
+    """The stem's C_in = 3 padded to 4: the plain convolution of the input
+    with a zero fourth channel against the OHWI4 weights equals the
+    unpadded one bit for bit (the zero codes add nothing to the int32
+    sums, and a zero channel leaves the absmax alone), as does the plain
+    version called on the packed weights (``conv_int8_packed_plain``, Q1's
+    arguments)."""
+    from face_detection_and_recognition_tpu_torch.ops import int8_conv as IC
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 3, 21, 19), generator=g) * 3
+    kq = torch.randint(-127, 128, (16, 3, 3, 3), generator=g,
+                       dtype=torch.int8)
+    ws = torch.rand(16, generator=g) * 1e-2
+    bias = torch.randn(16, generator=g)
+    ascale = (x.abs().amax() * 0.7 / 127).reshape(()) if static else None
+    ref = IC.conv_int8_plain(x, kq, ws, bias, 2, 1, 1, "silu", ascale)
+    x4 = torch.cat([x, torch.zeros_like(x[:, :1])], 1)
+    got = IC.conv_int8_plain(x4, IC.pad_channels4(kq), ws, bias, 2, 1, 1,
+                             "silu", ascale)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    packed = IC.conv_int8_packed_plain(x, IC.pack_kernel_q(kq), ws, bias,
+                                       3, 2, 1, 1, "silu", ascale)
+    assert torch.equal(packed.view(torch.int32), ref.view(torch.int32))
 
 
 # ---------------- the yolov5n net ----------------
