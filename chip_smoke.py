@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
-res10 + OpenVINO and int8 + keras + eval paths on one CUDA card.
+res10 + OpenVINO, int8 + keras + eval and bfloat16 paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,9 @@ seconds:
    640 x 640), K = 1024 a frame. B3: 64 crop slots a frame at 112 x 112,
    227 x 227, 160 x 160, 128 x 128 and 45 x 31 (odd rows of 93 floats),
    both box semantics, uint8 and f32 frames, with the epilogue off, clip
-   only, and clip + the age/gender mean. B4: 512 queries against a
+   only, and clip + the age/gender mean, each with the f32 store and the
+   bf16 one (compared bit for bit; timed at 227 x 227 with clip + mean
+   beside the f32 store). B4: 512 queries against a
    524,288 x 512 gallery, k = 5, against the plain FMA chain on the whole
    gallery. B5, the standalone entry point: 896 BlazeFace rows a frame,
    16 slots; 10 rows; nothing valid; K = 2048; K = 1500 (two words a
@@ -176,7 +179,26 @@ seconds:
    it takes, beside Q1's device ms of the same calls; each net's rows
    on the first 2 frames against the port on the CPU (the difference
    printed); frames/s and network ms of int8 against f32;
-14. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+14. main path, bf16: ``FaceEngine(EngineConfig(detector="yolov5s",
+   dtype=torch.bfloat16))`` at full width with seeded weights,
+   ``detect_batch`` on the 8 frames square and rect and ``detect_image`` on
+   the 3 single frames, then the yolov5s + mobile_facenet + age/gender bf16
+   ensemble with every NMS survivor a live slot: B1 and B2 on each detect
+   part, B3 on the ensemble (its 227 x 227 crops in the bf16 store). Each
+   part zeroes the counts before it and reads them after. Then the net's
+   heads must be bf16; B2 on the bf16 net's own maps, B1 on its candidates
+   and B3 on the ensemble's own crops (recorded by a spy) against their
+   plain versions bit for bit; ``detect_stages`` and ``ensemble_stages``
+   of the bf16 engines beside the f32 ones of phases 4 and 5, each
+   network's device ms and operations by kind (profiler), frames/s bf16
+   against f32, the share of the f32 engine's boxes that a bf16 box
+   matches at IoU >= 0.5 (information, not a gate), the bf16 maps of 2
+   frames on the card against the same bf16 net on the CPU, and each
+   ConvBN and Detect convolution of that forward on the input it had on
+   the card against the same layer on the CPU (at least 99.9 % of its
+   elements bit for bit and every difference within 2 bf16 ulps of its
+   largest output, or the run fails);
+15. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -571,9 +593,10 @@ def check_crop(gen, frames):
     """B3 against its plain version: both box semantics, the crop sizes of
     the ensembles (112, 227, 160 and 128) and an odd one, uint8 frames (the
     engine's) and f32 frames stretched past [0, 255], each with the
-    epilogue off, clip only and clip + the age/gender mean. Timed at
-    227 x 227 with clip + mean, and at 160 x 160 and 128 x 128 with the
-    clip alone (the embedders' face crops)."""
+    epilogue off, clip only and clip + the age/gender mean, each in the
+    f32 store and the bf16 one (the bf16 ensemble's age/gender crops).
+    Timed at 227 x 227 with clip + mean in both stores, and at 160 x 160
+    and 128 x 128 with the clip alone (the embedders' face crops)."""
     boxes, valid = crop_inputs(gen, frames)
     f32 = frames.float() * 1.5 - 100.0
     err = 0.0
@@ -602,6 +625,20 @@ def check_crop(gen, frames):
                     if not bool((got[~valid] == dead).all()):
                         raise AssertionError("crop_resize: an invalid slot "
                                              "is not 0 - mean")
+                    got = ck.crop_resize(img, boxes, valid, hw, clamp, clip,
+                                         mean, out_dtype=torch.bfloat16)
+                    ref = ck.crop_resize_plain(img, boxes, valid, hw, clamp,
+                                               clip, mean,
+                                               out_dtype=torch.bfloat16)
+                    torch.cuda.synchronize()
+                    if not same_bits(got, ref):
+                        e = float((got.float() - ref.float()).abs().max())
+                        raise AssertionError(
+                            f"crop_resize's bf16 store differs from its "
+                            f"plain version by up to {e}")
+                    if not bool((got[~valid] == dead.to(got.dtype)).all()):
+                        raise AssertionError("crop_resize bf16: an invalid "
+                                             "slot is not bf16(-mean)")
     # timed on the 227 x 227 age/gender crops as the ensemble runs them
     # (clamp, uint8, clip and mean fused), the larger of the path's two
     hw = CROP_HW[1]
@@ -652,6 +689,19 @@ def check_crop(gen, frames):
         by_size[side] = (face_ms, face_bound)
         say(f"  crop_resize {side}x{side} with clip (an embedder's face "
             f"crops): {face_ms:.5f} ms, bound {face_bound:.5f} ms")
+    # the bf16 store of the bf16 ensemble: the same samples, half the bytes
+    # written
+    bf16 = dict(out_dtype=torch.bfloat16)
+    bf16_ms = cuda_ms(lambda: ck.crop_resize(*args, **bf16), 50)
+    bf16_dev, _ = device_ms(lambda: ck.crop_resize(*args, **bf16), 20)
+    bf16_plain = cuda_ms(lambda: ck.crop_resize_plain(*args, **bf16), 5)
+    bf16_bound = bound(0, B * CROP_K * hw[0] * hw[1] * 3 * 2
+                       + crop_read_bytes(frames, boxes, valid, hw, True)
+                       + B * CROP_K * (16 + 1))[0]
+    say(f"  crop_resize {hw[0]}x{hw[1]} with clip + mean, bf16 store: "
+        f"{bf16_ms:.5f} ms ({bf16_dev:.5f} ms device), plain "
+        f"{bf16_plain:.4f} ms, bound {bf16_bound:.5f} ms (bytes), against "
+        f"{ms:.5f} ms for the f32 store")
     return dict(
         name="crop_resize", route="cuda",
         source="face_detection_and_recognition_tpu_torch/csrc/crop_resize.cu",
@@ -660,7 +710,9 @@ def check_crop(gen, frames):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         no_epilogue_ms=bare_ms, unfused_ms=unfused_ms,
         ms_160=by_size[160][0], bound_ms_160=by_size[160][1],
-        ms_128=by_size[128][0], bound_ms_128=by_size[128][1])
+        ms_128=by_size[128][0], bound_ms_128=by_size[128][1],
+        bf16_ms=bf16_ms, bf16_device_ms=bf16_dev, bf16_plain_ms=bf16_plain,
+        bf16_bound_ms=bf16_bound)
 
 
 TOPK_N, TOPK_M, TOPK_D, TOPK_K = 512, 524288, 512, 5  # the similarity path
@@ -800,11 +852,13 @@ def blend_work(sdets, svalid, thr, max_out):
 
 
 def same_bits(a, b):
-    """Equal tensors, float32 ones compared bit for bit."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                                  b.view(torch.int32))
-    return torch.equal(a, b)
+    """Equal tensors, float32 and bfloat16 ones compared bit for bit."""
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        if a.dtype == dtype and b.dtype == dtype:
+            return a.shape == b.shape and torch.equal(a.view(bits),
+                                                      b.view(bits))
+    return a.dtype == b.dtype and torch.equal(a, b)
 
 
 def singleton_rows(gen, k):
@@ -3177,6 +3231,262 @@ def write_wider_tree(root):
     return str(ann), str(images)
 
 
+def matched_share(ref, got, thr=0.5):
+    """(matched, total): the boxes of ``ref`` (Detections) that a box of
+    ``got`` in the same frame overlaps at IoU >= thr."""
+    from face_detection_and_recognition_tpu_torch.ops.boxes import \
+        iou_matrix
+
+    hit = total = 0
+    for b in range(ref.valid.shape[0]):
+        rb = ref.boxes[b][ref.valid[b]]
+        gb = got.boxes[b][got.valid[b]]
+        total += len(rb)
+        if len(rb) and len(gb):
+            hit += int((iou_matrix(rb, gb).amax(1) >= thr).sum())
+    return hit, total
+
+
+def run_bf16(frames, singles, card, f32_det, f32_ens):
+    """The bf16 main path: yolov5s bf16 engines, ``detect_batch`` square
+    and rect and ``detect_image``, then the yolov5s + mobile_facenet +
+    age/gender bf16 ensemble at thresholds 0. After the counts: the heads'
+    dtype, B2 / B1 / B3 on the path's own arguments against their plain
+    versions, the stages and frames/s beside the f32 engines ``f32_det``
+    (square, rect) and ``f32_ens``, the f32 boxes a bf16 box matches, and
+    the card against the CPU. Returns (launches, numbers)."""
+    from face_detection_and_recognition_tpu_torch.models import \
+        yolov5_face
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+    from face_detection_and_recognition_tpu_torch.utils.profiling import (
+        detect_stages, ensemble_stages)
+
+    bf16 = torch.bfloat16
+    win, stats = Windows(), {}
+    t = time.time()
+    engines = {rect: FaceEngine(EngineConfig(detector="yolov5s", rect=rect,
+                                             seed=SEED, dtype=bf16))
+               for rect in (False, True)}
+    ens = FaceEngine(EngineConfig(detector="yolov5s",
+                                  embedder="mobile_facenet",
+                                  with_age_gender=True, seed=SEED,
+                                  dtype=bf16))
+    say(f"  bf16 engines built in {time.time() - t:.1f} s")
+
+    def detect_run(rect):
+        dets, sec = timed_batches(
+            lambda: engines[rect].detect_batch(frames), 5)
+        check_dets(f"bf16 rect={rect}", dets, 10)
+        stats[f"bf16 rect={rect} fps"] = B / sec
+        say(f"  bf16 detect_batch rect={rect}: {B} x 576x1024 frames in "
+            f"{sec * 1e3:.2f} ms = {B / sec:.1f} frames/s on {card}; "
+            f"detections per frame {dets.valid.sum(1).tolist()}")
+
+    for rect in (False, True):
+        win.run(f"detect rect={rect}", lambda: detect_run(rect))
+
+    def image_run():
+        for i, img in enumerate(singles):
+            res = engines[False].detect_image(img)
+            if not (np.isfinite(res.boxes).all()
+                    and res.boxes.shape[1:] == (4,)):
+                raise AssertionError("bf16 detect_image returned bad boxes")
+            say(f"  bf16 detect_image request {i}: {len(res)} faces")
+
+    win.run("detect_image", image_run)
+
+    def ens_run():
+        r, sec = timed_batches(lambda: ens.detect_embed_classify_batch(
+            frames, det_thres=0.0, bbox_area_thres=0.0), 3)
+        v = r.det.valid
+        for name in ("crops", "embeddings", "age_probs", "gender_probs"):
+            t_ = getattr(r, name)
+            if t_.dtype != torch.float32 or not bool(
+                    torch.isfinite(t_).all()) or bool((t_[~v] != 0).any()):
+                raise AssertionError(f"bf16 ensemble {name}: not f32, not "
+                                     "finite or an invalid row not zero")
+        norm_err = float((r.embeddings[v].norm(dim=-1) - 1).abs().max())
+        if not norm_err <= 1e-4:
+            raise AssertionError("bf16 embeddings are not unit vectors")
+        stats["bf16 ensemble fps"] = B / sec
+        say(f"  bf16 detect_embed_classify_batch: {B} frames in "
+            f"{sec * 1e3:.2f} ms = {B / sec:.1f} frames/s on {card}; live "
+            f"slots per frame {v.sum(1).tolist()}; max |norm - 1| "
+            f"{norm_err:.2e}")
+
+    win.run("ensemble", ens_run)
+    for part in ("detect rect=False", "detect rect=True", "detect_image"):
+        for k in ("nms_fixpoint", "rows_gather"):
+            if win.parts[part][k] <= 0:
+                raise AssertionError(f"{k} never launched on bf16 {part}")
+    if win.parts["ensemble"]["crop_resize"] <= 0:
+        raise AssertionError("crop_resize never launched on the bf16 "
+                             "ensemble")
+
+    # after the counts: the path's own arguments against the plain versions
+    frames_t = torch.from_numpy(frames).cuda()
+    with torch.inference_mode():
+        maps = engines[False]._network(engines[False]._preprocess(frames_t))
+    if any(m.dtype != bf16 for m in maps):
+        raise AssertionError("the bf16 engine's heads are not bf16")
+    b2 = [c for rect in (False, True) for c in captured_calls(
+        yolov5_face, "candidate_decode",
+        lambda: engines[rect].detect_batch(frames))]
+    if any(m.dtype != bf16 for args, _ in b2 for m in args[0]):
+        raise AssertionError("rows_gather did not read bf16 maps")
+    check_on_path("rows_gather on the bf16 net's own maps",
+                  ck.candidate_decode, ck.candidate_decode_plain, b2)
+    b1 = [c for rect in (False, True) for c in captured_calls(
+        yolov5_face, "nms_fixpoint",
+        lambda: engines[rect].detect_batch(frames))]
+    check_on_path("nms_fixpoint on the bf16 net's candidates",
+                  ck.nms_fixpoint, ck.nms_fixpoint_plain, b1)
+    b3 = captured_calls(crop_ops, "crop_resize", lambda: (
+        ens.detect_embed_classify_batch(frames, det_thres=0.0,
+                                        bbox_area_thres=0.0)))
+    stores = sorted({(tuple(a[3]), str(a[7])) for a, _ in b3})
+    say(f"  crop_resize calls on the bf16 ensemble (size, store): {stores}")
+    if ((227, 227), str(bf16)) not in stores:
+        raise AssertionError("the bf16 ensemble's 227 crops are not bf16")
+    check_on_path("crop_resize (bf16 store at 227) on the ensemble's own "
+                  "crops", ck.crop_resize, ck.crop_resize_plain, b3)
+
+    # stages, frames/s and boxes beside f32
+    stages = {"bf16": detect_stages(engines[False], frames),
+              "f32": detect_stages(f32_det, frames)}
+    for name, st in stages.items():
+        say(f"  detect_stages {name}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in st.items()))
+    stats["detect_stages"] = stages
+    ens_st = {"bf16": ensemble_stages(ens, frames),
+              "f32": ensemble_stages(f32_ens, frames)}
+    for name, (st, k_live) in ens_st.items():
+        say(f"  ensemble_stages {name} (k_live {k_live}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items()))
+    stats["ensemble_stages"] = {k: v[0] for k, v in ens_st.items()}
+    # the network's device time and its operations by kind: where the
+    # bf16 net's time goes beside the f32 one's
+    with torch.inference_mode():
+        for name, eng in (("bf16", engines[False]), ("f32", f32_det)):
+            x = eng._preprocess(frames_t)
+            ops = device_ops(lambda: eng._network(x), 10)
+            total = sum(ms * n for ms, n in ops.values())
+            kinds = {}
+            for op, (ms, n) in ops.items():
+                kind = ("convolution" if "conv" in op.lower() or "gemm"
+                        in op.lower() or "xmma" in op.lower()
+                        or "cudnn" in op.lower() else "elementwise / other")
+                kinds[kind] = kinds.get(kind, 0.0) + ms * n
+            count = sum(n for _, n in ops.values())
+            stats[f"{name} network device"] = dict(ms=total, ops=count,
+                                                   by_kind=kinds)
+            top = sorted(ops.items(), key=lambda kv: -kv[1][0] * kv[1][1])
+            say(f"  {name} network: {total:.3f} ms device in {count} "
+                f"operations a forward; by kind " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in kinds.items())
+                + "; the largest: " + "; ".join(
+                    f"{op[:60]} {ms * n:.3f} ms ({n}x)"
+                    for op, (ms, n) in top[:4]))
+    _, f32_sec = timed_batches(lambda: f32_det.detect_batch(frames), 5)
+    _, bf_sec = timed_batches(lambda: engines[False].detect_batch(frames), 5)
+    stats["detect fps bf16 / f32"] = (B / bf_sec, B / f32_sec)
+    say(f"  detect_batch square: bf16 {B / bf_sec:.1f} frames/s against f32 "
+        f"{B / f32_sec:.1f} frames/s on {card}")
+    for label, kw in (("default thresholds", {}),
+                      ("thresholds 0", dict(det_thres=0.0,
+                                            bbox_area_thres=0.0))):
+        with torch.inference_mode():
+            hit, total = matched_share(f32_det.detect_batch(frames, **kw),
+                                       engines[False].detect_batch(frames,
+                                                                   **kw))
+        stats[f"f32 boxes matched by bf16 ({label})"] = (hit, total)
+        say(f"  {label}: {hit} of {total} f32 boxes matched by a bf16 box "
+            f"at IoU >= 0.5 (information, not a gate)")
+
+    # the card against the CPU: the same bf16 net on 2 frames
+    cpu = FaceEngine(EngineConfig(detector="yolov5s", seed=SEED,
+                                  dtype=bf16), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         engines[False].net.state_dict().items()})
+    with torch.inference_mode():
+        got = [m.float().cpu() for m in engines[False]._network(
+            engines[False]._preprocess(frames_t[:2]))]
+        ref = [m.float() for m in cpu._network(cpu._preprocess(
+            torch.from_numpy(frames[:2])))]
+    rel = max(float((g - r).abs().max() / r.abs().max())
+              for g, r in zip(got, ref))
+    equal = sum(int((g == r).sum()) for g, r in zip(got, ref)) \
+        / sum(r.numel() for r in ref)
+    stats["bf16 maps card vs cpu"] = dict(rel=rel, equal=equal)
+    say(f"  bf16 maps on the card against the CPU, 2 frames: max |card - "
+        f"cpu| / max |cpu| = {rel:.3e}, {equal:.4f} of the elements equal "
+        "(a flipped rounding compounds over the net's ~60 layers)")
+    equal, scale_ulps, where = bf16_layers_card_vs_cpu(
+        engines[False], cpu, engines[False]._preprocess(frames_t[:2]))
+    stats["bf16 ConvBNs card vs cpu"] = dict(
+        min_equal=equal, max_scale_ulps=scale_ulps, least=where)
+    say(f"  bf16 ConvBNs and Detect convolutions on the card against the "
+        f"same layers on the CPU, each on the input it had on the card: at "
+        f"least {equal:.5f} of a layer's elements equal bit for bit (the "
+        f"least: {where}), every difference within {scale_ulps:.3f} bf16 "
+        f"ulps of the layer's largest output")
+    if equal < 0.999 or scale_ulps > 2.0:
+        raise AssertionError(f"bf16 {where} on the card does not compute "
+                             "what it computes on the CPU")
+    return win.total(), stats
+
+
+def bf16_layers_card_vs_cpu(eng, cpu, x):
+    """Every ConvBN (one convolution, its BatchNorm and SiLU) and each
+    Detect convolution of the bf16 yolov5 net on the card against the same
+    layer of ``cpu``'s net given the input the card's layer had. Returns
+    (the least share of a layer's elements equal bit for bit, the largest
+    difference in bf16 ulps of the layer's largest output, the layer with
+    the least share). The same rounding points leave only the order of f32
+    sums and the platforms' exp / rsqrt to differ."""
+    from face_detection_and_recognition_tpu_torch.models.layers import (
+        ConvBN, conv_bias_bf16)
+    from face_detection_and_recognition_tpu_torch.models.yolov5_face import \
+        Detect
+
+    mods = [(n, m) for n, m in eng.net.named_modules()
+            if isinstance(m, (ConvBN, Detect))]
+    cpu_mods = dict(cpu.net.named_modules())
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: seen.append((n, i[0], o))) for n, m in mods]
+    try:
+        with torch.inference_mode():
+            eng._network(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst_eq, worst_ulps, where = 1.0, 0.0, None
+    card_mods = dict(eng.net.named_modules())
+    with torch.inference_mode():
+        for n, xi, out in seen:
+            m = cpu_mods[n]
+            if isinstance(m, Detect):  # each level's convolution
+                pairs = [(f"{n}.m.{lv}", conv_bias_bf16(m.m[lv], xl.cpu()),
+                          conv_bias_bf16(card_mods[n].m[lv], xl).cpu())
+                         for lv, xl in enumerate(xi)]
+            else:
+                pairs = [(n, m(xi.cpu()), out.cpu())]
+            for name, ref, got in pairs:
+                if ref.dtype != torch.bfloat16 or got.dtype != torch.bfloat16:
+                    raise AssertionError(f"bf16 layer {name} is not bf16")
+                eq = float((ref.view(torch.int16) == got.view(torch.int16))
+                           .float().mean())
+                if eq < worst_eq:
+                    worst_eq, where = eq, name
+                top = float(ref.float().abs().max())
+                ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top else 1.0
+                worst_ulps = max(worst_ulps, float(
+                    (ref.float() - got.float()).abs().max()) / ulp)
+    return worst_eq, worst_ulps, where
+
+
 def run_int8_keras_eval(frames, card):
     """The int8 yolov5 detectors, the keras FaceNet reader and the WIDER
     eval on the card. yolov5n and yolov5s at full width, seeded f32
@@ -3548,6 +3858,18 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the path")
     phase_end("main path: int8 + keras + eval")
 
+    say("[main path: bf16] yolov5s bf16 detect (square, rect, "
+        "detect_image) and the yolov5s + mobile_facenet + age/gender bf16 "
+        "ensemble")
+    bf16_launches, bf16_stats = run_bf16(frames, singles, card,
+                                         engines[False], ens)
+    say(f"  launches on the bf16 path: {bf16_launches}")
+    say(f"  bf16 numbers: {json.dumps(bf16_stats)}")
+    for name in ("nms_fixpoint", "rows_gather", "crop_resize"):
+        if bf16_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    phase_end("main path: bf16")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -3587,7 +3909,8 @@ def main():
                    "pipelines": pipeline_launches[k["name"]],
                    "ssd + mtcnn": ssd_launches[k["name"]],
                    "res10 + openvino": r10ov_launches[k["name"]],
-                   "int8 + keras + eval": ike_launches[k["name"]]}
+                   "int8 + keras + eval": ike_launches[k["name"]],
+                   "bf16": bf16_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

@@ -12,6 +12,14 @@ has a counterpart here; weights change through ``load_state_dict``. What
 that cache held is still counted (``compiled_pipelines``): each entry point
 and input shape the engine has run.
 
+``EngineConfig.dtype`` bfloat16 runs the JAX package's bf16 engine for the
+yolov5-face detectors (the official heads included), the five embedder slots
+and the age/gender heads: the detector's preprocess in bf16, bf16 nets
+(``models/layers.py`` sets out their rounding points), the 227x227
+age/gender crops stored in bf16 by the crop kernel; detections, embeddings
+and probabilities come out f32. The other detector families raise
+``ValueError`` for it (ROADMAP.md A8b).
+
 Any registered detector and embedder slot serves: detections carry the
 detector's ``n_landmark_cols`` landmark columns (none for the official
 yolov5 heads, the SSD family and the graph interpreters), and each
@@ -31,6 +39,7 @@ import torch
 
 from ..models import registry
 from .config import as_dtype
+from ..models.layers import BF16
 from ..models.age_gender import labels_from_probs, make_age_gender
 from ..models.embedders import get_embedder, preprocess_crops
 from ..ops import preprocess as P
@@ -96,8 +105,9 @@ class EnsembleResult:
 @dataclasses.dataclass
 class EngineConfig:
     """Engine settings, the JAX package's. ``dtype`` is the compute type:
-    float32, in any spelling ``core.config.as_dtype`` reads; bfloat16
-    raises until the port runs it (ROADMAP.md A8)."""
+    float32 or bfloat16, in any spelling ``core.config.as_dtype`` reads
+    (a JAX ``save_config`` file's "bfloat16" included). A bfloat16 engine
+    of a detector family without a bf16 build raises when it is built."""
 
     detector: str = "yolov5s"
     det_thres: float = 0.70
@@ -118,10 +128,6 @@ class EngineConfig:
 
     def __post_init__(self):
         self.dtype = as_dtype(self.dtype)
-        if self.dtype != torch.float32:
-            raise ValueError(f"EngineConfig.dtype {self.dtype}: the port runs "
-                             "float32 only; bfloat16 is ROADMAP.md A8, not "
-                             "ported yet")
 
 
 def _ir_input_size(net) -> Optional[Tuple[int, int]]:
@@ -133,7 +139,9 @@ def _ir_input_size(net) -> Optional[Tuple[int, int]]:
 
 def _full_f32(device: torch.device):
     """cuDNN runs f32 convolutions in TF32 by default; the reference is f32.
-    Turn TF32 off for the forward only, leaving every other flag as set."""
+    Turn TF32 off for the forward only, leaving every other flag as set. A
+    bf16 net's f32 convolutions of bf16 values run under it too, so their
+    sums are f32 sums of exact products, as the JAX layer's are."""
     if device.type != "cuda":
         return contextlib.nullcontext()
     c = torch.backends.cudnn
@@ -161,9 +169,14 @@ class FaceEngine:
                 self.spec, input_size=ov_size,
                 preprocess=dataclasses.replace(self.spec.preprocess,
                                                size=ov_size))
+        if cfg.dtype == BF16 and not self.spec.bf16:
+            raise ValueError(
+                f"EngineConfig.dtype bfloat16: detector '{self.spec.name}' "
+                "runs float32 only in the port; bf16 for the BlazeFace, SSD, "
+                "MTCNN, res10 and OpenVINO families is ROADMAP.md A8b")
         generator = torch.Generator().manual_seed(cfg.seed)
         self.net, self._decode = self.spec.build(generator, self.device,
-                                                 **cfg.detector_overrides)
+                                                 **self._build_kw())
         # a graph net (an OpenVINO IR) carries its own input size: the
         # preprocess recipe follows the IR's Parameter shape
         size = _ir_input_size(self.net)
@@ -177,12 +190,22 @@ class FaceEngine:
         if cfg.embedder is not None:
             self.embed_spec = get_embedder(cfg.embedder)
             self.embed_net = self.embed_spec.build(
-                torch.Generator().manual_seed(cfg.seed + 1), self.device)
+                torch.Generator().manual_seed(cfg.seed + 1), self.device,
+                dtype=cfg.dtype)
         self.ag_net = None
         if cfg.with_age_gender:
             self.ag_net = make_age_gender(
-                torch.Generator().manual_seed(cfg.seed + 2), self.device)
+                torch.Generator().manual_seed(cfg.seed + 2), self.device,
+                dtype=cfg.dtype)
         self._pipelines = set()
+
+    def _build_kw(self, **overrides) -> Dict[str, Any]:
+        """The detector build's keywords: the overrides, and the dtype for
+        a bf16 engine."""
+        kw = {**self.cfg.detector_overrides, **overrides}
+        if self.cfg.dtype == BF16:
+            kw["dtype"] = BF16
+        return kw
 
     @property
     def native_resolution(self) -> bool:
@@ -284,10 +307,9 @@ class FaceEngine:
         if not self.spec.quantizable:
             raise ValueError(f"{path}: int8 weights, and detector "
                              f"'{self.spec.name}' has no int8 build")
-        overrides = {**self.cfg.detector_overrides, "quantized": mode}
         self.net, self._decode = self.spec.build(
             torch.Generator().manual_seed(self.cfg.seed), self.device,
-            **overrides)
+            **self._build_kw(quantized=mode))
         self._pipelines.clear()
 
     def _replace_net(self, path: str, net, decode: Callable) -> None:
@@ -380,12 +402,15 @@ class FaceEngine:
                     spec_pre: Optional[P.PreprocessSpec] = None
                     ) -> torch.Tensor:
         """[B, H, W, 3] BGR uint8 frames on the device -> the detector's
-        input, by ``spec_pre`` (default: the detector's square recipe)."""
+        input, by ``spec_pre`` (default: the detector's square recipe), in
+        the engine's dtype."""
         return P.apply_preprocess_batch(imgs,
-                                        spec_pre or self.spec.preprocess)
+                                        spec_pre or self.spec.preprocess,
+                                        self.cfg.dtype)
 
     def _network(self, x: torch.Tensor):
-        """The detector net's raw heads on its preprocessed input, f32."""
+        """The detector net's raw heads on its preprocessed input (bf16
+        heads for a bf16 engine)."""
         with _full_f32(x.device):
             return self.net(x)
 
@@ -494,14 +519,17 @@ class FaceEngine:
     @staticmethod
     def _ag_crops(frames: torch.Tensor, boxes: torch.Tensor,
                   valid: Optional[torch.Tensor] = None,
-                  clip: bool = False) -> torch.Tensor:
+                  clip: bool = False,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """227x227 age/gender crops of ``boxes`` padded by +-5 px, BGR mean
         subtracted (``clip``: clipped to [0, 255] first, as the ensemble
-        is), both in the crop kernel's store. Invalid slots hold
-        ``-mean``."""
+        is), both in the crop kernel's store; ``out_dtype`` bfloat16 is the
+        bf16 ensemble's store (the clipped crop cast to bf16, then less the
+        mean in f32, cast again). Invalid slots hold ``-mean``."""
         h, w = frames.shape[-3:-1]
         return crop_for_net(frames, pad_boxes(boxes, AG_PAD, (w, h)), AG_HW,
-                            valid, clip=clip, mean=P.AGE_GENDER.mean)
+                            valid, clip=clip, mean=P.AGE_GENDER.mean,
+                            out_dtype=out_dtype)
 
     @staticmethod
     def _live_slots(valid: torch.Tensor) -> int:
@@ -592,7 +620,7 @@ class FaceEngine:
                 a = g = None
                 if k_live:
                     agc = self._ag_crops(frames, post.boxes[:, :k_live], v,
-                                         clip=True)
+                                         clip=True, out_dtype=self.cfg.dtype)
                     a, g = self._classify(agc.reshape(-1, *AG_HW, 3))
                 age, gender = scatter(a, 8), scatter(g, 2)
         return EnsembleResult(det=post, crops=crops, embeddings=emb,

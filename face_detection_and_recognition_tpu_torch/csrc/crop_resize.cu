@@ -9,6 +9,16 @@
 // the engine's clamp and mean subtraction of its crops, fused into the
 // store (invalid slots come out as clip(0) - mean = -mean).
 //
+// The output is f32, or bfloat16 for a bf16 engine's age/gender crops. The
+// bf16 store rounds twice, as the JAX engine does: its crop is clipped and
+// cast to bf16, and its classifier casts that back to f32 and subtracts the
+// mean in f32, which the first convolution casts to bf16 again. So a bf16
+// element is bf16_rn(f32(bf16_rn(clip(v))) - mean) (bf16_rn(clip(v))
+// without a mean), each rounding to nearest even as PyTorch's f32 -> bf16
+// conversion rounds (a NaN becomes 0x7FC0). Half the bytes of the f32 store
+// for the ensemble's largest tensor; every step before the store is the
+// f32 mode's.
+//
 // Replaces crop_gemm_pallas / _crop_kernel / _crop_kernel_windowed
 // (face_detection_and_recognition_tpu/ops/pallas_kernels.py:237-501). The
 // TPU has no fast gather, so that kernel built hat-weight matrices and ran
@@ -45,7 +55,8 @@
 // conversion, which Hopper issues at a quarter of the f32 rate.
 //
 // Bound on the H100: bytes. The f32 output (B*K*oh*ow*C*4) dominates; the
-// uint8 reads of the box regions are a fraction of it. Frames are read in
+// uint8 reads of the box regions are a fraction of it (half of it with a
+// bf16 output). Frames are read in
 // their own type (uint8 or f32): the uint8 -> f32 conversion is exact, so
 // the caller never makes an f32 copy of the batch.
 //
@@ -209,6 +220,38 @@ __device__ __forceinline__ float apply_epilogue(float v, const Epilogue& ep,
   return v;
 }
 
+// f32 -> bf16 bits, to nearest even, as PyTorch converts (c10's
+// round_to_nearest_even): a NaN becomes the quiet 0x7FC0.
+__device__ __forceinline__ uint16_t bf16_rn(float v) {
+  if (v != v) return 0x7FC0u;
+  uint32_t u = __float_as_uint(v);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return (uint16_t)(u >> 16);
+}
+
+__device__ __forceinline__ float bf16_float(uint16_t h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+// The value stored for one element: the f32 epilogue's result, or in bf16
+// mode clip(v) rounded to bf16, widened, less the mean, rounded again.
+template <typename T, typename TO>
+__device__ __forceinline__ TO store_value(float v, const Epilogue& ep,
+                                          int c) {
+  if constexpr (sizeof(TO) == 4) {
+    return apply_epilogue<T>(v, ep, c);
+  } else {
+    float r;
+    if constexpr (sizeof(T) == 1) {
+      r = fminf(v, ep.hi);
+    } else {
+      r = ep.clip ? (v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v)) : v;
+    }
+    if (!ep.sub) return bf16_rn(r);
+    return bf16_rn(__fsub_rn(bf16_float(bf16_rn(r)), ep.mean[c]));
+  }
+}
+
 // C floats, passed by value so that they stay in registers
 template <int C>
 struct Px {
@@ -229,23 +272,27 @@ __device__ __forceinline__ Px<C> row_sums(const T* frame, int ro,
   return h;
 }
 
-template <typename T, int C>
+// TO: float (f32 output) or uint16_t (bf16 bits)
+template <typename T, typename TO, int C>
 __global__ void __launch_bounds__(kThreads) crop_resize_kernel(
     const T* __restrict__ img, const float4* __restrict__ boxes,
-    const uint8_t* __restrict__ valid, float* __restrict__ out, int K, int H,
+    const uint8_t* __restrict__ valid, TO* __restrict__ out, int K, int H,
     int W, int oh, int ow, int rows, int clamp, Epilogue ep) {
+  // elements of a 16-byte piece
+  constexpr int kVec = 16 / sizeof(TO);
   extern __shared__ float4 smem4[];
   Taps* xt = reinterpret_cast<Taps*>(smem4);  // [ow]
   Taps* yt = xt + ow;                         // [rows]
   // the staged span, 16-byte aligned, shifted below by the output's offset
-  float* stage = reinterpret_cast<float*>(yt + rows);
+  TO* stage = reinterpret_cast<TO*>(yt + rows);
   const int b = blockIdx.z;
   const int k = blockIdx.y;
   const int r0 = blockIdx.x * rows;
   const int nr = min(rows, oh - r0);
   const size_t slot = (size_t)b * K + k;
-  float* o = out + (slot * oh + r0) * (size_t)ow * C;
-  const int shift = (int)((reinterpret_cast<uintptr_t>(o) >> 2) & 3);
+  TO* o = out + (slot * oh + r0) * (size_t)ow * C;
+  const int shift =
+      (int)((reinterpret_cast<uintptr_t>(o) / sizeof(TO)) & (kVec - 1));
   const bool live = valid[slot];
   if (live) {
     const float4 bx = boxes[slot];
@@ -278,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) crop_resize_kernel(
   const int p0 = ow >= kThreads ? threadIdx.x : threadIdx.x % ow;
   for (int p = p0; ra < rb && p < ow; p += kThreads) {
     const Taps tx = live ? xt[p] : Taps{};
-    float* sp = stage + shift + (ra * ow + p) * C;
+    TO* sp = stage + shift + (ra * ow + p) * C;
     int ka = -2, kb = -2;  // offsets of the rows in top, bot; -1 is real
     Px<C> top = {}, bot = {};
     for (int r = ra; r < rb; ++r, sp += ow * C) {
@@ -300,17 +347,17 @@ __global__ void __launch_bounds__(kThreads) crop_resize_kernel(
         for (int c = 0; c < C; ++c) v[c] = 0.0f;
       }
 #pragma unroll
-      for (int c = 0; c < C; ++c) sp[c] = apply_epilogue<T>(v[c], ep, c);
+      for (int c = 0; c < C; ++c) sp[c] = store_value<T, TO>(v[c], ep, c);
     }
   }
   __syncthreads();
 
   // span element e sits at stage[shift + e]; o + e is 16-byte aligned
-  // exactly when shift + e is a multiple of 4
+  // exactly when shift + e is a multiple of kVec
   const int n = nr * ow * C;
-  const int head = min(n, (4 - shift) & 3);
-  const int nv = (n - head) >> 2;
-  const int tail = head + 4 * nv;
+  const int head = min(n, (kVec - shift) & (kVec - 1));
+  const int nv = (n - head) / kVec;
+  const int tail = head + kVec * nv;
   const float4* src = reinterpret_cast<const float4*>(stage + shift + head);
   float4* dst = reinterpret_cast<float4*>(o + head);
   for (int q = threadIdx.x; q < nv; q += kThreads) dst[q] = src[q];
@@ -319,62 +366,74 @@ __global__ void __launch_bounds__(kThreads) crop_resize_kernel(
     o[tail + threadIdx.x] = stage[shift + tail + threadIdx.x];
 }
 
-template <typename T, int C>
+template <typename T, typename TO, int C>
 int launch(const void* img, const void* boxes, const void* valid, void* out,
            int B, int K, int H, int W, int oh, int ow, int clamp,
            const Epilogue& ep, cudaStream_t s) {
   // kRowsPerThread rows for each group of ow threads, at most 48 KB of
-  // staged output (8 rows, 21.8 KB at 227 x 227 x 3)
+  // staged output (8 rows, 21.8 KB at 227 x 227 x 3 f32); the bf16 output
+  // keeps the f32 tiling
   const int rows = min(min(oh, max(1, kThreads / ow) * kRowsPerThread),
                        max(1, 12288 / (ow * C)));
-  // the taps, and the span with 3 floats of shift room
+  // the taps, and the span with kVec - 1 elements of shift room
   const size_t smem = sizeof(Taps) * (size_t)(ow + rows) +
-                      sizeof(float) * ((size_t)rows * ow * C + 3);
+                      sizeof(TO) * ((size_t)rows * ow * C + 16 / sizeof(TO) - 1);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        crop_resize_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        crop_resize_kernel<T, TO, C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((oh + rows - 1) / rows, K, B);
-  crop_resize_kernel<T, C><<<grid, kThreads, smem, s>>>(
+  crop_resize_kernel<T, TO, C><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(img), static_cast<const float4*>(boxes),
-      static_cast<const uint8_t*>(valid), static_cast<float*>(out), K, H, W,
-      oh, ow, rows, clamp, ep);
+      static_cast<const uint8_t*>(valid), static_cast<TO*>(out), K, H, W, oh,
+      ow, rows, clamp, ep);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TO>
 int launch_c(const void* img, const void* boxes, const void* valid, void* out,
              int B, int K, int H, int W, int C, int oh, int ow, int clamp,
              const Epilogue& ep, cudaStream_t s) {
   switch (C) {
     case 1:
-      return launch<T, 1>(img, boxes, valid, out, B, K, H, W, oh, ow, clamp,
-                          ep, s);
+      return launch<T, TO, 1>(img, boxes, valid, out, B, K, H, W, oh, ow,
+                              clamp, ep, s);
     case 2:
-      return launch<T, 2>(img, boxes, valid, out, B, K, H, W, oh, ow, clamp,
-                          ep, s);
+      return launch<T, TO, 2>(img, boxes, valid, out, B, K, H, W, oh, ow,
+                              clamp, ep, s);
     case 3:
-      return launch<T, 3>(img, boxes, valid, out, B, K, H, W, oh, ow, clamp,
-                          ep, s);
+      return launch<T, TO, 3>(img, boxes, valid, out, B, K, H, W, oh, ow,
+                              clamp, ep, s);
     default:
-      return launch<T, 4>(img, boxes, valid, out, B, K, H, W, oh, ow, clamp,
-                          ep, s);
+      return launch<T, TO, 4>(img, boxes, valid, out, B, K, H, W, oh, ow,
+                              clamp, ep, s);
   }
+}
+
+template <typename T>
+int launch_o(const void* img, const void* boxes, const void* valid, void* out,
+             int out_bf16, int B, int K, int H, int W, int C, int oh, int ow,
+             int clamp, const Epilogue& ep, cudaStream_t s) {
+  if (out_bf16)
+    return launch_c<T, uint16_t>(img, boxes, valid, out, B, K, H, W, C, oh,
+                                 ow, clamp, ep, s);
+  return launch_c<T, float>(img, boxes, valid, out, B, K, H, W, C, oh, ow,
+                            clamp, ep, s);
 }
 
 }  // namespace
 
 // img: [B, H, W, C] uint8 (is_u8 = 1) or f32, contiguous; boxes: [B, K, 4]
-// f32 xyxy pixels; valid: [B, K] bool; out: [B, K, oh, ow, C] f32. clip:
-// clip the samples to [0, 255]; mean: NULL, or C floats (host memory)
-// subtracted after the clip.
+// f32 xyxy pixels; valid: [B, K] bool; out: [B, K, oh, ow, C] f32, or
+// bf16 (out_bf16 = 1). clip: clip the samples to [0, 255]; mean: NULL, or
+// C floats (host memory) subtracted after the clip.
 extern "C" int crop_resize_launch(const void* img, int is_u8,
                                   const void* boxes, const void* valid,
-                                  void* out, int B, int K, int H, int W, int C,
-                                  int oh, int ow, int clamp, int clip,
-                                  const float* mean, void* stream) {
+                                  void* out, int out_bf16, int B, int K, int H,
+                                  int W, int C, int oh, int ow, int clamp,
+                                  int clip, const float* mean, void* stream) {
   // the taps hold element offsets within a frame as ints
   if (C < 1 || C > kMaxChannels || oh < 1 || ow < 1 || H < 1 || W < 1 ||
       K > 65535 || B > 65535 || ow > 2048 ||
@@ -386,8 +445,8 @@ extern "C" int crop_resize_launch(const void* img, int is_u8,
   for (int c = 0; mean && c < C; ++c) ep.mean[c] = mean[c];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_u8)
-    return launch_c<uint8_t>(img, boxes, valid, out, B, K, H, W, C, oh, ow,
-                             clamp, ep, s);
-  return launch_c<float>(img, boxes, valid, out, B, K, H, W, C, oh, ow, clamp,
-                         ep, s);
+    return launch_o<uint8_t>(img, boxes, valid, out, out_bf16, B, K, H, W, C,
+                             oh, ow, clamp, ep, s);
+  return launch_o<float>(img, boxes, valid, out, out_bf16, B, K, H, W, C, oh,
+                         ow, clamp, ep, s);
 }

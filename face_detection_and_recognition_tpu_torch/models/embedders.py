@@ -13,8 +13,9 @@ reference's ``Net`` loader has five feat-net types:
 - ``demographics``: the two CaffeNet heads' age probabilities then gender
   probabilities, 10-d, 227x227, caffe-mean-subtracted BGR.
 
-``build(generator, device)`` returns the network, whose forward maps
-normalized NHWC crops at the slot's ``input_size`` to [N, dim]. The keras
+``build(generator, device, dtype)`` returns the network, whose forward maps
+normalized NHWC crops at the slot's ``input_size`` to [N, dim] f32;
+``dtype`` bfloat16 builds the JAX package's bf16 net (``models/layers.py``). The keras
 FaceNet SavedModel / HDF5 reader of the JAX engine is not ported yet: the
 port loads torch weight files and ``utils.weights`` state dicts.
 """
@@ -30,7 +31,8 @@ from ..ops.geometry import standardize_image
 from ..ops.preprocess import AGE_GENDER
 from .age_gender import AgeGenderNet
 from .facenet import make_facenet
-from .layers import l2_normalize
+from .layers import (BF16, l2_normalize, linear_bias_bf16, mean_hw_bf16,
+                     set_compute_dtype)
 from .mobile_facenet import make_mobile_facenet
 from .ssd import _MobileNetV2Backbone
 
@@ -47,16 +49,22 @@ class EmbedderSpec:
 
 class MobileNetV2Embedder(nn.Module):
     """MobileNetV2 trunk -> mean of its last (stride-64) map -> Dense ->
-    L2-normalized ``embedding_size`` embedding. Takes NHWC crops."""
+    L2-normalized ``embedding_size`` embedding. Takes NHWC crops;
+    ``compute_dtype`` bfloat16 runs the JAX package's bf16 net."""
 
     def __init__(self, embedding_size: int = 256):
         super().__init__()
         self.backbone = _MobileNetV2Backbone()
         self.fc = nn.Linear(256, embedding_size)
+        self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.backbone(x.permute(0, 3, 1, 2))
-        return l2_normalize(self.fc(feats[-1].mean((2, 3))).float(), dim=-1)
+        feats = self.backbone(x.permute(0, 3, 1, 2).to(self.compute_dtype))
+        if feats[-1].dtype == BF16:
+            y = linear_bias_bf16(self.fc, mean_hw_bf16(feats[-1]))
+        else:
+            y = self.fc(feats[-1].mean((2, 3)))
+        return l2_normalize(y.float(), axis=-1)
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator
@@ -128,20 +136,25 @@ def available_embedders():
     return sorted(_EMBEDDERS)
 
 
-def _on(device: torch.device, net: nn.Module) -> nn.Module:
-    return net.to(device=device, memory_format=torch.channels_last).eval()
+def _on(device: torch.device, net: nn.Module, dtype: torch.dtype
+        ) -> nn.Module:
+    net = net.to(device=device, memory_format=torch.channels_last).eval()
+    return set_compute_dtype(net, dtype)
 
 
-def _build_facenet512(generator: torch.Generator, device: torch.device):
-    return make_facenet(generator, device, embedding_size=512)
+def _build_facenet512(generator: torch.Generator, device: torch.device,
+                      dtype: torch.dtype = torch.float32):
+    return make_facenet(generator, device, embedding_size=512, dtype=dtype)
 
 
-def _build_reid(generator: torch.Generator, device: torch.device):
-    return _on(device, MobileNetV2Embedder().init_random_(generator))
+def _build_reid(generator: torch.Generator, device: torch.device,
+                dtype: torch.dtype = torch.float32):
+    return _on(device, MobileNetV2Embedder().init_random_(generator), dtype)
 
 
-def _build_demographics(generator: torch.Generator, device: torch.device):
-    return _on(device, Demographics().init_random_(generator))
+def _build_demographics(generator: torch.Generator, device: torch.device,
+                        dtype: torch.dtype = torch.float32):
+    return _on(device, Demographics().init_random_(generator), dtype)
 
 
 register_embedder(EmbedderSpec("mobile_facenet", 512, (112, 112), "half",

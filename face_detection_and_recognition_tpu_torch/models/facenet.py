@@ -12,6 +12,11 @@ The conv block is conv (no bias) + BatchNorm without a scale (flax's
 1e-3, then relu. Flax's ``SAME`` padding at stride 1 is (k - 1) / 2 on each
 side of each axis, so the (1, 7) and (7, 1) kernels pad (0, 3) and (3, 0);
 every stride-2 conv and the max pools are ``VALID``.
+
+``compute_dtype`` bfloat16 runs the JAX package's bf16 net
+(``models/layers.py``): the blocks' up-projections are bf16 convolutions
+with a bias, and ``x + scale * up`` rounds the product with the scale
+rounded to bf16, then the sum.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import l2_normalize
+from .layers import (BF16, batch_norm_bf16, bf16_scalar,
+                     conv_bias_bf16, conv_sums, l2_normalize, linear_sums,
+                     mean_hw_bf16, set_compute_dtype)
 
 Kernel = Union[int, Tuple[int, int]]
 
@@ -40,7 +47,18 @@ class BasicConv2d(nn.Module):
         self.bn = nn.BatchNorm2d(c_out, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == BF16:
+            return F.relu(batch_norm_bf16(self.bn, conv_sums(self.conv, x)))
         return F.relu(self.bn(self.conv(x)))
+
+
+def _residual(x: torch.Tensor, up_conv: nn.Conv2d, cat: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """``x + scale * up_conv(cat)``, in bf16 as flax computes it for a bf16
+    ``x``."""
+    if x.dtype == BF16:
+        return x + bf16_scalar(scale) * conv_bias_bf16(up_conv, cat)
+    return x + scale * up_conv(cat)
 
 
 class Block35(nn.Module):
@@ -58,9 +76,9 @@ class Block35(nn.Module):
         self.conv2d = nn.Conv2d(96, 256, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up = self.conv2d(torch.cat([self.branch0(x), self.branch1(x),
-                                    self.branch2(x)], 1))
-        return F.relu(x + self.scale * up)
+        cat = torch.cat([self.branch0(x), self.branch1(x), self.branch2(x)],
+                        1)
+        return F.relu(_residual(x, self.conv2d, cat, self.scale))
 
 
 class Block17(nn.Module):
@@ -76,8 +94,8 @@ class Block17(nn.Module):
         self.conv2d = nn.Conv2d(256, 896, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up = self.conv2d(torch.cat([self.branch0(x), self.branch1(x)], 1))
-        return F.relu(x + self.scale * up)
+        cat = torch.cat([self.branch0(x), self.branch1(x)], 1)
+        return F.relu(_residual(x, self.conv2d, cat, self.scale))
 
 
 class Block8(nn.Module):
@@ -93,8 +111,8 @@ class Block8(nn.Module):
         self.conv2d = nn.Conv2d(384, 1792, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up = self.conv2d(torch.cat([self.branch0(x), self.branch1(x)], 1))
-        y = x + self.scale * up
+        cat = torch.cat([self.branch0(x), self.branch1(x)], 1)
+        y = _residual(x, self.conv2d, cat, self.scale)
         return F.relu(y) if self.relu else y
 
 
@@ -154,16 +172,23 @@ class InceptionResNetV1(nn.Module):
         self.block8 = Block8(scale=1.0, relu=False)
         self.last_linear = nn.Linear(1792, embedding_size, bias=False)
         self.last_bn = nn.BatchNorm1d(embedding_size, eps=1e-3)
+        self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)  # NHWC data -> NCHW channels-last view
+        # NHWC data -> NCHW channels-last view
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         for m in (self.conv2d_1a, self.conv2d_2a, self.conv2d_2b,
                   self.maxpool_3a, self.conv2d_3b, self.conv2d_4a,
                   self.conv2d_4b, self.repeat_1, self.mixed_6a,
                   self.repeat_2, self.mixed_7a, self.repeat_3, self.block8):
             x = m(x)
-        x = self.last_bn(self.last_linear(x.mean((2, 3))))
-        return l2_normalize(x.float(), dim=-1)
+        if x.dtype == BF16:
+            x = batch_norm_bf16(self.last_bn,
+                                linear_sums(self.last_linear,
+                                            mean_hw_bf16(x)))
+        else:
+            x = self.last_bn(self.last_linear(x.mean((2, 3))))
+        return l2_normalize(x.float(), axis=-1)
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> "InceptionResNetV1":
@@ -193,8 +218,11 @@ class InceptionResNetV1(nn.Module):
 
 
 def make_facenet(generator: torch.Generator, device: torch.device,
-                 embedding_size: int = 128) -> InceptionResNetV1:
+                 embedding_size: int = 128,
+                 dtype: torch.dtype = torch.float32) -> InceptionResNetV1:
     """An InceptionResNetV1 with weights drawn from ``generator``, on
-    ``device`` in the channels-last memory format, in eval mode."""
+    ``device`` in the channels-last memory format, in eval mode, computing
+    in ``dtype`` (float32 or bfloat16)."""
     net = InceptionResNetV1(embedding_size).init_random_(generator)
-    return net.to(device=device, memory_format=torch.channels_last).eval()
+    net = net.to(device=device, memory_format=torch.channels_last).eval()
+    return set_compute_dtype(net, dtype)

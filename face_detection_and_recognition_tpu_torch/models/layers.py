@@ -6,17 +6,182 @@ the reference torch names (``conv``/``bn``, ``cv1``..``cv3``, ``m``,
 ``stem_*``, ``convs``), so a network's ``state_dict`` keys are those of a
 reference checkpoint. Tensors are NCHW; the network keeps them in the
 channels-last memory format.
+
+bfloat16: a layer given a bf16 tensor computes what the JAX package's layer
+built with ``dtype=jnp.bfloat16`` computes, as XLA compiles it on the CPU
+(read from its optimized HLO). Parameters stay f32 and are rounded to bf16
+where flax casts them (``bf16_param`` keeps the rounded copy until the
+parameter changes). The rounding points:
+
+- a convolution or Dense followed by a BatchNorm: bf16 inputs and weights,
+  products exact and sums in f32, NOT rounded (XLA keeps the sums of
+  ``lax.conv`` in f32 where the BatchNorm promotes them to f32:
+  ``conv_sums``, ``linear_sums``); the BatchNorm in f32 from the running
+  statistics, ``(s - mean) * (rsqrt(var + eps) * scale) + bias``, rounded
+  once to bf16 (``batch_norm_bf16``);
+- a convolution or Dense with a bias: the sums rounded to bf16, then the
+  bias, rounded to bf16, added in bf16 (``conv_bias_bf16``,
+  ``linear_bias_bf16``): two roundings;
+- every elementwise op on bf16 values rounds its result to bf16: SiLU is
+  ``x * (1 / (1 + exp(-x)))`` with four roundings (``silu_bf16``), PReLU's
+  product one, a residual add one; ReLU, ReLU6, max pools, concatenation,
+  nearest upsampling and the channel shuffle are exact.
+
+On the card the f32 sums of bf16 values come from an f32 convolution of
+the bf16 values (TF32 off: every product of two bf16 values is exact in
+f32), the rounded ones from cuDNN's bf16 convolution, which accumulates in
+f32 and rounds once. A layer takes its bf16 path when its input is bf16;
+a net casts its input to its ``compute_dtype`` (``set_compute_dtype``).
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_conv import conv_int8, pack_kernel_q
+
+BF16 = torch.bfloat16
+
+
+def bf16_param(module: nn.Module, name: str,
+               dtype: torch.dtype = BF16) -> torch.Tensor:
+    """``module``'s parameter or buffer ``name`` rounded to bf16 (and, for
+    ``dtype`` float32, widened back: the bf16 value as an f32 tensor),
+    kept on the module until the tensor is replaced or written in place
+    (its version moves)."""
+    t = getattr(module, name)
+    cache = module.__dict__.setdefault("_bf16_params", {})
+    hit = cache.get((name, dtype))
+    if hit is not None and hit[0] is t and hit[1] == t._version:
+        return hit[2]
+    r = t.detach().to(BF16).to(dtype)
+    cache[(name, dtype)] = (t, t._version, r)
+    return r
+
+
+def _bn_form(bn: nn.Module):
+    """(mean, mul, bias) of a BatchNorm in inference, f32 [C]: the
+    ``rsqrt(var + eps) * scale`` of flax's ``_normalize``, kept until a
+    statistic or parameter changes."""
+    deps = (bn.running_mean, bn.running_var, bn.weight, bn.bias)
+    key = tuple((id(t), t._version) for t in deps if t is not None)
+    hit = bn.__dict__.get("_bf16_form")
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        mul = torch.rsqrt(bn.running_var + bn.eps)
+        if bn.weight is not None:
+            mul = mul * bn.weight
+        bias = (bn.bias.detach() if bn.bias is not None
+                else torch.zeros_like(mul))
+        form = (bn.running_mean.detach().clone(), mul, bias.clone())
+    bn.__dict__["_bf16_form"] = (key, form)
+    return form
+
+
+def conv_sums(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The f32 sums of ``conv`` (no bias) on ``x`` and the weights, both
+    rounded to bf16: exact products, f32 sums, no rounding after."""
+    return F.conv2d(x.to(BF16).float(),
+                    bf16_param(conv, "weight", torch.float32), None,
+                    conv.stride, conv.padding, conv.dilation, conv.groups)
+
+
+def conv_bias_bf16(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=bf16)`` with a bias: the bf16 convolution (f32
+    sums rounded once), then the bf16 bias added in bf16."""
+    y = F.conv2d(x.to(BF16), bf16_param(conv, "weight"), None, conv.stride,
+                 conv.padding, conv.dilation, conv.groups)
+    return y + bf16_param(conv, "bias").view(1, -1, 1, 1)
+
+
+def linear_sums(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """The f32 sums of ``lin`` (no bias) on ``x`` and the weights rounded
+    to bf16, as ``conv_sums``: an f32 product of the bf16 values, so the
+    sums stay f32 on the card whatever cuBLAS may do with bf16 operands."""
+    return F.linear(x.to(BF16).float(),
+                    bf16_param(lin, "weight", torch.float32))
+
+
+def linear_bias_bf16(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=bf16)`` with a bias: the f32 sums rounded to
+    bf16, then the bf16 bias added in bf16."""
+    return linear_sums(lin, x).to(BF16) + bf16_param(lin, "bias")
+
+
+def batch_norm_bf16(bn: nn.Module, s: torch.Tensor) -> torch.Tensor:
+    """flax ``BatchNorm(dtype=bf16)`` from its running statistics on ``s``
+    (f32 sums, or a bf16 tensor), channels on dim 1: computed in f32 and
+    rounded once to bf16."""
+    mean, mul, bias = _bn_form(bn)
+    shape = (1, -1) + (1,) * (s.dim() - 2)
+    return ((s.float() - mean.view(shape)) * mul.view(shape)
+            + bias.view(shape)).to(BF16)
+
+
+def silu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """JAX's SiLU ``x * (1 / (1 + exp(-x)))`` on a bf16 tensor, each of the
+    four results rounded to bf16, as XLA computes it."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def act_bf16(act: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The activation module ``act`` on a bf16 tensor: SiLU in JAX's
+    rounded form, the others (ReLU, ReLU6, Identity) exact as they are."""
+    return silu_bf16(x) if isinstance(act, nn.SiLU) else act(x)
+
+
+def mean_hw_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` over the spatial axes of a bf16 NCHW tensor, as XLA
+    computes it: f32 sums times the f32 reciprocal of the count, rounded
+    to bf16."""
+    n = x.shape[-1] * x.shape[-2]
+    return (x.float().sum((2, 3)) * float(np.float32(1.0) / np.float32(n))
+            ).to(BF16)
+
+
+def bf16_scalar(v: float) -> float:
+    """A Python scalar as flax's bf16 arithmetic reads it: rounded to
+    bf16 (a weak-typed scalar takes the array's type)."""
+    return float(torch.tensor(v).to(BF16))
+
+
+def sequence_bf16(mods, x: torch.Tensor) -> torch.Tensor:
+    """An ``nn.Sequential`` of (Conv2d without bias, BatchNorm2d) pairs and
+    activations on a bf16 tensor: each pair as ``conv_sums`` then
+    ``batch_norm_bf16``, each activation as ``act_bf16``."""
+    mods = list(mods)
+    i = 0
+    while i < len(mods):
+        m = mods[i]
+        if isinstance(m, nn.Conv2d) and m.bias is None and i + 1 < len(mods) \
+                and isinstance(mods[i + 1], nn.BatchNorm2d):
+            x = batch_norm_bf16(mods[i + 1], conv_sums(m, x))
+            i += 2
+            continue
+        if isinstance(m, nn.Conv2d):
+            raise TypeError("sequence_bf16: a Conv2d must be bias-free and "
+                            "followed by its BatchNorm2d")
+        x = act_bf16(m, x)
+        i += 1
+    return x
+
+
+def set_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set ``compute_dtype`` on ``net`` and every submodule that has one
+    (the nets cast their input to it; the yolov5 Detect layer casts its
+    own): float32, or bfloat16 for the JAX package's bf16 nets."""
+    if dtype not in (torch.float32, BF16):
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+    for m in net.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return net
 
 
 def autopad(k: int, p: Optional[int] = None) -> int:
@@ -58,6 +223,9 @@ class ConvBN(nn.Module):
         self.act = _ACTS[act]()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == BF16:
+            return act_bf16(self.act, batch_norm_bf16(self.bn,
+                                                      conv_sums(self.conv, x)))
         return self.act(self.bn(self.conv(x)))
 
 
@@ -71,7 +239,8 @@ class QConvBN(nn.Module):
     on the card), then dequantized, biased and passed through SiLU or
     none. ``utils.quantize`` builds the weights. On the card the kernel
     reads them packed (``pack_kernel_q``), packed once for each new or
-    changed ``kernel_q``."""
+    changed ``kernel_q``. A bf16 input is widened to f32 first, as the JAX
+    layer does (``x.astype(f32)``); the output is f32 in either case."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, groups: int = 1,
@@ -110,6 +279,7 @@ class QConvBN(nn.Module):
         return self._wpack
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         return conv_int8(x, self.kernel_q, self.wscale, self.bias,
                          self.stride, self.pad, self.groups, self.act,
                          self.ascale, self._packed())
@@ -253,11 +423,16 @@ class ShuffleV2Block(nn.Module):
             nn.SiLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def run(branch, v):
+            if v.dtype == BF16 and not isinstance(branch[0], QConvBN):
+                return sequence_bf16(branch, v)
+            return branch(v)
+
         if self.stride == 1:
             x1, x2 = x.chunk(2, dim=1)
-            out = torch.cat([x1, self.branch2(x2)], 1)
+            out = torch.cat([x1, run(self.branch2, x2)], 1)
         else:
-            out = torch.cat([self.branch1(x), self.branch2(x)], 1)
+            out = torch.cat([run(self.branch1, x), run(self.branch2, x)], 1)
         return channel_shuffle(out, 2)
 
 
@@ -324,6 +499,10 @@ class MFConvBlock(nn.Module):
         self.prelu = nn.PReLU(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == BF16:
+            y = batch_norm_bf16(self.bn, conv_sums(self.conv, x))
+            alpha = bf16_param(self.prelu, "weight").view(1, -1, 1, 1)
+            return torch.where(y >= 0, y, y * alpha)
         return self.prelu(self.bn(self.conv(x)))
 
 
@@ -338,6 +517,8 @@ class MFLinearBlock(nn.Module):
         self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == BF16:
+            return batch_norm_bf16(self.bn, conv_sums(self.conv, x))
         return self.bn(self.conv(x))
 
 
@@ -359,8 +540,14 @@ class MFDepthWise(nn.Module):
         return x + y if self.residual else y
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1,
-                 eps: float = 1e-12) -> torch.Tensor:
-    """x / max(||x||, eps) along ``dim``."""
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True),
+def l2_normalize(x: torch.Tensor, axis: Optional[int] = None,
+                 eps: float = 1e-12, *, dim: Optional[int] = None
+                 ) -> torch.Tensor:
+    """x / max(||x||, eps) along ``axis`` (the JAX package's name; ``dim``
+    is accepted as well), the last one by default."""
+    if axis is not None and dim is not None and axis != dim:
+        raise ValueError(f"l2_normalize: axis={axis} and dim={dim} differ")
+    d = -1 if axis is None and dim is None else (
+        axis if axis is not None else dim)
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=d, keepdim=True),
                            min=eps)

@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import MFConvBlock, MFDepthWise, MFLinearBlock, l2_normalize
+from .layers import (BF16, MFConvBlock, MFDepthWise, MFLinearBlock,
+                     batch_norm_bf16, l2_normalize, linear_sums,
+                     set_compute_dtype)
 
 
 class Residual(nn.Module):
@@ -32,7 +34,10 @@ class Residual(nn.Module):
 
 class MobileFaceNet(nn.Module):
     """512-d face embedder. Takes NHWC [N, 112, 112, 3] normalized crops and
-    returns [N, 512] f32 unit vectors."""
+    returns [N, 512] f32 unit vectors. ``compute_dtype`` bfloat16 runs the
+    JAX package's bf16 net (``models/layers.py``): the input cast to bf16,
+    the Dense's f32 sums into the last BatchNorm, rounded once, then the
+    f32 normalization."""
 
     def __init__(self, embedding_size: int = 512):
         super().__init__()
@@ -48,15 +53,21 @@ class MobileFaceNet(nn.Module):
         self.conv_6_dw = MFLinearBlock(512, 512, 7, groups=512)
         self.linear = nn.Linear(512, embedding_size, bias=False)
         self.bn = nn.BatchNorm1d(embedding_size, eps=1e-5)
+        self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)  # NHWC data -> NCHW channels-last view
+        # NHWC data -> NCHW channels-last view
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         for m in (self.conv1, self.conv2_dw, self.conv_23, self.conv_3,
                   self.conv_34, self.conv_4, self.conv_45, self.conv_5,
                   self.conv_6_sep, self.conv_6_dw):
             x = m(x)
-        x = self.bn(self.linear(x.flatten(1)))
-        return l2_normalize(x.float(), dim=-1)
+        if x.dtype == BF16:
+            x = batch_norm_bf16(self.bn, linear_sums(self.linear,
+                                                     x.flatten(1)))
+        else:
+            x = self.bn(self.linear(x.flatten(1)))
+        return l2_normalize(x.float(), axis=-1)
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> "MobileFaceNet":
@@ -83,9 +94,11 @@ class MobileFaceNet(nn.Module):
         return self.eval()
 
 
-def make_mobile_facenet(generator: torch.Generator,
-                        device: torch.device) -> MobileFaceNet:
+def make_mobile_facenet(generator: torch.Generator, device: torch.device,
+                        dtype: torch.dtype = torch.float32) -> MobileFaceNet:
     """A MobileFaceNet with weights drawn from ``generator``, on ``device``
-    in the channels-last memory format, in eval mode."""
+    in the channels-last memory format, in eval mode, computing in
+    ``dtype`` (float32 or bfloat16)."""
     net = MobileFaceNet().init_random_(generator)
-    return net.to(device=device, memory_format=torch.channels_last).eval()
+    net = net.to(device=device, memory_format=torch.channels_last).eval()
+    return set_compute_dtype(net, dtype)

@@ -11,6 +11,9 @@ the OpenVINO IR nets (openvino-ir, which executes the ``.xml`` given as
 reference's two IR topologies) and the MTCNN cascade (mtcnn, at native
 resolution: ``input_size`` (-1, -1)). The nine yolov5-face names also
 build int8 nets (``detector_overrides={"quantized": True | "static"}``).
+The yolov5-face names and the official heads build bf16 nets
+(``build(..., dtype=torch.bfloat16)``: ``DetectorSpec.bf16``); the other
+families run f32 only (ROADMAP.md A8b).
 ``build`` returns the network and
 its decode, with detections in the normalized contract: rows [xmin, ymin,
 xmax, ymax, (lmk xy pairs...), conf] in [0, 1] wrt the model input size.
@@ -32,6 +35,7 @@ from .ov_graph import OVGraphNet, make_ov_detect
 from .ov_topologies import build_ov_topology
 from .res10 import build_res10
 from .ssd import SSDConfig, make_ssd_face
+from .layers import set_compute_dtype
 from .yolov5_face import (ARCHS, OFFICIAL_ANCHORS, YoloV5FaceConfig,
                           YoloV5FaceNet, yolov5_face_detect_maps,
                           yolov5_official_detect_maps)
@@ -155,7 +159,9 @@ class DetectorSpec:
     [B, h, w, 3] preprocessed) gives the raw heads and decode(raw, (h, w))
     returns (dets [B, K, 4+L+1] NORMALIZED to the input size, valid [B, K]).
     A native-resolution detector (input_size (-1, -1), no preprocess) runs
-    whole in decode: decode(frames [B, H, W, 3] BGR, (H, W)).
+    whole in decode: decode(frames [B, H, W, 3] BGR, (H, W)). A spec with
+    ``bf16`` set also takes ``dtype=torch.bfloat16``: the JAX package's
+    bf16 net, whose raw heads are bf16 and whose detections are f32.
     """
 
     name: str
@@ -174,6 +180,9 @@ class DetectorSpec:
     # (the int8 yolov5-face nets); load_weights rebuilds the net to the
     # mode of an int8 state dict
     quantizable: bool = False
+    # the build takes dtype=torch.bfloat16 (ROADMAP.md A8: the yolov5
+    # family; A8b: the others)
+    bf16: bool = False
 
 
 _REGISTRY = {}
@@ -201,7 +210,8 @@ CALIBRATION_BATCH = (2, 256, 256, 3)  # a static int8 net's seeded frames
 
 
 def _build_yolov5(arch: str, input_size):
-    def build(generator: torch.Generator, device: torch.device, **kw):
+    def build(generator: torch.Generator, device: torch.device,
+              dtype: torch.dtype = torch.float32, **kw):
         kw.setdefault("input_size", input_size)
         # quantized is a build-time graph switch, not a config field, as
         # in the JAX registry: the seeded f32 net is folded and quantized
@@ -218,6 +228,7 @@ def _build_yolov5(arch: str, input_size):
                 net, YoloV5FaceNet(arch, cfg.nc, quantized=quantized),
                 [torch.rand(CALIBRATION_BATCH, generator=generator)])
         net = net.to(device=device, memory_format=torch.channels_last).eval()
+        set_compute_dtype(net, dtype)
         spec = ARCHS[arch]
 
         def decode(maps, in_hw: Tuple[int, int]):
@@ -249,6 +260,7 @@ for _arch in ("yolov5s", "yolov5m", "yolov5l", "yolov5n", "yolov5n-0.5",
         build=_build_yolov5(_arch, (640, 640)),
         rect_stride=64 if _arch.endswith("6") else 32,
         quantizable=True,
+        bf16=True,
     ))
 
 
@@ -256,7 +268,8 @@ for _arch in ("yolov5s", "yolov5m", "yolov5l", "yolov5n", "yolov5n-0.5",
 
 
 def _build_yolov5_official(arch: str, input_size):
-    def build(generator: torch.Generator, device: torch.device, **kw):
+    def build(generator: torch.Generator, device: torch.device,
+              dtype: torch.dtype = torch.float32, **kw):
         kw.setdefault("input_size", input_size)
         kw.setdefault("nc", 80)            # COCO classes
         kw.setdefault("conf_thres", 0.4)   # the reference's official call
@@ -266,6 +279,7 @@ def _build_yolov5_official(arch: str, input_size):
         net = YoloV5FaceNet(arch, cfg.nc, with_landmarks=False) \
             .init_random_(generator)
         net = net.to(device=device, memory_format=torch.channels_last).eval()
+        set_compute_dtype(net, dtype)
         strides = ARCHS[arch]["strides"]
 
         def decode(maps, in_hw: Tuple[int, int]):
@@ -291,6 +305,7 @@ for _arch in ("yolov5s", "yolov5n"):
         n_landmark_cols=0,
         build=_build_yolov5_official(_arch, (640, 640)),
         rect_stride=32,
+        bf16=True,
     ))
 
 

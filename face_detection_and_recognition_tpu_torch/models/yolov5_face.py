@@ -24,8 +24,8 @@ from ..ops.boxes import xywh2xyxy
 from ..ops.cuda_kernels import (_candidate_grid_params, candidate_decode,
                                 nms_fixpoint)
 from ..ops.nms import multiclass_nms, sort_by_score
-from .layers import (C3, SPP, ShuffleV2Block, StemBlock, conv_bn,
-                     make_divisible_torch)
+from .layers import (BF16, C3, SPP, ShuffleV2Block, StemBlock, conv_bn,
+                     conv_bias_bf16, make_divisible_torch)
 
 FACE_ANCHORS = (
     ((4.0, 5.0), (8.0, 10.0), (13.0, 16.0)),
@@ -200,17 +200,22 @@ class Concat(nn.Module):
 
 class Detect(nn.Module):
     """One 1x1 conv per level; emits [B, na, ny, nx, no] like the reference's
-    ``view(bs, na, no, ny, nx).permute(0, 1, 3, 4, 2)``."""
+    ``view(bs, na, no, ny, nx).permute(0, 1, 3, 4, 2)``. With
+    ``compute_dtype`` bfloat16 the convolutions are flax's bf16 ones,
+    whatever their input (an int8 net's f32 levels included), and the maps
+    stay bf16, as the JAX package's bf16 heads do."""
 
     def __init__(self, na: int, no: int, ch: Sequence[int]):
         super().__init__()
         self.na, self.no = na, no
         self.m = nn.ModuleList(nn.Conv2d(c, na * no, 1) for c in ch)
+        self.compute_dtype = torch.float32
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         maps = []
         for conv, x in zip(self.m, xs):
-            y = conv(x)
+            y = conv_bias_bf16(conv, x) if self.compute_dtype == BF16 \
+                else conv(x)
             b, _, ny, nx = y.shape
             maps.append(y.view(b, self.na, self.no, ny, nx)
                         .permute(0, 1, 3, 4, 2).contiguous())
@@ -224,13 +229,19 @@ class YoloV5FaceNet(nn.Module):
     head, no = nc + 5). Layers are ``model.{i}`` in graph order.
     ``quantized`` (True, or "static" for calibrated activation scales)
     builds every ConvBN as an int8 ``QConvBN``; the Detect head's 1x1
-    convolutions stay f32, as in the JAX package
-    (``utils.quantize.quantize_net`` fills the weights)."""
+    convolutions stay float, as in the JAX package
+    (``utils.quantize.quantize_net`` fills the weights). ``compute_dtype``
+    (``layers.set_compute_dtype``) bfloat16 runs the JAX package's
+    ``dtype=jnp.bfloat16`` net: the input is cast to bf16 and every layer
+    follows it, and the maps come out bf16. An int8 net in bf16 casts
+    nothing on the way in (its ConvBNs widen their input to f32, as JAX's
+    do) and runs its Detect convolutions in bf16."""
 
     def __init__(self, arch: str = "yolov5s", nc: int = 1,
                  with_landmarks: bool = True, quantized=False):
         super().__init__()
         self.quantized = quantized
+        self.compute_dtype = torch.float32
         q = dict(quantized=quantized)
         spec = ARCHS[arch]
         gd, gw = spec["gd"], spec["gw"]
@@ -284,6 +295,8 @@ class YoloV5FaceNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         cur = x.permute(0, 3, 1, 2)  # NHWC data -> NCHW channels-last view
+        if not self.quantized:
+            cur = cur.to(self.compute_dtype)
         outputs: List[torch.Tensor] = []
         for m, frm in zip(self.model, self.froms):
             if isinstance(m, Detect):
@@ -326,13 +339,15 @@ class YoloV5FaceNet(nn.Module):
 
 def decode_heads(maps: Sequence[torch.Tensor],
                  anchors: Sequence[Sequence[Tuple[float, float]]],
-                 strides: Sequence[int], landmarks: bool = True
-                 ) -> torch.Tensor:
+                 strides: Sequence[int], nc: int = 1,
+                 landmarks: bool = True) -> torch.Tensor:
     """Grid/anchor decode over all levels. maps: per-level
-    [B, na, ny, nx, no]. Returns [B, total, no] rows [cx, cy, w, h, obj,
-    l1x, l1y, ..., l5x, l5y, cls...] in input pixels. ``landmarks=False``
-    decodes the official head's rows [cx, cy, w, h, obj, cls...], every
-    column sigmoided."""
+    [B, na, ny, nx, no] (bf16 maps decode in f32). Returns [B, total, no]
+    rows [cx, cy, w, h, obj, l1x, l1y, ..., l5x, l5y, cls...] in input
+    pixels. ``landmarks=False`` decodes the official head's rows [cx, cy,
+    w, h, obj, cls...], every column sigmoided. ``nc``, the class count,
+    is the JAX package's argument: the class columns are the maps' own,
+    so it takes part in no arithmetic there or here."""
     outs = []
     for m, anc, stride in zip(maps, anchors, strides):
         m = m.float()

@@ -13,6 +13,12 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """[..., 4] corner -> center-size format."""
+    x1, y1, x2, y2 = x[..., 0], x[..., 1], x[..., 2], x[..., 3]
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
 def box_area(boxes: torch.Tensor, plus1: bool = False) -> torch.Tensor:
     """Area of [..., 4] xyxy boxes; ``plus1`` adds the legacy +1px convention."""
     off = 1.0 if plus1 else 0.0

@@ -36,7 +36,8 @@ def extraction_crop_region(box, w: int, h: int):
 
 def _crop(img: torch.Tensor, boxes, out_hw: Tuple[int, int],
           valid: Optional[torch.Tensor], clamp: bool, clip: bool = False,
-          mean: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
+          mean: Optional[Tuple[float, ...]] = None,
+          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     single = img.dim() == 3
     if single:
         img = img[None]
@@ -53,7 +54,8 @@ def _crop(img: torch.Tensor, boxes, out_hw: Tuple[int, int],
     if img.dtype not in (torch.uint8, torch.float32):
         img = img.float()
     out = crop_resize(img.contiguous(), boxes.contiguous(),
-                      valid.contiguous(), tuple(out_hw), clamp, clip, mean)
+                      valid.contiguous(), tuple(out_hw), clamp, clip, mean,
+                      out_dtype)
     return out[0] if single else out
 
 
@@ -82,13 +84,17 @@ def crop_and_resize_padded(img: torch.Tensor, boxes,
 
 def crop_for_net(img: torch.Tensor, boxes, out_hw: Tuple[int, int],
                  valid: Optional[torch.Tensor] = None, clip: bool = True,
-                 mean: Optional[Tuple[float, ...]] = None) -> torch.Tensor:
+                 mean: Optional[Tuple[float, ...]] = None,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``crop_and_resize`` followed by what the engine does to crops
     before a net reads them, fused into the kernel's store: ``clip`` clamps
     to [0, 255], then ``mean`` (one float a channel) is subtracted. Equal
     bit for bit to the three steps run apart; invalid slots come out as
-    ``-mean`` (0 without a mean)."""
-    return _crop(img, boxes, out_hw, valid, clamp=True, clip=clip, mean=mean)
+    ``-mean`` (0 without a mean). ``out_dtype`` bfloat16 stores the bf16
+    engine's age/gender input: the clipped crop cast to bf16, widened, less
+    the mean, cast to bf16 again."""
+    return _crop(img, boxes, out_hw, valid, clamp=True, clip=clip, mean=mean,
+                 out_dtype=out_dtype)
 
 
 def pad_boxes(boxes: torch.Tensor, offsets: Tuple[float, float, float, float],

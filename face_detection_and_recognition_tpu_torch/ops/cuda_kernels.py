@@ -140,7 +140,7 @@ def _bind(path: Path):
                                             p]
     lib.candidate_decode_launch.restype = i
     lib.crop_resize_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i,
-                                       i, i, i, p, p]
+                                       i, i, i, i, p, p]
     lib.crop_resize_launch.restype = i
     lib.topk_gallery_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                         p]
@@ -499,7 +499,8 @@ def _crop_taps(b0: torch.Tensor, b1: torch.Tensor, n: int, n_out: int,
 def crop_resize_plain(img: torch.Tensor, boxes: torch.Tensor,
                       valid: torch.Tensor, out_hw: Tuple[int, int],
                       clamp: bool = True, clip: bool = False,
-                      mean: Optional[Sequence[float]] = None
+                      mean: Optional[Sequence[float]] = None,
+                      out_dtype: torch.dtype = torch.float32
                       ) -> torch.Tensor:
     """The gather arithmetic of ``crop_and_resize`` (``clamp=True``) or
     ``crop_and_resize_padded`` (``clamp=False``) of the JAX package's
@@ -509,9 +510,14 @@ def crop_resize_plain(img: torch.Tensor, boxes: torch.Tensor,
     on the CPU. The epilogue follows, in this order: ``clip`` clamps every
     value to [0, 255], ``mean`` (C floats) is subtracted.
 
+    ``out_dtype`` bfloat16 stores what the JAX bf16 engine feeds its
+    age/gender heads: the clipped sample cast to bf16, then, with a mean,
+    widened to f32, less the mean, cast to bf16 again (two roundings to
+    nearest even).
+
     img: [B, H, W, C] uint8 or float; boxes: [B, K, 4] f32 xyxy pixels;
-    valid: [B, K] bool. Returns [B, K, oh, ow, C] f32; invalid slots
-    sample 0, so they come out as 0, or as ``-mean`` with a mean."""
+    valid: [B, K] bool. Returns [B, K, oh, ow, C] ``out_dtype``; invalid
+    slots sample 0, so they come out as 0, or as ``-mean`` with a mean."""
     b, h, w, c = img.shape
     oh, ow = out_hw
     boxes = boxes.float()
@@ -536,15 +542,21 @@ def crop_resize_plain(img: torch.Tensor, boxes: torch.Tensor,
     out = torch.where(valid[..., None, None, None], out, 0.0)
     if clip:
         out = out.clamp(0.0, 255.0)
+    if out_dtype == torch.bfloat16:
+        out = out.to(torch.bfloat16)
+    elif out_dtype != torch.float32:
+        raise ValueError(f"crop_resize: out_dtype {out_dtype} is not float32 "
+                         "or bfloat16")
     if mean is not None:
-        out = out - torch.tensor(mean, dtype=torch.float32, device=out.device)
+        out = (out.float() - torch.tensor(mean, dtype=torch.float32,
+                                          device=out.device)).to(out_dtype)
     return out
 
 
 def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
                 out_hw: Tuple[int, int], clamp: bool = True,
-                clip: bool = False, mean: Optional[Sequence[float]] = None
-                ) -> torch.Tensor:
+                clip: bool = False, mean: Optional[Sequence[float]] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Crop and bilinearly resize K boxes from each of B frames in one
     launch (``csrc/crop_resize.cu``), with the optional clip and mean
     subtraction applied as it stores. The port of ``crop_gemm_pallas``;
@@ -553,10 +565,13 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
     img: [B, H, W, C] uint8 or float32 NHWC, C <= 4; boxes: [B, K, 4]
     float32 xyxy pixels; valid: [B, K] bool; ``clamp`` picks the box
     semantics (True: clamp to the frame, False: zero pad); ``clip`` and
-    ``mean`` (C floats) as in ``crop_resize_plain``. Returns
-    [B, K, oh, ow, C] float32, invalid slots 0 (``-mean`` with a mean)."""
+    ``mean`` (C floats) and ``out_dtype`` (float32, or bfloat16: the
+    two-rounding store) as in ``crop_resize_plain``. Returns
+    [B, K, oh, ow, C] ``out_dtype``, invalid slots 0 (``-mean`` with a
+    mean)."""
     if img.device.type == "cpu":
-        return crop_resize_plain(img, boxes, valid, out_hw, clamp, clip, mean)
+        return crop_resize_plain(img, boxes, valid, out_hw, clamp, clip, mean,
+                                 out_dtype)
     _require_cuda("crop_resize", img, boxes, valid)
     if img.dim() != 4 or img.dtype not in (torch.uint8, torch.float32) \
             or not 1 <= img.shape[-1] <= 4:
@@ -578,16 +593,18 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
                          "range (ow <= 2048, B and K <= 65535)")
     if mean is not None and len(mean) != c:
         raise ValueError(f"crop_resize: {len(mean)} means for {c} channels")
-    out = torch.empty((b, k, oh, ow, c), dtype=torch.float32,
-                      device=img.device)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"crop_resize: out_dtype {out_dtype} is not float32 "
+                         "or bfloat16")
+    out = torch.empty((b, k, oh, ow, c), dtype=out_dtype, device=img.device)
     import ctypes
 
     lib = _lib()
     c_mean = None if mean is None else (ctypes.c_float * c)(*mean)
     err = lib.crop_resize_launch(
         img.data_ptr(), int(img.dtype == torch.uint8), boxes.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), b, k, h, w, c, oh, ow, int(clamp),
-        int(clip), c_mean, _stream(img))
+        valid.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        b, k, h, w, c, oh, ow, int(clamp), int(clip), c_mean, _stream(img))
     _check(err, "crop_resize")
     _count("crop_resize")
     return out

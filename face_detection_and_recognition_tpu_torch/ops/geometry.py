@@ -32,6 +32,11 @@ def make_divisible(x: int, divisor: int) -> int:
     return int(math.ceil(x / divisor) * divisor)
 
 
+def check_img_size(img_size: int, s: int = 32) -> int:
+    """``img_size`` rounded up to a multiple of the stride ``s``."""
+    return make_divisible(img_size, int(s))
+
+
 def rect_letterbox_size(in_hw: Tuple[int, int], max_wh: Tuple[int, int],
                         stride: int) -> Tuple[int, int]:
     """Smallest stride-multiple (w, h) canvas that letterboxes ``in_hw`` at
@@ -117,6 +122,31 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int],
     return _resample_axis(x, out_hw[1], x.ndim - 2, dtype)
 
 
+def pad_resize_image(img: torch.Tensor, new_size: Tuple[int, int],
+                     color: Color = GRAY_FILL,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Letterbox one [H, W, C] image (BGR, uint8 or float): resize it
+    keeping its aspect (``letterbox_params``' geometry) and centre it on a
+    ``new_size`` = (width, height) canvas of ``color``, in ``dtype``."""
+    in_h, in_w = img.shape[:2]
+    new_w, new_h = new_size
+    _, sc_h, sc_w, top, left = letterbox_params((in_h, in_w), (new_h, new_w))
+    canvas = torch.empty((new_h, new_w, img.shape[2]), dtype=dtype,
+                         device=img.device)
+    canvas.copy_(torch.tensor(color, dtype=dtype, device=img.device))
+    canvas[top:top + sc_h, left:left + sc_w] = resize_bilinear(
+        img, (sc_h, sc_w), dtype=dtype)
+    return canvas
+
+
+def batched_pad_resize(imgs: torch.Tensor, new_size: Tuple[int, int],
+                       color: Color = GRAY_FILL) -> torch.Tensor:
+    """``pad_resize_image`` over a batch of same-sized images
+    [B, H, W, C] -> [B, new_h, new_w, C] float32."""
+    return torch.stack([pad_resize_image(im, new_size, color)
+                        for im in imgs])
+
+
 def _linear_taps(n_in: int, n_out: int, clamp: bool):
     """cv2's INTER_LINEAR taps of one axis: (first source index, second,
     weight of the first, weight of the second), weights in 11-bit fixed
@@ -197,13 +227,18 @@ def clip_coords(boxes: torch.Tensor, img_hw: Tuple[int, int]) -> torch.Tensor:
 
 
 def scale_coords(model_hw: Tuple[int, int], coords: torch.Tensor,
-                 orig_hw: Tuple[int, int]) -> torch.Tensor:
+                 orig_hw: Tuple[int, int], ratio_pad=None) -> torch.Tensor:
     """Rescale xyxy(+landmark) coords [..., D] (alternating x/y columns) from
     letterboxed model space to the original image, undoing the padding, and
-    clip the boxes to it."""
-    gain = min(model_hw[0] / orig_hw[0], model_hw[1] / orig_hw[1])
-    pad = ((model_hw[1] - orig_hw[1] * gain) / 2,
-           (model_hw[0] - orig_hw[0] * gain) / 2)
+    clip the boxes to it. ``ratio_pad`` ((gain, ...), (pad_w, pad_h)) gives
+    the letterbox's gain and padding instead of deriving them from the two
+    sizes."""
+    if ratio_pad is None:
+        gain = min(model_hw[0] / orig_hw[0], model_hw[1] / orig_hw[1])
+        pad = ((model_hw[1] - orig_hw[1] * gain) / 2,
+               (model_hw[0] - orig_hw[0] * gain) / 2)
+    else:
+        gain, pad = ratio_pad[0][0], ratio_pad[1]
     d = coords.shape[-1]
     shift = torch.tensor([pad[i % 2] for i in range(d)], dtype=coords.dtype,
                          device=coords.device)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,9 @@ class ServiceConfig:
     ag_ckpt: Optional[str] = None
     # None = the card; "cpu" runs on the CPU
     device: Optional[str] = None
+    # the engine's compute dtype (EngineConfig.dtype): float32, or
+    # bfloat16 for the yolov5 detectors (ROADMAP.md A8)
+    dtype: Any = torch.float32
 
 
 class FaceService:
@@ -86,6 +89,7 @@ class FaceService:
                 embedder="mobile_facenet" if cfg.with_embedder else None,
                 with_age_gender=cfg.with_age_gender,
                 rect=cfg.rect,
+                dtype=cfg.dtype,
             ),
             device=cfg.device,
         )

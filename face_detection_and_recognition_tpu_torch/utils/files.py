@@ -7,8 +7,10 @@ files this program wrote.
 """
 from __future__ import annotations
 
+import glob
 import json
 import mimetypes
+import os
 import pickle
 from collections import OrderedDict
 from pathlib import Path
@@ -47,3 +49,22 @@ def read_json(path: str) -> dict:
 def write_json(content: Dict, path: str) -> None:
     with Path(path).open("wt") as f:
         json.dump(content, f, indent=4, sort_keys=False)
+
+
+def gen_class2label_from_dir(data_dir: str, json_path: str) -> Dict[str, int]:
+    """Alphabetical class -> label map of a one-level class tree (one
+    directory a class under ``data_dir``), written to ``json_path`` and
+    returned."""
+    class_list = sorted(glob.glob(os.path.join(data_dir, "*")))
+    class_list = [d for d in class_list if os.path.isdir(d)]
+    mapping = {os.path.basename(d): i for i, d in enumerate(class_list)}
+    write_json(mapping, json_path)
+    return mapping
+
+
+def fix_path_for_globbing(path: str) -> str:
+    """A directory path ending in '/*', for class-tree globbing."""
+    path = str(path)
+    if path.endswith("/*"):
+        return path
+    return path.rstrip("/") + "/*"

@@ -211,9 +211,11 @@ def ensemble_stages(eng: FaceEngine, frames: np.ndarray) -> dict:
                                 v).reshape(-1, eh, ew, 3)
         out[eng.embed_spec.name] = cuda_ms(lambda: eng._embed(faces))
         boxes = post.boxes[:, :k_live]
-        out["crops 227"] = cuda_ms(lambda: eng._ag_crops(imgs, boxes, v,
-                                                         clip=True))
-        agc = eng._ag_crops(imgs, boxes, v, clip=True).reshape(-1, *AG_HW, 3)
+        dt = eng.cfg.dtype
+        out["crops 227"] = cuda_ms(lambda: eng._ag_crops(
+            imgs, boxes, v, clip=True, out_dtype=dt))
+        agc = eng._ag_crops(imgs, boxes, v, clip=True,
+                            out_dtype=dt).reshape(-1, *AG_HW, 3)
         out["age/gender"] = cuda_ms(lambda: eng._classify(agc))
         out["ensemble"] = cuda_ms(lambda: eng.detect_embed_classify_batch(
             frames, det_thres=0.0, bbox_area_thres=0.0))
