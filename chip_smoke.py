@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
-res10 + OpenVINO, int8 + keras + eval and bfloat16 paths on one CUDA
-card.
+res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights and
+bf16-families paths on one CUDA card, and trace its detect path.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,13 @@ seconds:
    on 8 seeded 576 x 1024 frames (square and rect letterbox) and
    ``detect_image`` on 3 single frames; then, after the path's counts are
    read, B1 alone on the candidates that path hands it (checked against
-   the plain version, timed, its kept boxes a frame printed);
+   the plain version, timed, its kept boxes a frame printed); then
+   tracing: three ``detect_batch`` steps of that engine under
+   ``utils.profiling.device_trace``, read back by
+   ``utils.trace_analysis``: the trace's device time a step within 10 %
+   of ``device_ms`` of the same call, B1's and B2's kernels found by
+   name, ``print_report`` and the share of device time left
+   ``<unattributed>``;
 5. main path, ensemble: the yolov5s + mobile_facenet + age/gender engine,
    ``detect_embed_classify_batch`` on the same 8 frames with every NMS
    survivor a live slot, then ``embed_crops``, ``classify_crops_age_gender``
@@ -198,7 +204,25 @@ seconds:
    the card against the same layer on the CPU (at least 99.9 % of its
    elements bit for bit and every difference within 2 bf16 ulps of its
    largest output, or the run fails);
-15. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+15. main path, trained weights: the nets of ``card_weights/``
+   (``eval/card_weights.py``; yolov5s f32 and bf16, yolov5n int8 static,
+   blazeface-front, mtcnn f32 and bf16, loaded through the engine's
+   weight loaders) through the golden gate of each net's JAX test on the
+   golden image and the negative one, their boxes at each of the gate's
+   thresholds within 1 px of the JAX CPU engine's (``expected.json``; the
+   int8 net: the same counts, its largest difference printed), and
+   MobileFaceNet's embeddings of the pinned crops at cosine >= 0.999 to
+   JAX's; each net is a part of the path;
+16. main path, bf16 families: blazeface front and back, the three SSDs,
+   mtcnn (every stage full), res10-ssd, ov-0204, ov-squeezenet-light and
+   openvino-ir with ``EngineConfig(dtype=torch.bfloat16)``,
+   ``detect_batch`` on the 8 frames at thresholds 0, a part each; then B1,
+   B3 and the fused B5 on the path's own inputs against their plain
+   versions bit for bit, each family's bf16 heads on 2 frames on the card
+   against the same net on the CPU (the share of equal elements), and
+   each network's ms between events and device ms and operations, bf16
+   beside f32;
+17. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -212,6 +236,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -3487,6 +3512,261 @@ def bf16_layers_card_vs_cpu(eng, cpu, x):
     return worst_eq, worst_ulps, where
 
 
+TRACE_STEPS = 3
+TRACE_KERNELS = {"B1 nms_fixpoint": ("nms_overlap_mask_kernel",
+                                     "nms_sweep_kernel"),
+                 "B2 rows_gather + decode": ("candidate_decode_kernel",)}
+
+
+def run_tracing(eng, frames, card):
+    """``TRACE_STEPS`` ``detect_batch`` steps of the f32 yolov5s engine
+    ``eng`` under ``utils.profiling.device_trace``, read back by
+    ``utils.trace_analysis``: the device time a step against
+    ``device_ms`` of the same call (within 10 %), B1's and B2's kernels
+    found by name, the report, and the share of device time whose launch
+    the trace leaves ``<unattributed>``. A trace that records no device
+    operation is taken again, up to three times. Returns its numbers."""
+    from face_detection_and_recognition_tpu_torch.utils import \
+        trace_analysis as TA
+    from face_detection_and_recognition_tpu_torch.utils.profiling import \
+        device_trace
+
+    out_dir = WORK_DIR / "trace"
+    run = lambda: eng.detect_batch(frames)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        t = time.time()
+        with torch.inference_mode(), device_trace(str(out_dir)):
+            for _ in range(TRACE_STEPS):
+                run()
+            torch.cuda.synchronize()
+        trace_s = time.time() - t
+        t = time.time()
+        ops = TA.load_device_ops(str(out_dir))
+        parse_s = time.time() - t
+        if ops:
+            break
+    if not ops:
+        raise AssertionError("three device traces recorded no device "
+                             "operation")
+    step_ms = sum(o.duration_us for o in ops) / 1e3 / TRACE_STEPS
+    ref_ms, ref_ops = device_ms(run, TRACE_STEPS)
+    if abs(step_ms - ref_ms) > 0.10 * ref_ms:
+        raise AssertionError(f"trace: {step_ms:.4f} device ms a step "
+                             f"against device_ms's {ref_ms:.4f}")
+    found = {}
+    for label, names in TRACE_KERNELS.items():
+        hits = [o for o in ops if any(n in o.name for n in names)]
+        if not hits:
+            raise AssertionError(f"trace: no {label} kernel "
+                                 f"({', '.join(names)}) among "
+                                 f"{sorted({o.name for o in ops})}")
+        found[label] = {"launches a step": len(hits) / TRACE_STEPS,
+                        "ms a step": sum(o.duration_us for o in hits)
+                        / 1e3 / TRACE_STEPS,
+                        "source": TA.source_file_key(hits[0])}
+    unattributed = sum(o.duration_us for o in ops
+                       if TA.source_file_key(o) == TA.UNATTRIBUTED)
+    share = unattributed / sum(o.duration_us for o in ops)
+    say(f"  trace of {TRACE_STEPS} detect_batch steps (yolov5s f32, "
+        f"{B} x 576x1024): {len(ops)} device operations, {step_ms:.4f} "
+        f"device ms a step against device_ms's {ref_ms:.4f} ms in "
+        f"{ref_ops} operations on {card}; traced in {trace_s:.2f} s, "
+        f"parsed in {parse_s:.2f} s")
+    for label, f in found.items():
+        say(f"  {label}: {json.dumps(f)}")
+    say(f"  <unattributed> share of the device time: {share:.4f}")
+    with contextlib.redirect_stdout(io.StringIO()) as report:
+        TA.print_report(str(out_dir), steps=TRACE_STEPS, n=10)
+    for line in report.getvalue().splitlines():
+        say(f"  | {line}")
+    return {"step_ms": step_ms, "device_ms": ref_ms, "ops": len(ops),
+            "unattributed_share": share, "kernels": found,
+            "trace_s": trace_s, "parse_s": parse_s}
+
+
+BF16_FAMILIES = ("blazeface-front", "blazeface-back", "ssd-resnet10",
+                 "ssd-mobilenetv2", "ssd-squeezenet", "mtcnn", "res10-ssd",
+                 "ov-0204", "ov-squeezenet-light", "openvino-ir")
+BF16_FAMILY_DIR = WORK_DIR / "bf16_families"
+
+
+def family_heads(eng, x):
+    """A detector's raw heads on the device of ``x`` (B frames, uint8), as
+    f32 tensors: the net on the preprocessed frames, or for MTCNN P-Net on
+    the first pyramid level (the cascade runs in its decode)."""
+    from face_detection_and_recognition_tpu_torch.models.mtcnn import \
+        pyramid_scales
+    from face_detection_and_recognition_tpu_torch.ops.geometry import \
+        resize_bilinear
+
+    with torch.inference_mode(), _full_f32(x.device):
+        if not eng.native_resolution:
+            out = eng._network(eng._preprocess(x))
+        else:
+            net, (h, w) = eng.net, x.shape[1:3]
+            scale = pyramid_scales(h, w, net.cfg.min_size, net.cfg.factor)[0]
+            norm = (x.float().flip(-1) - 127.5) * 0.0078125
+            level = resize_bilinear(norm, (int(math.ceil(h * scale)),
+                                           int(math.ceil(w * scale))),
+                                    dtype=net.pnet.compute_dtype)
+            out = net.pnet(level.permute(0, 3, 1, 2))
+    return [t.float().cpu() for t in out]
+
+
+def run_bf16_families(frames, card):
+    """The bf16 engines of the other families (A8b): blazeface front and
+    back, the three SSDs, mtcnn (every stage full), res10-ssd (a seeded
+    caffemodel, ``data_scale`` 1/64), ov-0204, ov-squeezenet-light and
+    openvino-ir (a seeded ov-0204 IR), each built with
+    ``EngineConfig(dtype=torch.bfloat16)`` and ``detect_batch`` on the 8
+    frames at thresholds 0, a part each. After the counts are read: B1, B3
+    and the fused B5 on the path's own inputs (recorded by a spy) against
+    their plain versions bit for bit; each family's bf16 heads on 2 frames
+    on the card against the same bf16 net on the CPU (the share of equal
+    elements); each network's device ms and operations bf16 beside the
+    f32 engine of the same weights. Returns (launches, numbers)."""
+    from face_detection_and_recognition_tpu_torch.models import blazeface
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+    from face_detection_and_recognition_tpu_torch.ops import nms as nms_ops
+
+    BF16_FAMILY_DIR.mkdir(parents=True, exist_ok=True)
+    caffemodel = BF16_FAMILY_DIR / "res10.caffemodel"
+    xml = BF16_FAMILY_DIR / "ov_0204.xml"
+    t = time.time()
+
+    def engine(name, dtype, device=None):
+        ov = dict(MTCNN_FULL) if name == "mtcnn" else {}
+        if name == "openvino-ir":
+            ov["xml"] = str(xml)
+        eng = FaceEngine(EngineConfig(detector=name, seed=SEED, dtype=dtype,
+                                      detector_overrides=ov), device=device)
+        if name == "res10-ssd":
+            eng.load_weights(str(caffemodel))
+        return eng
+
+    write_res10_caffemodel(FaceEngine(EngineConfig(
+        detector="res10-ssd", seed=SEED + 1), device="cpu").net, caffemodel)
+    write_ir(FaceEngine(EngineConfig(detector="ov-0204", seed=SEED),
+                        device="cpu").net, xml)
+    engines = {n: engine(n, torch.bfloat16) for n in BF16_FAMILIES}
+    f32 = {n: engine(n, torch.float32) for n in BF16_FAMILIES}
+    say(f"  bf16 and f32 engines built in {time.time() - t:.1f} s")
+    win, stats = Windows(), {}
+    targets = [(nms_ops, "nms_fixpoint"), (crop_ops, "crop_resize"),
+               (blazeface, "blaze_decode_blend")]
+    with spied_calls(targets) as seen, torch.inference_mode():
+        for name, eng in engines.items():
+            eng.detect_batch(frames, 0.0, 0.0)  # cuDNN picks its plans
+            dets = win.run(name, lambda: eng.detect_batch(frames, 0.0, 0.0))
+            check_dets(f"bf16 {name}", dets, eng.spec.n_landmark_cols,
+                       k=dets.valid.shape[1])
+            kernels = ("blaze_decode_blend",) if name.startswith("blaze") \
+                else ("nms_fixpoint", "crop_resize") if name == "mtcnn" \
+                else ("nms_fixpoint",)
+            for k in kernels:
+                if win.parts[name][k] <= 0:
+                    raise AssertionError(f"bf16 {name}: {k} never launched")
+            stats[f"{name} detections a frame"] = dets.valid.sum(1).tolist()
+    say(f"  launches by part: {json.dumps(win.parts)}")
+    check_on_path("nms_fixpoint on the bf16 families' candidates",
+                  ck.nms_fixpoint, ck.nms_fixpoint_plain, seen["nms_fixpoint"])
+    check_on_path("crop_resize on the bf16 cascade's R/O-Net crops",
+                  ck.crop_resize, ck.crop_resize_plain, seen["crop_resize"])
+    check_on_path("blaze_decode_blend on the bf16 nets' heads",
+                  ck.blaze_decode_blend, ck.blaze_decode_blend_plain,
+                  seen["blaze_decode_blend"])
+
+    frames_t = torch.from_numpy(frames).cuda()
+    for name, eng in engines.items():
+        heads = family_heads(eng, frames_t[:2])
+        cpu = engine(name, torch.bfloat16, "cpu")
+        cpu.net.load_state_dict({k: v.cpu()
+                                 for k, v in eng.net.state_dict().items()})
+        ref = family_heads(cpu, torch.from_numpy(frames[:2]))
+        equal = sum(int((g == r).sum()) for g, r in zip(heads, ref)) \
+            / sum(r.numel() for r in ref)
+        rel = max(float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                  for g, r in zip(heads, ref))
+        timing = {}
+        for dt, e in (("bf16", eng), ("f32", f32[name])):
+            with torch.inference_mode():
+                if e.native_resolution:
+                    fn = lambda e=e: e.net.detect(frames_t)  # noqa: E731
+                else:
+                    x = e._preprocess(frames_t)
+                    fn = lambda e=e, x=x: e._network(x)  # noqa: E731
+                with _full_f32(frames_t.device):
+                    timing[dt] = (cuda_ms(fn, 10), *device_ms(fn, 5))
+        stats[name] = dict(heads_equal=equal, heads_rel=rel, **{
+            f"{dt} network": dict(ms=v[0], device_ms=v[1], ops=v[2])
+            for dt, v in timing.items()})
+        say(f"  {name}: bf16 heads on the card against the CPU, 2 frames: "
+            f"{equal:.4f} of the elements equal, max |card - cpu| / max "
+            f"|cpu| = {rel:.3e}; network ({'cascade' if eng.native_resolution else 'net'}) "
+            + ", ".join(f"{dt} {v[0]:.3f} ms between events, {v[1]:.3f} ms "
+                        f"device in {v[2]} operations"
+                        for dt, v in timing.items()) + f" on {card}")
+    return win.total(), stats
+
+
+def run_trained_weights(card):
+    """The trained-weights main path: each net of ``card_weights/``
+    (``eval/card_weights.py``) loaded on the card through the engine's
+    weight loaders, run through the golden gate of its JAX test on the
+    golden image and the negative one, and held to the JAX CPU engine's
+    detections at each of the gate's thresholds (``expected.json``);
+    MobileFaceNet's embeddings of the pinned crops to JAX's at cosine >=
+    0.999. Each net is a part of the path (``Windows``). A net that fails
+    is run again on the CPU, and the card's boxes against the CPU's are
+    printed before the run fails. Returns (launches, numbers)."""
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+
+    exp = CW.load_expected()
+    pos, neg = CW.golden_images()
+    golden = np.asarray(exp["golden_boxes"], np.float32)
+    win, stats = Windows(), {}
+    for name, entry in exp["nets"].items():
+        t = time.time()
+        eng = CW.build_engine(entry)
+        try:
+            summary = win.run(name, lambda: CW.check_detector(
+                name, entry, eng, pos, neg, golden))
+        except AssertionError:
+            cpu = CW.build_engine(entry, "cpu")
+            for tag, img in (("golden", pos), ("negative", neg)):
+                thr = entry["gate"]["det_thres"]
+                got = eng.detect_image(img, det_thres=thr)
+                ref = cpu.detect_image(img, det_thres=thr)
+                say(f"  {name} on the {tag} image at {thr}: card "
+                    f"{np.asarray(got.boxes).tolist()} "
+                    f"{np.asarray(got.bbox_confs).tolist()}, CPU "
+                    f"{np.asarray(ref.boxes).tolist()} "
+                    f"{np.asarray(ref.bbox_confs).tolist()}")
+            raise
+        summary["s"] = time.time() - t
+        stats[name] = summary
+        say(f"  {name} ({entry['file']}, {entry.get('dtype', 'float32')}"
+            f"{', ' + json.dumps(entry['overrides']) if entry.get('overrides') else ''}): "
+            f"gate ok {summary['ok']}, {summary['n_pos']} faces at IoU "
+            f"{summary['ious']}, {summary['n_neg']} on the negative image; "
+            f"largest box difference from the JAX CPU engine "
+            f"{summary['max_px']} px over {len(entry['jax']['runs'])} "
+            f"thresholds x 2 images ({summary['s']:.1f} s)")
+    for name, entry in exp["embedders"].items():
+        eng = CW.build_engine(entry)
+        stats[name] = win.run(name, lambda: CW.check_embedder(
+            name, entry, eng, pos))
+        say(f"  {name} ({entry['file']}): cosines to JAX's embeddings of "
+            f"the pinned crops {stats[name]['cosines']}")
+    stats["windows"] = win.parts
+    say(f"  trained weights on {card}: every gate held")
+    return win.total(), stats
+
+
 def run_int8_keras_eval(frames, card):
     """The int8 yolov5 detectors, the keras FaceNet reader and the WIDER
     eval on the card. yolov5n and yolov5s at full width, seeded f32
@@ -3765,6 +4045,12 @@ def main():
     kernels[0].update(check_nms_on_path(engines[False], frames))
     phase_end("main path: detect")
 
+    say("[tracing] device_trace of yolov5s detect_batch, read by "
+        "utils.trace_analysis")
+    tracing = run_tracing(engines[False], frames, card)
+    say(f"  tracing numbers: {json.dumps(tracing)}")
+    phase_end("tracing")
+
     say("[main path: ensemble] yolov5s + mobile_facenet + age/gender")
     t = time.time()
     ens = FaceEngine(EngineConfig(detector="yolov5s",
@@ -3870,6 +4156,27 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the path")
     phase_end("main path: bf16")
 
+    say("[main path: trained weights] card_weights/: yolov5s f32 and bf16, "
+        "yolov5n int8 static, blazeface-front, mtcnn, mobile_facenet")
+    tw_launches, tw = run_trained_weights(card)
+    say(f"  launches on the trained weights path: {tw_launches}, by part "
+        f"{json.dumps(tw['windows'])}")
+    for name in ("nms_fixpoint", "rows_gather", "crop_resize",
+                 "blaze_decode_blend", "conv_int8"):
+        if tw_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    phase_end("main path: trained weights")
+
+    say("[main path: bf16 families] blazeface, the SSDs, mtcnn, res10-ssd "
+        "and the OpenVINO nets in bf16")
+    bf16f_launches, bf16f = run_bf16_families(frames, card)
+    say(f"  launches on the bf16 families path: {bf16f_launches}")
+    say(f"  bf16 families numbers: {json.dumps(bf16f)}")
+    for name in ("nms_fixpoint", "crop_resize", "blaze_decode_blend"):
+        if bf16f_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    phase_end("main path: bf16 families")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -3910,7 +4217,9 @@ def main():
                    "ssd + mtcnn": ssd_launches[k["name"]],
                    "res10 + openvino": r10ov_launches[k["name"]],
                    "int8 + keras + eval": ike_launches[k["name"]],
-                   "bf16": bf16_launches[k["name"]]}
+                   "bf16": bf16_launches[k["name"]],
+                   "trained weights": tw_launches[k["name"]],
+                   "bf16 families": bf16f_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

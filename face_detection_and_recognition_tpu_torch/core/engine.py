@@ -12,13 +12,12 @@ has a counterpart here; weights change through ``load_state_dict``. What
 that cache held is still counted (``compiled_pipelines``): each entry point
 and input shape the engine has run.
 
-``EngineConfig.dtype`` bfloat16 runs the JAX package's bf16 engine for the
-yolov5-face detectors (the official heads included), the five embedder slots
-and the age/gender heads: the detector's preprocess in bf16, bf16 nets
-(``models/layers.py`` sets out their rounding points), the 227x227
-age/gender crops stored in bf16 by the crop kernel; detections, embeddings
-and probabilities come out f32. The other detector families raise
-``ValueError`` for it (ROADMAP.md A8b).
+``EngineConfig.dtype`` bfloat16 runs the JAX package's bf16 engine for
+every registered detector, the five embedder slots and the age/gender
+heads: the detector's preprocess in bf16 (MTCNN's pyramid), bf16 nets
+(``models/layers.py`` and each family's module set out their rounding
+points), the 227x227 age/gender crops stored in bf16 by the crop kernel;
+detections, embeddings and probabilities come out f32.
 
 Any registered detector and embedder slot serves: detections carry the
 detector's ``n_landmark_cols`` landmark columns (none for the official
@@ -106,8 +105,7 @@ class EnsembleResult:
 class EngineConfig:
     """Engine settings, the JAX package's. ``dtype`` is the compute type:
     float32 or bfloat16, in any spelling ``core.config.as_dtype`` reads
-    (a JAX ``save_config`` file's "bfloat16" included). A bfloat16 engine
-    of a detector family without a bf16 build raises when it is built."""
+    (a JAX ``save_config`` file's "bfloat16" included)."""
 
     detector: str = "yolov5s"
     det_thres: float = 0.70
@@ -169,11 +167,6 @@ class FaceEngine:
                 self.spec, input_size=ov_size,
                 preprocess=dataclasses.replace(self.spec.preprocess,
                                                size=ov_size))
-        if cfg.dtype == BF16 and not self.spec.bf16:
-            raise ValueError(
-                f"EngineConfig.dtype bfloat16: detector '{self.spec.name}' "
-                "runs float32 only in the port; bf16 for the BlazeFace, SSD, "
-                "MTCNN, res10 and OpenVINO families is ROADMAP.md A8b")
         generator = torch.Generator().manual_seed(cfg.seed)
         self.net, self._decode = self.spec.build(generator, self.device,
                                                  **self._build_kw())

@@ -23,7 +23,8 @@ from torch import nn
 
 from ..ops.boxes import decode_boxes  # re-exported beside the model
 from ..ops.cuda_kernels import blaze_decode_blend
-from .layers import BlazeBlock, FinalBlazeBlock
+from .layers import (BlazeBlock, FinalBlazeBlock, conv_bias,
+                     set_compute_dtype)
 
 _FRONT_BLOCKS = ((24, 1), (28, 1), (32, 2), (36, 1), (42, 1), (48, 2),
                  (56, 1), (64, 1), (72, 1), (80, 1), (88, 1))
@@ -74,10 +75,23 @@ def _blocks(spec, c_in: int) -> List[nn.Module]:
     return out
 
 
+def _sequence(mods: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``mods`` on ``x``, each convolution through ``layers.conv_bias``
+    (the JAX bf16 net's roundings on a bf16 ``x``)."""
+    for m in mods:
+        x = conv_bias(m, x) if isinstance(m, nn.Conv2d) else m(x)
+    return x
+
+
 class BlazeFaceNet(nn.Module):
     """Backbone and the two-scale heads. Takes NHWC [B, H, W, 3] images in
     [-1, 1] RGB and returns raw boxes [B, 896, 16] and scores [B, 896, 1],
-    the heads flattened in NHWC order (the anchors' order)."""
+    f32, the heads flattened in NHWC order (the anchors' order). A bf16
+    ``compute_dtype`` runs the JAX package's bf16 net: every convolution's
+    sums and its sum with the bias rounded to bf16 (``layers.conv_bias``),
+    the residual sums rounded, the heads cast to f32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, back_model: bool = False):
         super().__init__()
@@ -100,11 +114,11 @@ class BlazeFaceNet(nn.Module):
     def features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The 16x16 and 8x8 maps the heads read, NCHW."""
         # TFLite-style first-conv padding: 1 before, 2 after
-        x = F.pad(x.permute(0, 3, 1, 2), (1, 2, 1, 2))
+        x = F.pad(x.to(self.compute_dtype).permute(0, 3, 1, 2), (1, 2, 1, 2))
         if self.back_model:
-            x = self.backbone(x)
+            x = _sequence(self.backbone, x)
             return x, self.final(x)
-        x = self.backbone1(x)
+        x = _sequence(self.backbone1, x)
         return x, self.backbone2(x)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,10 +128,10 @@ class BlazeFaceNet(nn.Module):
         def flat(y: torch.Tensor, n: int) -> torch.Tensor:
             return y.permute(0, 2, 3, 1).reshape(b, -1, n)
 
-        scores = torch.cat([flat(self.classifier_8(c8), 1),
-                            flat(self.classifier_16(c16), 1)], 1)
-        boxes = torch.cat([flat(self.regressor_8(c8), 16),
-                           flat(self.regressor_16(c16), 16)], 1)
+        scores = torch.cat([flat(conv_bias(self.classifier_8, c8), 1),
+                            flat(conv_bias(self.classifier_16, c16), 1)], 1)
+        boxes = torch.cat([flat(conv_bias(self.regressor_8, c8), 16),
+                           flat(conv_bias(self.regressor_16, c16), 16)], 1)
         return boxes.float(), scores.float()
 
     @torch.no_grad()
@@ -177,14 +191,16 @@ def blazeface_postprocess(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
 
 
 def make_blazeface(cfg: BlazeFaceConfig, generator: torch.Generator,
-                   device: torch.device
+                   device: torch.device, dtype: torch.dtype = torch.float32
                    ) -> Tuple[BlazeFaceNet, Callable]:
-    """Net (weights from ``generator``, on ``device``, channels-last, eval)
-    and ``decode((raw_boxes, raw_scores), in_hw) -> (dets [B, max_faces,
-    17] normalized, valid [B, max_faces])``; the net takes [B, H, W, 3]
-    RGB in [-1, 1]."""
+    """Net (weights from ``generator``, on ``device``, channels-last, eval,
+    computing in ``dtype``: float32 or the JAX package's bfloat16 net) and
+    ``decode((raw_boxes, raw_scores), in_hw) -> (dets [B, max_faces, 17]
+    normalized, valid [B, max_faces])``; the net takes [B, H, W, 3] RGB in
+    [-1, 1] and gives f32 heads to the fused decode."""
     net = BlazeFaceNet(cfg.back_model).init_random_(generator, cfg)
     net = net.to(device=device, memory_format=torch.channels_last).eval()
+    set_compute_dtype(net, dtype)
     anchors = torch.from_numpy(generate_anchors()).to(device)
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],

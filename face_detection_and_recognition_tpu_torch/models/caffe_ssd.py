@@ -29,7 +29,7 @@ from torch import nn
 
 from ..ops.nms import greedy_nms, top_k
 from ..utils.caffe_graph import CaffeLayerDef
-from .layers import param_key
+from .layers import BF16, param_key
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +202,16 @@ class CaffeGraphNet(nn.Module):
     0, BatchNorm mean 0, variance 1, scale factor 1, Scale 1, Normalize
     20). ``forward`` takes NHWC [B, H, W, C] (mean-subtracted BGR) and
     returns the graph's output: (loc [B, N*4], conf [B, N*ncls]) for a
-    DetectionOutput graph."""
+    DetectionOutput graph.
+
+    A bf16 ``compute_dtype`` runs the graph as the JAX interpreter does on
+    a bf16 input (JAX ``models/caffe_ssd.py:420-560``, compiled): each
+    blob cast to bf16 at its use and every op's result rounded to bf16,
+    but where XLA keeps f32: Normalize's squares summed in f32, and
+    Softmax's ``exp`` summed unrounded (then the sum and the ``exp``
+    rounded before the quotient). The decode reads the heads as f32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, layers: Sequence[CaffeLayerDef],
                  input_size: Tuple[int, int],
@@ -430,7 +439,8 @@ class CaffeGraphNet(nn.Module):
     # -- execution -----------------------------------------------------------
     def forward(self, imgs: torch.Tensor):
         """imgs: [B, H, W, C] preprocessed (mean-subtracted BGR)."""
-        env: Dict[str, object] = {"data": imgs.permute(0, 3, 1, 2)}
+        env: Dict[str, object] = {
+            "data": imgs.to(self.compute_dtype).permute(0, 3, 1, 2)}
         for s in self.steps:
             x = env[s.inputs[0]] if s.inputs else None
             env[s.output] = self._run(s, x, env)
@@ -441,23 +451,31 @@ class CaffeGraphNet(nn.Module):
         if op in ("conv", "inner_product", "batchnorm", "scale",
                   "normalize"):
             blobs = self.blobs[param_key(s.name)]
+        bf16 = isinstance(x, torch.Tensor) and x.dtype == BF16
         if op == "identity":
             return x
         if op == "conv":
+            if bf16:  # the sums rounded, then the bias added in bf16
+                y = F.conv2d(x, blobs[0].to(BF16), None, a["stride"],
+                             a["pad"], a["dilation"], a["group"])
+                return y + blobs[1].to(BF16).view(1, -1, 1, 1) \
+                    if a["bias"] else y
             return F.conv2d(x, blobs[0], blobs[1] if a["bias"] else None,
                             a["stride"], a["pad"], a["dilation"], a["group"])
         if op == "inner_product":
-            return F.linear(x.reshape(x.shape[0], -1), blobs[0],
-                            blobs[1] if len(blobs) > 1 else None)
+            y = F.linear(x.reshape(x.shape[0], -1), blobs[0].to(x.dtype))
+            return y + blobs[1].to(x.dtype) if len(blobs) > 1 else y
         if op == "batchnorm":
             mean, var, sf = blobs[0], blobs[1], blobs[2].reshape(-1)[0]
             scale = torch.where(sf != 0, 1.0 / sf, 1.0)
-            mu = (mean * scale).reshape(1, -1, 1, 1)
-            sig = torch.sqrt(var * scale + 1e-5).reshape(1, -1, 1, 1)
+            mu = (mean * scale).reshape(1, -1, 1, 1).to(x.dtype)
+            sig = torch.sqrt(var * scale + 1e-5).reshape(1, -1, 1, 1) \
+                .to(x.dtype)
             return (x - mu) / sig
         if op == "scale":
-            y = x * blobs[0].reshape(1, -1, 1, 1)
-            return y + blobs[1].reshape(1, -1, 1, 1) if a["bias"] else y
+            y = x * blobs[0].reshape(1, -1, 1, 1).to(x.dtype)
+            return y + blobs[1].reshape(1, -1, 1, 1).to(x.dtype) \
+                if a["bias"] else y
         if op == "relu":
             return F.relu(x)
         if op == "sigmoid":
@@ -481,8 +499,11 @@ class CaffeGraphNet(nn.Module):
             return acc
         if op == "normalize":
             # across the channels of each position
-            denom = torch.sqrt((x * x).sum(1, keepdim=True) + 1e-10)
-            return x / denom * blobs[0].reshape(1, -1, 1, 1)
+            g = blobs[0].reshape(1, -1, 1, 1).to(x.dtype)
+            if bf16:
+                ss = x.float().square().sum(1, keepdim=True).to(BF16)
+                return x / torch.sqrt(ss + 1e-10) * g
+            return x / torch.sqrt((x * x).sum(1, keepdim=True) + 1e-10) * g
         if op == "permute":
             return x.permute(a["order"]) if a["order"] else x
         if op == "flatten":
@@ -492,6 +513,10 @@ class CaffeGraphNet(nn.Module):
                 x.shape[i + 1] if d == 0 else int(d)
                 for i, d in enumerate(a["dims"][1:])])
         if op == "softmax":
+            if bf16:
+                ax = a["axis"]
+                e = torch.exp((x - x.amax(ax, keepdim=True)).float())
+                return e.to(BF16) / e.sum(ax, keepdim=True).to(BF16)
             return torch.softmax(x, a["axis"])
         if op == "concat":
             return torch.cat([env[i] for i in s.inputs], a["axis"])

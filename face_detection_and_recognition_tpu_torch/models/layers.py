@@ -25,7 +25,11 @@ parameter changes). The rounding points:
 - every elementwise op on bf16 values rounds its result to bf16: SiLU is
   ``x * (1 / (1 + exp(-x)))`` with four roundings (``silu_bf16``), PReLU's
   product one, a residual add one; ReLU, ReLU6, max pools, concatenation,
-  nearest upsampling and the channel shuffle are exact.
+  nearest upsampling and the channel shuffle are exact;
+- XLA drops the bf16 rounding of a result whose only use is its cast to
+  f32 (the convert pair folds away): a head whose output is cast to f32
+  at once keeps its f32 sum (``models/mtcnn.py``), and one reshaped first
+  rounds (the SSD and BlazeFace heads).
 
 On the card the f32 sums of bf16 values come from an f32 convolution of
 the bf16 values (TF32 off: every product of two bf16 values is exact in
@@ -98,6 +102,20 @@ def conv_bias_bf16(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     y = F.conv2d(x.to(BF16), bf16_param(conv, "weight"), None, conv.stride,
                  conv.padding, conv.dilation, conv.groups)
     return y + bf16_param(conv, "bias").view(1, -1, 1, 1)
+
+
+def conv_bias(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A convolution with its bias: ``conv(x)``, or on a bf16 ``x``
+    ``conv_bias_bf16``."""
+    return conv_bias_bf16(conv, x) if x.dtype == BF16 else conv(x)
+
+
+def prelu_bf16(prelu: nn.PReLU, h: torch.Tensor) -> torch.Tensor:
+    """flax's ``where(h >= 0, h, h * alpha)`` on a bf16 ``h`` (channels on
+    dim 1), alpha rounded to bf16: the product rounded once."""
+    shape = (1, -1) + (1,) * (h.dim() - 2)
+    return torch.where(h >= 0, h, h * bf16_param(prelu, "weight")
+                       .view(shape))
 
 
 def linear_sums(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -448,6 +466,12 @@ def _blaze_convs(c_in: int, c_out: int, k: int, stride: int, pad: int
         nn.Conv2d(c_in, c_out, 1, bias=True))
 
 
+def _separable(convs: nn.Sequential, h: torch.Tensor) -> torch.Tensor:
+    """The depthwise then pointwise convolution of ``convs``, each with its
+    bias (on bf16: each rounded twice, ``conv_bias``)."""
+    return conv_bias(convs[1], conv_bias(convs[0], h))
+
+
 class BlazeBlock(nn.Module):
     """Depthwise-separable residual block with TFLite stride-2 padding.
 
@@ -469,7 +493,7 @@ class BlazeBlock(nn.Module):
             h, res = x, x
         if self.c_pad > 0:
             res = F.pad(res, (0, 0, 0, 0, 0, self.c_pad))
-        return F.relu(self.convs(h) + res)
+        return F.relu(_separable(self.convs, h) + res)
 
 
 class FinalBlazeBlock(nn.Module):
@@ -481,7 +505,7 @@ class FinalBlazeBlock(nn.Module):
         self.convs = _blaze_convs(channels, channels, k, 2, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.convs(F.pad(x, (0, 2, 0, 2))))
+        return F.relu(_separable(self.convs, F.pad(x, (0, 2, 0, 2))))
 
 
 # ---------------- MobileFaceNet blocks ----------------
@@ -500,9 +524,8 @@ class MFConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == BF16:
-            y = batch_norm_bf16(self.bn, conv_sums(self.conv, x))
-            alpha = bf16_param(self.prelu, "weight").view(1, -1, 1, 1)
-            return torch.where(y >= 0, y, y * alpha)
+            return prelu_bf16(self.prelu, batch_norm_bf16(
+                self.bn, conv_sums(self.conv, x)))
         return self.prelu(self.bn(self.conv(x)))
 
 

@@ -26,6 +26,15 @@ by a pyramid scale a product with its f32 reciprocal (XLA's rewrites of
 those expressions). R-Net and O-Net flatten their last map channels-last, as flax's NHWC reshape does, so the Dense weights
 of a flax tree or a TF graph load as they are. Output rows are
 [xmin, ymin, xmax, ymax, lmk x/y pairs x5, conf] normalized to the frame.
+
+A bf16 cascade (``make_mtcnn(..., dtype=torch.bfloat16)``) is the JAX
+package's, as XLA compiles it on the CPU: the pyramid resampled in bf16,
+each convolution and Dense rounded after its sums and after its bias,
+PReLU's product rounded; the heads' results, cast to f32 at once, left
+unrounded: the regressions are the bf16 sums plus the bf16 bias in f32,
+and the softmax divides the bf16-rounded ``exp`` by the bf16-rounded f32
+sum of the unrounded ``exp`` in f32. The R/O-Net crops are of the f32
+frame, as on the JAX package's CPU path, and the nets cast them to bf16.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ from ..ops.cuda_kernels import _fma_f32
 from ..ops.geometry import resize_bilinear
 from ..ops.nms import greedy_nms_mask, sort_by_score, top_k
 from ..ops.platform import check_kernel_choice
+from .layers import (BF16, bf16_param, conv_bias_bf16, linear_bias_bf16,
+                     linear_sums, prelu_bf16, set_compute_dtype)
 
 # crop_method's values (the JAX package's): "pallas" the hand-written crop
 # (B3), "gather" and "gemm" (JAX's two exact crops) the plain one, None /
@@ -78,9 +89,60 @@ def _ceil_pool(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.max_pool2d(x, k, s, ceil_mode=True)
 
 
+def _bias_bf16(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A convolution or Dense with its bias on a bf16 ``x``: the sums
+    rounded, then the sum with the bias (``layers.conv_bias_bf16``,
+    ``linear_bias_bf16``)."""
+    if isinstance(layer, nn.Conv2d):
+        return conv_bias_bf16(layer, x)
+    return linear_bias_bf16(layer, x)
+
+
+def _with_prelu(layer: nn.Module, prelu: nn.PReLU, x: torch.Tensor
+                ) -> torch.Tensor:
+    """A convolution or Dense with its bias, then PReLU: f32, or on a bf16
+    ``x`` the JAX bf16 net's forms."""
+    if x.dtype == BF16:
+        return prelu_bf16(prelu, _bias_bf16(layer, x))
+    return prelu(layer(x))
+
+
+def _head_f32(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A head (1x1 convolution or Dense) to f32: on a bf16 ``x``, the sums
+    rounded to bf16 and the bf16 bias added in f32, unrounded (XLA drops
+    the bf16 rounding of a result whose only use is its cast to f32)."""
+    if x.dtype != BF16:
+        return layer(x)
+    if isinstance(layer, nn.Conv2d):
+        s = F.conv2d(x, bf16_param(layer, "weight"), None, layer.stride,
+                     layer.padding)
+        b = bf16_param(layer, "bias", torch.float32).view(1, -1, 1, 1)
+    else:
+        s = linear_sums(layer, x).to(BF16)
+        b = bf16_param(layer, "bias", torch.float32)
+    return s.float() + b
+
+
+def _softmax_head(layer: nn.Module, x: torch.Tensor, dim: int
+                  ) -> torch.Tensor:
+    """The class head's softmax, f32 out. On a bf16 ``x`` as XLA compiles
+    flax's bf16 ``nn.softmax``: the logits rounded to bf16 (sums, then
+    plus the bias), ``logits - max`` rounded, its ``exp`` summed in f32,
+    and the bf16-rounded ``exp`` divided in f32 by the bf16-rounded sum,
+    the quotient unrounded."""
+    if x.dtype != BF16:
+        return torch.softmax(layer(x), dim)
+    logits = _bias_bf16(layer, x)
+    e = torch.exp((logits - logits.amax(dim, keepdim=True)).float())
+    return e.to(BF16).float() / e.sum(dim, keepdim=True).to(BF16).float()
+
+
 class PNet(nn.Module):
     """Proposal net: fully convolutional, stride 2, 12 px receptive field.
-    NCHW in; (prob [B, 2, h, w], reg [B, 4, h, w]) out."""
+    NCHW in; (prob [B, 2, h, w], reg [B, 4, h, w]) out, f32. A bf16
+    ``compute_dtype`` runs the JAX package's bf16 net."""
+
+    compute_dtype = torch.float32
 
     def __init__(self):
         super().__init__()
@@ -91,9 +153,11 @@ class PNet(nn.Module):
         self.reg = nn.Conv2d(32, 4, 1)
 
     def forward(self, x: torch.Tensor):
-        x = _ceil_pool(self.prelu1(self.conv1(x)), 2, 2)
-        x = self.prelu3(self.conv3(self.prelu2(self.conv2(x))))
-        return torch.softmax(self.prob(x), 1), self.reg(x)
+        x = x.to(self.compute_dtype)
+        x = _ceil_pool(_with_prelu(self.conv1, self.prelu1, x), 2, 2)
+        x = _with_prelu(self.conv3, self.prelu3,
+                        _with_prelu(self.conv2, self.prelu2, x))
+        return _softmax_head(self.prob, x, 1), _head_f32(self.reg, x)
 
 
 def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
@@ -102,7 +166,9 @@ def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class RNet(nn.Module):
-    """Refine net: NCHW 24x24 crops -> (prob [N, 2], reg [N, 4])."""
+    """Refine net: NCHW 24x24 crops -> (prob [N, 2], reg [N, 4]), f32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self):
         super().__init__()
@@ -114,15 +180,19 @@ class RNet(nn.Module):
         self.reg = nn.Linear(128, 4)
 
     def forward(self, x: torch.Tensor):
-        x = _ceil_pool(self.prelu1(self.conv1(x)), 3, 2)
-        x = _ceil_pool(self.prelu2(self.conv2(x)), 3, 2)
-        x = self.prelu4(self.fc(_flatten_hwc(self.prelu3(self.conv3(x)))))
-        return torch.softmax(self.prob(x), -1), self.reg(x)
+        x = x.to(self.compute_dtype)
+        x = _ceil_pool(_with_prelu(self.conv1, self.prelu1, x), 3, 2)
+        x = _ceil_pool(_with_prelu(self.conv2, self.prelu2, x), 3, 2)
+        x = _flatten_hwc(_with_prelu(self.conv3, self.prelu3, x))
+        x = _with_prelu(self.fc, self.prelu4, x)
+        return _softmax_head(self.prob, x, -1), _head_f32(self.reg, x)
 
 
 class ONet(nn.Module):
     """Output net: NCHW 48x48 crops -> (prob [N, 2], reg [N, 4],
-    landmarks [N, 10])."""
+    landmarks [N, 10]), f32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self):
         super().__init__()
@@ -136,11 +206,14 @@ class ONet(nn.Module):
         self.lmk = nn.Linear(256, 10)
 
     def forward(self, x: torch.Tensor):
-        x = _ceil_pool(self.prelu1(self.conv1(x)), 3, 2)
-        x = _ceil_pool(self.prelu2(self.conv2(x)), 3, 2)
-        x = _ceil_pool(self.prelu3(self.conv3(x)), 2, 2)
-        x = self.prelu5(self.fc(_flatten_hwc(self.prelu4(self.conv4(x)))))
-        return torch.softmax(self.prob(x), -1), self.reg(x), self.lmk(x)
+        x = x.to(self.compute_dtype)
+        x = _ceil_pool(_with_prelu(self.conv1, self.prelu1, x), 3, 2)
+        x = _ceil_pool(_with_prelu(self.conv2, self.prelu2, x), 3, 2)
+        x = _ceil_pool(_with_prelu(self.conv3, self.prelu3, x), 2, 2)
+        x = _flatten_hwc(_with_prelu(self.conv4, self.prelu4, x))
+        x = _with_prelu(self.fc, self.prelu5, x)
+        return (_softmax_head(self.prob, x, -1), _head_f32(self.reg, x),
+                _head_f32(self.lmk, x))
 
 
 def pyramid_scales(h: int, w: int, min_size: int, factor: float
@@ -236,7 +309,10 @@ class MTCNN(nn.Module):
         lv_boxes, lv_scores, lv_regs, lv_valid = [], [], [], []
         for scale in pyramid_scales(h, w, cfg.min_size, cfg.factor):
             sh, sw = int(math.ceil(h * scale)), int(math.ceil(w * scale))
-            resized = resize_bilinear(norm, (sh, sw))
+            # the levels resample in the P-Net's dtype (JAX
+            # models/mtcnn.py:242); the crops below read the f32 frame
+            resized = resize_bilinear(norm, (sh, sw),
+                                      dtype=self.pnet.compute_dtype)
             prob, reg = self.pnet(resized.permute(0, 3, 1, 2))
             score = prob[:, 1]                                # [B, oh, ow]
             ow = score.shape[-1]
@@ -323,13 +399,17 @@ class MTCNN(nn.Module):
 
 
 def make_mtcnn(cfg: MTCNNConfig, generator: torch.Generator,
-               device: torch.device) -> Tuple[MTCNN, Callable]:
+               device: torch.device, dtype: torch.dtype = torch.float32
+               ) -> Tuple[MTCNN, Callable]:
     """The cascade (weights from ``generator``, on ``device``, eval) and
     ``decode(frames [B, H, W, 3] BGR, in_hw) -> (dets [B, max_faces, 15]
     normalized, valid)``: a native-resolution detector runs whole in its
-    decode."""
+    decode. ``dtype`` bfloat16 builds the JAX package's bf16 cascade: the
+    pyramid resampled in bf16, the three nets in bf16 (``PNet``), the
+    R/O-Net crops of the f32 frame as in f32, the outputs f32."""
     check_crop_method(cfg, device)
     net = MTCNN(cfg).init_random_(generator).to(device)
+    set_compute_dtype(net, dtype)
 
     def decode(frames: torch.Tensor, in_hw: Tuple[int, int]):
         return net.detect(frames)

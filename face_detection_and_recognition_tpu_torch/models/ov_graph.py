@@ -120,7 +120,18 @@ class OVGraphNet(nn.Module):
     ``forward`` takes NHWC [B, H, W, C] (raw BGR, as the reference feeds
     OpenVINO) and returns the graph's output: (loc [B, N*4], conf [B,
     N*ncls]) for a DetectionOutput graph, whatever batch the IR's reshape
-    literals name. ``input_dims`` is the Parameter's NCHW shape."""
+    literals name. ``input_dims`` is the Parameter's NCHW shape.
+
+    A bf16 ``compute_dtype`` runs the graph as the JAX interpreter does on
+    a bf16 input (``make_ov_detect(net, compute_dtype=bf16)``, JAX
+    ``models/ov_graph.py:555-588``): the input cast to bf16, each
+    convolution's or MatMul's weights cast to its input's dtype, and
+    every op promoting as JAX promotes, so that a bf16 tensor meeting an
+    f32 constant (a bias ``Add``) gives f32: the reference's IRs run their
+    first convolution in bf16 (its sums rounded to bf16) and the rest in
+    f32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, graph: IRGraph):
         super().__init__()
@@ -346,7 +357,8 @@ class OVGraphNet(nn.Module):
     def forward(self, imgs: torch.Tensor):
         """imgs: [B, H, W, C], raw BGR values."""
         env: Dict[str, object] = {
-            self.input_key or "data": imgs.permute(0, 3, 1, 2)}
+            self.input_key or "data":
+                imgs.to(self.compute_dtype).permute(0, 3, 1, 2)}
         for s in self.steps:
             x = env[s.inputs[0]] if s.inputs else None
             env[s.output] = self._run(s, x, env)
@@ -359,7 +371,7 @@ class OVGraphNet(nn.Module):
     def _run(self, s: _Step, x, env):
         op, a = s.op, s.attrs
         if op == "conv":
-            w = self.consts[param_key(s.inputs[1])]
+            w = self.consts[param_key(s.inputs[1])].to(x.dtype)
             groups = 1
             if a["grouped"]:  # [G, O/G, I/G, kh, kw]
                 groups = w.shape[0]
@@ -371,7 +383,11 @@ class OVGraphNet(nn.Module):
             return F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, None,
                             a["strides"], 0, a["dilations"], groups)
         if op == "binop":
-            return _BINOPS[a["kind"]](x, self._operand(s, env))
+            y = self._operand(s, env)
+            if x.dtype != y.dtype:  # JAX's promotion: an f32 constant wins
+                t = torch.promote_types(x.dtype, y.dtype)
+                x, y = x.to(t), y.to(t)
+            return _BINOPS[a["kind"]](x, y)
         if op == "prelu":
             alpha = self.consts[param_key(s.inputs[1])].reshape(-1)
             if x.dim() == 4 and alpha.numel() > 1:
@@ -417,7 +433,7 @@ class OVGraphNet(nn.Module):
             y = self._operand(s, env)
             xa = x.transpose(-1, -2) if a["ta"] else x
             yb = y.transpose(-1, -2) if a["tb"] else y
-            return xa @ yb
+            return xa @ yb.to(xa.dtype)
         if op == "prior":
             return None
         if op == "detection_output":

@@ -11,10 +11,9 @@ the OpenVINO IR nets (openvino-ir, which executes the ``.xml`` given as
 reference's two IR topologies) and the MTCNN cascade (mtcnn, at native
 resolution: ``input_size`` (-1, -1)). The nine yolov5-face names also
 build int8 nets (``detector_overrides={"quantized": True | "static"}``).
-The yolov5-face names and the official heads build bf16 nets
-(``build(..., dtype=torch.bfloat16)``: ``DetectorSpec.bf16``); the other
-families run f32 only (ROADMAP.md A8b).
-``build`` returns the network and
+Every name builds the JAX package's bf16 net too (``build(...,
+dtype=torch.bfloat16)``): raw heads in bf16 where JAX keeps them so,
+detections in f32. ``build`` returns the network and
 its decode, with detections in the normalized contract: rows [xmin, ymin,
 xmax, ymax, (lmk xy pairs...), conf] in [0, 1] wrt the model input size.
 """
@@ -122,6 +121,8 @@ def import_ir_net(path: str, net: torch.nn.Module,
     new = OVGraphNet(parse_ir_graph(path, os.path.splitext(path)[0]
                                     + ".bin"))
     new = new.to(next(net.parameters()).device).eval()
+    # the engine's dtype stays (the JAX reload drops it: ROADMAP.md §C)
+    set_compute_dtype(new, net.compute_dtype)
     return new, make_ov_detect(new)
 
 
@@ -180,9 +181,6 @@ class DetectorSpec:
     # (the int8 yolov5-face nets); load_weights rebuilds the net to the
     # mode of an int8 state dict
     quantizable: bool = False
-    # the build takes dtype=torch.bfloat16 (ROADMAP.md A8: the yolov5
-    # family; A8b: the others)
-    bf16: bool = False
 
 
 _REGISTRY = {}
@@ -260,7 +258,6 @@ for _arch in ("yolov5s", "yolov5m", "yolov5l", "yolov5n", "yolov5n-0.5",
         build=_build_yolov5(_arch, (640, 640)),
         rect_stride=64 if _arch.endswith("6") else 32,
         quantizable=True,
-        bf16=True,
     ))
 
 
@@ -305,7 +302,6 @@ for _arch in ("yolov5s", "yolov5n"):
         n_landmark_cols=0,
         build=_build_yolov5_official(_arch, (640, 640)),
         rect_stride=32,
-        bf16=True,
     ))
 
 
@@ -313,14 +309,15 @@ for _arch in ("yolov5s", "yolov5n"):
 
 
 def _build_blazeface(back: bool):
-    def build(generator: torch.Generator, device: torch.device, **kw):
+    def build(generator: torch.Generator, device: torch.device,
+              dtype: torch.dtype = torch.float32, **kw):
         if kw.pop("input_size", None) is not None:
             raise ValueError(
                 "blazeface input size is fixed by the architecture "
                 "(front 128x128 / back 256x256)")
         # detections come out normalized, in the 17-column contract
         return make_blazeface(BlazeFaceConfig(back_model=back, **kw),
-                              generator, device)
+                              generator, device, dtype)
 
     return build
 
@@ -335,10 +332,11 @@ register(DetectorSpec("blazeface-back", (256, 256), P.BLAZEFACE_BACK, 12,
 
 
 def _build_ssd(backbone: str, input_size):
-    def build(generator: torch.Generator, device: torch.device, **kw):
+    def build(generator: torch.Generator, device: torch.device,
+              dtype: torch.dtype = torch.float32, **kw):
         kw.setdefault("input_size", input_size)
         return make_ssd_face(SSDConfig(backbone=backbone, **kw), generator,
-                             device)
+                             device, dtype)
 
     return build
 
@@ -355,10 +353,11 @@ register(DetectorSpec("ssd-squeezenet", (300, 300), P.OPENCV_SSD, 0,
                       import_pb=import_graphdef_structural))
 
 
-def _build_res10(generator: torch.Generator, device: torch.device, **kw):
+def _build_res10(generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32, **kw):
     if kw.pop("input_size", None) not in (None, (300, 300)):
         raise ValueError("res10 runs the fixed 300x300 deploy graph")
-    return build_res10(generator, device)
+    return build_res10(generator, device, dtype)
 
 
 # the exact public res10_300x300 deploy graph (models/res10.py): the import
@@ -373,7 +372,8 @@ register(DetectorSpec("res10-ssd", (300, 300), P.OPENCV_SSD, 0, _build_res10,
 # ---------------- OpenVINO IR nets ----------------
 
 
-def _build_ov_ir(generator: torch.Generator, device: torch.device, **kw):
+def _build_ov_ir(generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32, **kw):
     """The IR named by ``xml`` (``bin``: the sibling .bin by default);
     its input size is the IR's own."""
     from ..utils.ir_graph import parse_ir_graph
@@ -387,18 +387,19 @@ def _build_ov_ir(generator: torch.Generator, device: torch.device, **kw):
             "the sibling .bin)")
     bin_path = kw.pop("bin", os.path.splitext(xml)[0] + ".bin")
     net = OVGraphNet(parse_ir_graph(xml, bin_path)).to(device).eval()
-    return net, make_ov_detect(net)
+    return set_compute_dtype(net, dtype), make_ov_detect(net)
 
 
 def _build_ov_topology(topology: str):
-    def build(generator: torch.Generator, device: torch.device, **kw):
+    def build(generator: torch.Generator, device: torch.device,
+              dtype: torch.dtype = torch.float32, **kw):
         kw.pop("input_size", None)  # the size comes from the topology
         # the He-init constants are the topology's, from a seed drawn
         # from the engine's generator
         seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
         net = OVGraphNet(build_ov_topology(topology, seed=seed))
         net = net.to(device).eval()
-        return net, make_ov_detect(net)
+        return set_compute_dtype(net, dtype), make_ov_detect(net)
 
     return build
 
@@ -421,10 +422,11 @@ register(DetectorSpec("ov-squeezenet-light", (300, 300),
 # ---------------- MTCNN ----------------
 
 
-def _build_mtcnn(generator: torch.Generator, device: torch.device, **kw):
+def _build_mtcnn(generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32, **kw):
     if kw.pop("input_size", None) is not None:
         raise ValueError("mtcnn runs at native image resolution")
-    return make_mtcnn(MTCNNConfig(**kw), generator, device)
+    return make_mtcnn(MTCNNConfig(**kw), generator, device, dtype)
 
 
 register(DetectorSpec(

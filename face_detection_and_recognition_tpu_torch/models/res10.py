@@ -33,6 +33,7 @@ import torch
 
 from ..utils.caffe_graph import CaffeLayerDef, read_caffemodel_graph
 from .caffe_ssd import CaffeGraphNet, make_caffe_ssd_detect
+from .layers import set_compute_dtype
 
 RES10_SIZE = (300, 300)
 
@@ -237,12 +238,15 @@ def res10_deploy_defs() -> List[CaffeLayerDef]:
 
 
 def build_res10(generator: Optional[torch.Generator] = None,
-                device: Optional[torch.device] = None
+                device: Optional[torch.device] = None,
+                dtype: torch.dtype = torch.float32
                 ) -> Tuple[CaffeGraphNet, Callable]:
     """res10 from the deploy table, its kernels drawn from ``generator``:
-    (net on ``device``, eval, and its decode)."""
+    (net on ``device``, eval, computing in ``dtype``, and its decode,
+    which reads f32 heads: JAX ``models/res10.py:236-250``)."""
     net = CaffeGraphNet(res10_deploy_defs(), RES10_SIZE, generator=generator)
-    return net.to(device).eval(), make_caffe_ssd_detect(net)
+    net = set_compute_dtype(net.to(device).eval(), dtype)
+    return net, make_caffe_ssd_detect(net)
 
 
 def build_res10_from_caffemodel(path: str, strict_table: bool = True,

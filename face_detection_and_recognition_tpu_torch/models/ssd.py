@@ -28,7 +28,7 @@ from torch import nn
 
 from ..ops.nms import greedy_nms, top_k
 from ..ops.platform import check_kernel_choice
-from .layers import ConvBN
+from .layers import ConvBN, conv_bias, set_compute_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,8 +221,13 @@ _BACKBONES = {"resnet10": (_ResNet10Backbone, (64, 128, 256, 512)),
 class SSDFaceNet(nn.Module):
     """Backbone + per-level 3x3 loc/conf heads. Takes NHWC [B, h, w, 3]
     mean-subtracted BGR and returns (locs [B, N, 4], conf_logits [B, N,
-    num_classes]) over all priors, each level flattened (y, x, prior) as
-    flax's NHWC reshape orders it."""
+    num_classes]), f32, over all priors, each level flattened (y, x,
+    prior) as flax's NHWC reshape orders it. A bf16 ``compute_dtype`` runs
+    the JAX package's bf16 net: the ConvBNs' forms (``layers.ConvBN``), the
+    residual sums rounded, each head's sums and its sum with the bias
+    rounded to bf16 before the cast to f32."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, cfg: SSDConfig = SSDConfig()):
         super().__init__()
@@ -237,12 +242,14 @@ class SSDFaceNet(nn.Module):
             for c, s in zip(widths, cfg.min_sizes))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        feats = self.backbone(x.permute(0, 3, 1, 2))
+        feats = self.backbone(x.to(self.compute_dtype).permute(0, 3, 1, 2))
         b, nc = x.shape[0], self.cfg.num_classes
         locs, confs = [], []
         for f, loc, conf in zip(feats, self.loc, self.conf):
-            locs.append(loc(f).permute(0, 2, 3, 1).reshape(b, -1, 4))
-            confs.append(conf(f).permute(0, 2, 3, 1).reshape(b, -1, nc))
+            locs.append(conv_bias(loc, f).permute(0, 2, 3, 1)
+                        .reshape(b, -1, 4))
+            confs.append(conv_bias(conf, f).permute(0, 2, 3, 1)
+                         .reshape(b, -1, nc))
         return torch.cat(locs, 1).float(), torch.cat(confs, 1).float()
 
     @torch.no_grad()
@@ -289,14 +296,17 @@ def ssd_postprocess(locs: torch.Tensor, conf_logits: torch.Tensor,
 
 
 def make_ssd_face(cfg: SSDConfig, generator: torch.Generator,
-                  device: torch.device) -> Tuple[SSDFaceNet, Callable]:
-    """Net (weights from ``generator``, on ``device``, channels-last, eval)
-    and ``decode((locs, conf_logits), in_hw) -> (dets [B, keep_top_k, 5]
+                  device: torch.device, dtype: torch.dtype = torch.float32
+                  ) -> Tuple[SSDFaceNet, Callable]:
+    """Net (weights from ``generator``, on ``device``, channels-last, eval,
+    computing in ``dtype``: float32 or the JAX package's bfloat16 net) and
+    ``decode((locs, conf_logits), in_hw) -> (dets [B, keep_top_k, 5]
     normalized, valid)``; the net takes [B, h, w, 3] mean-subtracted BGR
-    at ``cfg.input_size``."""
+    at ``cfg.input_size`` and gives the decode f32 heads."""
     check_kernel_choice(cfg.pallas_nms, device, "pallas_nms")
     net = SSDFaceNet(cfg).init_random_(generator)
     net = net.to(device=device, memory_format=torch.channels_last).eval()
+    set_compute_dtype(net, dtype)
     priors = torch.from_numpy(generate_priors(cfg)).to(device)
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],

@@ -33,10 +33,11 @@ Needs a CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import contextlib
-
+import dataclasses
 import subprocess
 import sys
 import time
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -48,6 +49,92 @@ from ..pipelines.similarity import (_f32_matmul, _topk_stable,
 
 B, H, W = 8, 576, 1024
 ITERS = 20
+
+
+def _tensors(tree: Any):
+    """The tensors of a tree of lists, tuples, dicts and dataclasses."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+
+
+def force_completion(tree: Any) -> None:
+    """Wait until the device work that produced ``tree`` (tensors in
+    lists, tuples, dicts and dataclasses such as ``Detections``) is done:
+    each CUDA device a tensor of it lies on is synchronized. CPU tensors
+    are complete already."""
+    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """A ``torch.profiler`` trace of the block, with Python stacks
+    (``with_stack=True``), of the CPU and, where there is one, the CUDA
+    device, written into ``log_dir`` as ``*.pt.trace.json`` when the block
+    ends (``utils.trace_analysis`` reads it). Yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts, with_stack=True,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+class StageTimer:
+    """Wall-clock seconds of a runner's stages, summed over calls: a
+    stage given its ``result`` waits for it (``force_completion``)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str, result: Any = None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if result is not None:
+                force_completion(result)
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> List[str]:
+        out = []
+        for name in sorted(self.totals, key=self.totals.get, reverse=True):
+            n, t = self.counts[name], self.totals[name]
+            out.append(f"{name}: total {t:.3f}s, {n} calls, "
+                       f"{1e3 * t / n:.2f} ms/call")
+        return out
+
+
+def throughput(fn, *args, iters: int = 20, items_per_call: int = 1,
+               warmup: int = 1) -> float:
+    """Items a second of ``fn(*args)`` over ``iters`` calls issued back to
+    back after ``warmup`` calls, each run waited for by
+    ``force_completion`` of the last result."""
+    out = None
+    for _ in range(max(warmup, 1)):
+        out = fn(*args)
+    force_completion(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    force_completion(out)
+    return iters * items_per_call / (time.perf_counter() - t0)
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:

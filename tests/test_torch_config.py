@@ -288,12 +288,11 @@ def test_kernel_choice_agrees_with_the_device(choice, device):
 
 
 def test_bf16_dtype_raises_naming_a8(tmp_path):
-    """bfloat16 (ROADMAP.md A8): a JAX ``save_config`` file that asks for
-    it loads into a bf16 yolov5s port engine, whose net runs in bf16
-    (bf16 heads) and whose detections come out f32; every detector of the
-    families whose bf16 path is still to port raises naming ROADMAP.md
-    A8b when its engine is built, so none silently runs f32; an unknown
-    dtype name raises."""
+    """bfloat16 (ROADMAP.md A8, A8b): a JAX ``save_config`` file that asks
+    for it loads into a bf16 yolov5s port engine, whose net runs in bf16
+    (bf16 heads) and whose detections come out f32; an engine of every
+    other family builds in bf16 too (its nets' ``compute_dtype``) and
+    detects in f32; an unknown dtype name raises."""
     path = str(tmp_path / "bf16.json")
     JC.save_config(JEngineConfig(dtype=jnp.bfloat16), path)
     cfg = TC.load_config(EngineConfig, path,
@@ -306,13 +305,21 @@ def test_bf16_dtype_raises_naming_a8(tmp_path):
         maps = eng._network(eng._preprocess(torch.from_numpy(frames)))
     assert all(m.dtype == torch.bfloat16 for m in maps)
     assert eng.detect_batch(frames, 0.0, 0.0).boxes.dtype == torch.float32
+    xml = {"xml": os.path.join(DATA, "golden_ov_sq.xml")}
     for detector in ("blazeface-front", "blazeface-back", "ssd-resnet10",
                      "ssd-mobilenetv2", "ssd-squeezenet", "mtcnn",
                      "res10-ssd", "ov-0204", "ov-squeezenet-light",
                      "openvino-ir"):
-        with pytest.raises(ValueError, match="A8b"):
-            FaceEngine(EngineConfig(detector=detector, dtype="bfloat16"),
-                       device="cpu")
+        eng = FaceEngine(EngineConfig(
+            detector=detector, dtype="bfloat16",
+            detector_overrides=xml if detector == "openvino-ir" else {}),
+            device="cpu")
+        dtypes = {m.compute_dtype for m in eng.net.modules()
+                  if hasattr(m, "compute_dtype")}
+        assert dtypes == {torch.bfloat16}, (detector, dtypes)
+        dets = eng.detect_batch(frames, 0.0, 0.0)
+        assert dets.boxes.dtype == torch.float32, detector
+        assert bool(torch.isfinite(dets.boxes).all()), detector
     with pytest.raises(ValueError, match="unknown dtype"):
         EngineConfig(dtype="float64")
 

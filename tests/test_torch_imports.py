@@ -59,7 +59,9 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "utils.ir_graph", "models.caffe_ssd", "models.res10",
                 "models.ov_graph", "models.ov_topologies",
                 "ops.int8_conv", "utils.quantize", "utils.tensor_bundle",
-                "eval", "eval.coco_eval", "cli.eval_wider"):
+                "eval", "eval.coco_eval", "cli.eval_wider",
+                "eval.card_weights", "utils.trace_analysis",
+                "utils.profiling"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 
