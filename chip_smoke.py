@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
-res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights and
-bf16-families paths on one CUDA card, and trace its detect path.
+res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights,
+bf16-families and training paths on one CUDA card, and trace its detect
+path.
 
     python3 chip_smoke.py
 
@@ -205,8 +206,8 @@ seconds:
    elements bit for bit and every difference within 2 bf16 ulps of its
    largest output, or the run fails);
 15. main path, trained weights: the nets of ``card_weights/``
-   (``eval/card_weights.py``; yolov5s f32 and bf16, yolov5n int8 static,
-   blazeface-front, mtcnn f32 and bf16, loaded through the engine's
+   (``eval/card_weights.py``; yolov5s f32 and bf16, yolov5n f32 and int8
+   static, blazeface-front, mtcnn f32 and bf16, loaded through the engine's
    weight loaders) through the golden gate of each net's JAX test on the
    golden image and the negative one, their boxes at each of the gate's
    thresholds within 1 px of the JAX CPU engine's (``expected.json``; the
@@ -222,7 +223,27 @@ seconds:
    against the same net on the CPU (the share of equal elements), and
    each network's ms between events and device ms and operations, bf16
    beside f32;
-17. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+17. main path, training: one ``make_det_train_step_ema`` step of yolov5s
+   at 640 x 640, B = 16 (golden composites) on the card and on the CPU
+   from the same weights and batch, in the step's own precision (f32,
+   TF32 off, as the timed chunks and ``train_golden`` train): the loss
+   and each updated parameter, BN statistic and EMA tensor within the
+   stated tolerances;
+   the device loop's step timed (ms between events, steps/s) and one
+   chunk traced (device ms a step, the device's idle share);
+   ``train_golden`` (yolov5s, 640, B = 16, 40 steps resumed from
+   ``card_weights/yolov5s.pt``, evals every 20, 32 composites): finite
+   chunk losses, 40 updates, the EMA moved, B1 and B2 launched by the
+   gates, the written ``.pt`` reloaded into a fresh engine giving the
+   in-memory candidate's detections of the golden pair bit for bit (the
+   gate's verdict printed, not asserted); ``quantize_golden`` of
+   ``card_weights/yolov5n.pt`` on the card: its activation scales against
+   the JAX CPU calibration of ``expected.json`` and against
+   ``yolov5n_int8.pt``, the int8 gate of ``expected.json`` passed through
+   Q1; three steps of the BlazeFace-front (128) and ssd-resnet10 (300)
+   trainers, each loss against the CPU's. Each of ``train_golden`` and
+   ``quantize_golden`` is a part of the path;
+18. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -3952,6 +3973,330 @@ def run_int8_keras_eval(frames, card):
     return launches, stats, kernel
 
 
+# [main path: training]: yolov5s at the main path's width and train_golden's
+# batch; the golden run resumes from the trained net, 40 steps, two evals
+TRAIN_DIR = WORK_DIR / "training"
+TRAIN_DEVICE = "cuda"
+TRAIN_ARCH, TRAIN_SIZE, TRAIN_B = "yolov5s", 640, 16
+GOLDEN_STEPS, GOLDEN_EVAL, GOLDEN_IMAGES = 40, 20, 32
+# the strict IoU bar keeps the run from stopping at its first eval (the
+# trained net's IoUs are 0.85-0.96): the verdict is printed, not asserted
+GOLDEN_GATE = {"gate_det_thres": 0.6, "gate_margin": 0.15, "gate_iou": 0.95}
+TIMED_STEPS = 10
+FAMILY_STEPS, FAMILY_B = 3, 8
+# card against CPU, one step from the same weights and batch, in the
+# precision every step trains in (train_precision: f32, TF32 off): the
+# loss, and each updated tensor's largest difference over its largest value
+# (at least 0.01, the scale of a parameter)
+STEP_LOSS_RTOL, STEP_TENSOR_RTOL = 1e-4, 1e-3
+FAMILY_LOSS_RTOL = 1e-3     # the BlazeFace and SSD steps, three in a row
+
+
+def tensor_gap(got, ref):
+    """(largest difference over max(largest |ref|, 0.01), its name) over
+    the float tensors of two state dicts (``got`` may be on the card)."""
+    worst = (0.0, "")
+    for k, r in ref.items():
+        if not r.dtype.is_floating_point:
+            continue
+        d = float((got[k].detach().cpu() - r).abs().max())
+        worst = max(worst, (d / max(float(r.abs().max()), 0.01), k))
+    return worst
+
+
+def split_state(net):
+    """(parameters, BatchNorm statistics) of a net as CPU state dicts."""
+    sd = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    stats = {k: v for k, v in sd.items() if ".running_" in k}
+    return {k: v for k, v in sd.items() if k not in stats
+            and not k.endswith("num_batches_tracked")}, stats
+
+
+def train_step_card_vs_cpu(batch):
+    """One ``make_det_train_step_ema`` step of yolov5s at the phase's size
+    and batch on the card and on the CPU from the same weights and batch,
+    each in the step's own precision (``train_precision``, the one the
+    timed chunks and ``train_golden`` train in). Returns (the card's state,
+    numbers); raises when a difference exceeds its tolerance."""
+    from face_detection_and_recognition_tpu_torch.train import detection as TD
+
+    cfg = TD.DetTrainConfig(arch=TRAIN_ARCH, input_size=(TRAIN_SIZE,
+                                                         TRAIN_SIZE),
+                            max_targets=8, ema_decay=0.999, ema_tau=500.0)
+    states, losses = {}, {}
+    for dev in (TRAIN_DEVICE, "cpu"):
+        st = TD.create_det_train_state(cfg, torch.Generator().manual_seed(
+            SEED), dev)
+        step = TD.make_det_train_step_ema(st)
+        t = time.time()
+        loss, _ = step(*(torch.from_numpy(a).to(st["device"])
+                         for a in batch))
+        losses[dev] = float(loss)
+        say(f"  one step on {st['device']}: loss {losses[dev]:.6f} "
+            f"({time.time() - t:.1f} s)")
+        states[dev] = st
+    card, cpu = states[TRAIN_DEVICE], states["cpu"]
+    cp, cs = split_state(card["net"])
+    rp, rs = split_state(cpu["net"])
+    ce, _ = split_state(card["ema"])
+    re_, _ = split_state(cpu["ema"])
+    out = {"loss_rel": abs(losses[TRAIN_DEVICE] - losses["cpu"])
+           / abs(losses["cpu"]),
+           "params": tensor_gap(cp, rp), "bn_stats": tensor_gap(cs, rs),
+           "ema": tensor_gap(ce, re_)}
+    say(f"  card against CPU: loss relative difference "
+        f"{out['loss_rel']:.3e} (tolerance {STEP_LOSS_RTOL}); largest "
+        f"relative difference (over the tensor's largest value, at least "
+        f"0.01; tolerance {STEP_TENSOR_RTOL}): parameters "
+        f"{out['params'][0]:.3e} ({out['params'][1]}), BN statistics "
+        f"{out['bn_stats'][0]:.3e} ({out['bn_stats'][1]}), EMA "
+        f"{out['ema'][0]:.3e} ({out['ema'][1]})")
+    if out["loss_rel"] > STEP_LOSS_RTOL or max(
+            out[k][0] for k in ("params", "bn_stats", "ema")) \
+            > STEP_TENSOR_RTOL:
+        raise AssertionError(f"training step: card against CPU {out}")
+    return card, out
+
+
+def time_training(state, data):
+    """The card's figures of the yolov5s step in the device loop: ms a step
+    between CUDA events over chunks of ``TIMED_STEPS``, steps/s, and one
+    chunk traced without Python stacks (``utils.profiling.device_trace``):
+    device ms a step (``trace_analysis``) and the device's idle share over
+    the chunk."""
+    from torch.profiler import record_function
+
+    from face_detection_and_recognition_tpu_torch.train import detection as TD
+    from face_detection_and_recognition_tpu_torch.train import \
+        device_loop as DL
+    from face_detection_and_recognition_tpu_torch.utils import \
+        trace_analysis as TA
+    from face_detection_and_recognition_tpu_torch.utils.profiling import \
+        device_trace
+
+    dev = state["device"]
+    xs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in data]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    chunk = DL.make_chunk_trainer(TD.make_det_train_step_ema(state), state,
+                                  TRAIN_B, TIMED_STEPS, flip_lr=0.5,
+                                  brightness=0.2, ema_stats_cfg=(0.999,
+                                                                 500.0))
+    step_ms = cuda_ms(lambda: chunk(*xs, gen), iters=2) / TIMED_STEPS
+    trace_dir = TRAIN_DIR / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with device_trace(str(trace_dir), with_stack=False):
+        with record_function("chunk"):
+            loss, _ = chunk(*xs, gen)
+            torch.cuda.synchronize()
+    ops = TA.load_device_ops(str(trace_dir))
+    busy_ms, wall_ms, idle = TA.idle_share(str(trace_dir), "chunk")
+    out = {"step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+           "device_ms_per_step": sum(o.ms for o in ops) / TIMED_STEPS,
+           "device_ops_per_step": len(ops) / TIMED_STEPS,
+           "chunk_wall_ms": wall_ms, "chunk_busy_ms": busy_ms,
+           "idle_share": idle, "chunk_loss": float(loss)}
+    # the profiler slows the host's issue; beside the traced window's share,
+    # the share the untraced step leaves (its device ms against its ms)
+    out["idle_share_untraced"] = 1.0 - out["device_ms_per_step"] / step_ms
+    if not ops or not math.isfinite(out["chunk_loss"]):
+        raise AssertionError(f"training timing: {out}")
+    return out
+
+
+def family_steps_card_vs_cpu():
+    """``FAMILY_STEPS`` steps of the BlazeFace-front and ssd-resnet10
+    trainers at their native sizes on the card and on the CPU from the same
+    weights and seeded batches: each step's loss, card against CPU."""
+    from face_detection_and_recognition_tpu_torch.train import blazeface as TB
+    from face_detection_and_recognition_tpu_torch.train import ssd as TS
+
+    out = {}
+    for name, cfg, create, make in (
+            ("blazeface-front", TB.BlazeTrainConfig(max_targets=4),
+             TB.create_blaze_train_state, TB.make_blaze_train_step_ema),
+            ("ssd-resnet10", TS.SSDTrainConfig(max_targets=4),
+             TS.create_ssd_train_state, TS.make_ssd_train_step_ema)):
+        size = cfg.input_size[0]
+        rng = np.random.RandomState(SEED)
+        batches = []
+        for _ in range(FAMILY_STEPS):
+            x = rng.randint(0, 255, (FAMILY_B, size, size, 3)).astype(
+                np.uint8)
+            t = np.zeros((FAMILY_B, 4, 14), np.float32)
+            t[..., 4:] = -1.0
+            t[:, 0, :4] = rng.uniform(0.3, 0.7, (FAMILY_B, 4)) * [
+                size, size, 0.5 * size, 0.5 * size]
+            batches.append((x, t, t[..., 2] > 0))
+        losses = {}
+        for dev in (TRAIN_DEVICE, "cpu"):
+            st = create(cfg, torch.Generator().manual_seed(SEED), dev)
+            step = make(st)
+            losses[dev] = [float(step(*(torch.from_numpy(a).to(
+                st["device"]) for a in b))[0]) for b in batches]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[TRAIN_DEVICE],
+                                                   losses["cpu"])]
+        say(f"  {name} at {size}x{size}, B = {FAMILY_B}: losses card "
+            f"{[round(v, 6) for v in losses[TRAIN_DEVICE]]}, CPU "
+            f"{[round(v, 6) for v in losses['cpu']]}, relative differences "
+            f"{[f'{r:.2e}' for r in rel]} (tolerance {FAMILY_LOSS_RTOL})")
+        if max(rel) > FAMILY_LOSS_RTOL or not all(
+                math.isfinite(v) for v in losses[TRAIN_DEVICE]):
+            raise AssertionError(f"{name} steps: card against CPU {losses}")
+        out[name] = {"card": losses[TRAIN_DEVICE], "cpu": losses["cpu"],
+                     "rel": rel}
+    return out
+
+
+def check_reload(ckpt, candidate, frames):
+    """A fresh engine loading the written ``.pt`` against an engine holding
+    the in-memory candidate: the same detections of the golden pair, bit
+    for bit."""
+    from face_detection_and_recognition_tpu_torch.train import golden as G
+
+    mem = G.golden_engine(TRAIN_ARCH, TRAIN_SIZE, device=TRAIN_DEVICE)
+    mem.load_state_dict(candidate)
+    disk = G.golden_engine(TRAIN_ARCH, TRAIN_SIZE, device=TRAIN_DEVICE)
+    disk.load_weights(str(ckpt))
+    a = mem.detect_batch(frames, det_thres=0.3)
+    b = disk.detect_batch(frames, det_thres=0.3)
+    for field in ("boxes", "scores", "lmarks", "valid"):
+        if not torch.equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"reloaded .pt: {field} differ from the "
+                                 "in-memory candidate's")
+    return int(a.valid.sum())
+
+
+def run_training(card):
+    """The training main path: the card-against-CPU step, ``train_golden``
+    resumed from the trained yolov5s, ``quantize_golden`` of the golden
+    yolov5n, three BlazeFace and SSD steps, and the card's figures.
+    Returns (launches, numbers)."""
+    from face_detection_and_recognition_tpu_torch.cli import \
+        quantize_golden as QG
+    from face_detection_and_recognition_tpu_torch.core.engine import \
+        read_state_dict
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+    from face_detection_and_recognition_tpu_torch.train import golden as G
+    from face_detection_and_recognition_tpu_torch.train.data import \
+        load_wider_index
+    from face_detection_and_recognition_tpu_torch.train.device_loop import \
+        build_example_buffer
+
+    t_phase = time.time()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    win, stats = Windows(), {}
+    exp = CW.load_expected()
+    pos, neg = CW.golden_images()
+
+    # a batch of golden composites, as train_golden's buffer holds them
+    ann, root = G.make_composite_dataset(
+        str(TRAIN_DIR / "step_ds"), n_images=TRAIN_B,
+        out_wh=(TRAIN_SIZE, TRAIN_SIZE), seed=SEED, include_real=False)
+    data = build_example_buffer(load_wider_index(ann, root), TRAIN_B,
+                                (TRAIN_SIZE, TRAIN_SIZE), 8, seed=SEED)
+    state, stats["step"] = train_step_card_vs_cpu(data)
+    stats["timing"] = time_training(state, data)
+    del state
+    torch.cuda.empty_cache()
+
+    ckpt = TRAIN_DIR / "golden_yolov5s.pt"
+    lines = []
+    t = time.time()
+    res = win.run("train_golden", lambda: G.train_golden(
+        str(ckpt), str(TRAIN_DIR / "golden"), arch=TRAIN_ARCH,
+        input_size=TRAIN_SIZE, batch_size=TRAIN_B, max_steps=GOLDEN_STEPS,
+        eval_every=GOLDEN_EVAL, n_images=GOLDEN_IMAGES, seed=SEED,
+        resume_from=str(CW.CARD_WEIGHTS / "yolov5s.pt"),
+        device=TRAIN_DEVICE, log=lines.append,
+        **GOLDEN_GATE))
+    golden_s = time.time() - t
+    for line in lines:
+        say(f"  {line}")
+    losses = res["chunk_losses"]
+    if len(losses) != GOLDEN_STEPS // GOLDEN_EVAL or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_golden chunk losses {losses}")
+    if res["n_updates"] != GOLDEN_STEPS:
+        raise AssertionError(f"train_golden: {res['n_updates']} updates")
+    resumed = read_state_dict(str(CW.CARD_WEIGHTS / "yolov5s.pt"))
+    ema_moved = max(float((res["candidate"][k] - v).abs().max())
+                    for k, v in resumed.items() if v.dtype.is_floating_point
+                    and ".running_" not in k)
+    if not ema_moved > 0:
+        raise AssertionError("train_golden: the EMA did not move")
+    n_dets = check_reload(ckpt, res["candidate"], np.stack([pos, neg]))
+    stats["train_golden"] = {
+        "s": golden_s, "steps": GOLDEN_STEPS, "chunk_losses": losses,
+        "gate_ok": res["ok"], "reload_ok": res["reload_ok"],
+        "ious": [round(i, 4) for i in res["ious"]],
+        "top_conf": res.get("top_conf"), "ema_moved": ema_moved,
+        "reload_detections": n_dets,
+        "launches": win.parts["train_golden"]}
+    say(f"  train_golden ({TRAIN_ARCH} {TRAIN_SIZE}, B = {TRAIN_B}, "
+        f"{GOLDEN_STEPS} steps, evals every {GOLDEN_EVAL}): chunk losses "
+        f"{[round(v, 4) for v in losses]}, {res['n_updates']} updates, the "
+        f"EMA moved {ema_moved:.3e} from the resumed weights; gate verdict "
+        f"(printed, not asserted) ok {res['ok']}, reload ok "
+        f"{res['reload_ok']}, IoUs {stats['train_golden']['ious']}; the "
+        f"written .pt reloaded gives the in-memory candidate's {n_dets} "
+        f"detections bit for bit ({golden_s:.1f} s)")
+
+    q = exp["quantize"]["yolov5n"]
+    int8 = TRAIN_DIR / "yolov5n_int8.pt"
+
+    def quantize_and_gate():
+        scales = QG.quantize_checkpoint(
+            str(CW.CARD_WEIGHTS / q["file"]), str(int8), q["arch"],
+            q["size"], str(TRAIN_DIR / "quantize"), n_calib=q["n_calib"],
+            batch=q["batch"], seed=q["seed"], device=TRAIN_DEVICE,
+            log=lambda s: None)
+        entry = exp["nets"]["yolov5n-int8"]
+        eng = FaceEngine(EngineConfig(
+            detector=q["arch"], det_thres=0.5, detector_overrides={
+                "input_size": (q["size"], q["size"]),
+                "quantized": "static"}), device=TRAIN_DEVICE)
+        eng.load_weights(str(int8))
+        with torch.inference_mode():
+            gate = CW.run_gate(eng, pos, neg, entry["gate"],
+                               np.asarray(exp["golden_boxes"], np.float32))
+        return scales, gate, CW.gate_failures(gate, entry["gate"])
+
+    t = time.time()
+    scales, gate, bad = win.run("quantize_golden", quantize_and_gate)
+    diffs = CW.scale_differences(scales, q)
+    stats["quantize_golden"] = {
+        "s": time.time() - t, "n_scales": len(scales), **diffs,
+        "gate_ok": gate["ok"], "ious": [round(i, 4) for i in gate["ious"]],
+        "launches": win.parts["quantize_golden"]}
+    say(f"  quantize_golden on the card: {len(scales)} activation scales, "
+        f"largest relative difference {diffs['jax_cpu']:.3e} from the JAX "
+        f"CPU calibration (tolerance {CW.JAX_SCALE_RTOL}) and "
+        f"{diffs['committed']:.4f} from {q['int8_file']} (tolerance "
+        f"{CW.COMMITTED_SCALE_RTOL}); int8 gate ok {gate['ok']}, "
+        f"{gate['n_pos']} faces at IoU {stats['quantize_golden']['ious']}, "
+        f"{gate['n_neg']} on the negative image")
+    if bad:
+        raise AssertionError(f"int8 gate: {bad}")
+
+    stats["families"] = family_steps_card_vs_cpu()
+    tm = stats["timing"]
+    say(f"  {card}: yolov5s {TRAIN_SIZE}x{TRAIN_SIZE} B = {TRAIN_B} train "
+        f"step {tm['step_ms']:.2f} ms between events = "
+        f"{tm['steps_per_s']:.2f} steps/s; device "
+        f"{tm['device_ms_per_step']:.2f} ms a step from the profiler "
+        f"({tm['device_ops_per_step']:.0f} device operations a step); the "
+        f"device idle "
+        f"{100 * tm['idle_share']:.1f} % of a traced {TIMED_STEPS}-step "
+        f"chunk ({tm['chunk_busy_ms']:.1f} busy of {tm['chunk_wall_ms']:.1f}"
+        f" ms), {100 * tm['idle_share_untraced']:.1f} % of an untraced step")
+    stats["s"] = time.time() - t_phase
+    stats["windows"] = win.parts
+    say(f"  training phase: {stats['s']:.1f} s")
+    return win.total(), stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -4157,7 +4502,7 @@ def main():
     phase_end("main path: bf16")
 
     say("[main path: trained weights] card_weights/: yolov5s f32 and bf16, "
-        "yolov5n int8 static, blazeface-front, mtcnn, mobile_facenet")
+        "yolov5n f32 and int8 static, blazeface-front, mtcnn, mobile_facenet")
     tw_launches, tw = run_trained_weights(card)
     say(f"  launches on the trained weights path: {tw_launches}, by part "
         f"{json.dumps(tw['windows'])}")
@@ -4176,6 +4521,22 @@ def main():
         if bf16f_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
     phase_end("main path: bf16 families")
+
+    say("[main path: training] yolov5s train step (card against CPU), "
+        "train_golden, quantize_golden, the BlazeFace and SSD trainers")
+    train_launches, training = run_training(card)
+    say(f"  launches on the training path: {train_launches}, by part "
+        f"{json.dumps(training['windows'])}")
+    say(f"  training numbers: {json.dumps(training)}")
+    # each part's own kernels: B1 and B2 in train_golden's evals, Q1 in
+    # quantize_golden's int8 engine
+    for part, names in (("train_golden", ("nms_fixpoint", "rows_gather")),
+                        ("quantize_golden", ("conv_int8",))):
+        for name in names:
+            if training["windows"][part][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched in "
+                                     f"{part}")
+    phase_end("main path: training")
 
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -4219,7 +4580,8 @@ def main():
                    "int8 + keras + eval": ike_launches[k["name"]],
                    "bf16": bf16_launches[k["name"]],
                    "trained weights": tw_launches[k["name"]],
-                   "bf16 families": bf16f_launches[k["name"]]}
+                   "bf16 families": bf16f_launches[k["name"]],
+                   "training": train_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

@@ -44,18 +44,23 @@ def load_expected(root: Path = CARD_WEIGHTS) -> Dict:
         return json.load(f)
 
 
-def golden_images(root: Path = CARD_WEIGHTS):
+def golden_pair(pos_path: str, neg_path: str):
     """(golden, negative) BGR uint8 frames, decoded by the port's codec
     (``cv2.imread``'s pixels); the negative one resized to the golden
     one's size by ``host_resize`` (``cv2.resize``'s), as
-    ``evaluate_golden`` feeds it."""
-    pos = read_image_bgr(str(Path(root) / POS_IMAGE))
-    neg = read_image_bgr(str(Path(root) / NEG_IMAGE))
+    ``evaluate_golden`` feeds it (one pipeline for both gate images)."""
+    pos, neg = read_image_bgr(str(pos_path)), read_image_bgr(str(neg_path))
     if pos is None or neg is None:
-        raise FileNotFoundError(f"{root}: the golden images do not decode")
+        raise FileNotFoundError(f"{pos_path} / {neg_path}: the golden "
+                                "images do not decode")
     if neg.shape != pos.shape:
         neg = host_resize(neg, (pos.shape[1], pos.shape[0]))
     return pos, neg
+
+
+def golden_images(root: Path = CARD_WEIGHTS):
+    """``golden_pair`` of the folder ``root``'s two images."""
+    return golden_pair(Path(root) / POS_IMAGE, Path(root) / NEG_IMAGE)
 
 
 def bbox_iou_xyxy(a: Sequence[float], b: Sequence[float]) -> float:
@@ -182,6 +187,38 @@ def build_engine(entry: Dict, device=None,
     else:
         eng.load_weights(path)
     return eng
+
+
+# the committed int8 file's scales were calibrated by the JAX quantizer on
+# another platform: the JAX package on the CPU puts them up to 4.5 % away
+COMMITTED_SCALE_RTOL = 0.05
+JAX_SCALE_RTOL = 1e-4   # the port against the JAX quantizer on the CPU
+
+
+def scale_differences(scales: Dict[str, float], entry: Dict,
+                      root: Path = CARD_WEIGHTS) -> Dict[str, float]:
+    """The largest relative difference of calibrated activation scales
+    ({module path: scale}, ``utils.quantize.calibrate_activation_scales``)
+    from the JAX CPU calibration stored in ``entry`` (``expected.json``'s
+    ``quantize`` entry) and from the committed int8 file's ``ascale``s;
+    raises ``AssertionError`` when a path is missing or either exceeds its
+    tolerance (``JAX_SCALE_RTOL``, ``COMMITTED_SCALE_RTOL``)."""
+    from ..core.engine import read_state_dict
+
+    committed = {k[:-len(".ascale")]: float(v) for k, v in read_state_dict(
+        str(Path(root) / entry["int8_file"])).items()
+        if k.endswith(".ascale")}
+    ref = entry["jax_ascale"]
+    if set(scales) != set(ref) or set(ref) != set(committed):
+        raise AssertionError("calibrated layers differ: "
+                             f"{sorted(set(scales) ^ set(ref))}")
+    out = {"jax_cpu": max(abs(scales[k] - ref[k]) / ref[k] for k in ref),
+           "committed": max(abs(scales[k] - committed[k]) / committed[k]
+                            for k in ref)}
+    if out["jax_cpu"] > JAX_SCALE_RTOL \
+            or out["committed"] > COMMITTED_SCALE_RTOL:
+        raise AssertionError(f"activation scales off: {out}")
+    return out
 
 
 def cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -202,6 +202,36 @@ def set_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
     return net
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training forward is flax ``BatchNorm``'s
+    (``use_fast_variance``): the batch mean and the biased variance
+    ``max(E[x^2] - E[x]^2, 0)`` normalize the batch as ``(x - mean) *
+    (rsqrt(var + eps) * weight) + bias``, and the running statistics move
+    toward them, ``ra * (1 - momentum) + stat * momentum``, the running
+    variance toward the biased variance (``nn.BatchNorm2d`` moves it toward
+    the unbiased one, n / (n - 1) larger). The form is written out in
+    elementwise ops: ``F.batch_norm``'s fused training kernel on the card
+    put a step's parameters up to 3e-3 of their scale from the CPU's.
+    Inference, and a ``momentum`` of None (the cumulative average the
+    seeded nets use to set their statistics from one batch), are
+    ``nn.BatchNorm2d``'s own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+                + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
 def autopad(k: int, p: Optional[int] = None) -> int:
     """'same' padding for odd kernels."""
     return k // 2 if p is None else p
@@ -227,7 +257,8 @@ _ACTS = {"silu": nn.SiLU, "relu": nn.ReLU, "relu6": nn.ReLU6,
 
 class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm + activation: the yolov5 ``Conv``. The
-    BN epsilon is the JAX package's 1e-3, not PyTorch's default 1e-5.
+    BN epsilon is the JAX package's 1e-3, not PyTorch's default 1e-5, and
+    its training form flax's (``BatchNorm2d``).
     ``groups`` and ``act`` ("silu", "relu", "relu6" or None for a linear
     output) serve the SSD trunks; the defaults are the yolov5 ``Conv``."""
 
@@ -237,7 +268,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), groups=groups,
                               bias=False)
-        self.bn = nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
+        self.bn = BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
         self.act = _ACTS[act]()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -403,7 +434,7 @@ def _conv_bn(c_in: int, c_out: int, k: int, s: int, groups: int = 1):
     """(Conv2d without bias, BatchNorm) of a ShuffleV2 branch; BN epsilon
     1e-3, the JAX package's ConvBN."""
     return (nn.Conv2d(c_in, c_out, k, s, k // 2, groups=groups, bias=False),
-            nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03))
+            BatchNorm2d(c_out, eps=1e-3, momentum=0.03))
 
 
 class ShuffleV2Block(nn.Module):

@@ -200,6 +200,78 @@ def host_resize(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
         (dh, dw) + img.shape[2:])
 
 
+def rotation_matrix_2d(center: Tuple[float, float], angle: float,
+                       scale: float = 1.0) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the [2, 3] float64 matrix rotating by
+    ``angle`` degrees (counter-clockwise) about ``center`` (x, y)."""
+    a = angle * (np.pi / 180)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    cx, cy = float(np.float32(center[0])), float(np.float32(center[1]))
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """``cv2.invertAffineTransform``'s arithmetic, in float64."""
+    m = np.asarray(m, np.float64).ravel().copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[4] = a11, a22
+    m[1] *= -d
+    m[3] *= -d
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """f32 ``a * b + c`` rounded once."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+# cv2 warps a row 16 pixels at a time (its x86 AVX2 build), the rest of the
+# row one pixel at a time, and the two forms map coordinates differently
+WARP_BLOCK = 16
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int]
+                ) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_REPLICATE)`` for a uint8 [H, W, C] image, bit for bit:
+    the inverse map in f32 (each row's ``WARP_BLOCK``-multiple of pixels
+    ``fma(m0, x, y * m1 + m2)``, the rest ``fma(x, m0, y * m1) + m2``),
+    floor and fraction, bilinear taps clamped to the image, blended with
+    fused multiply-adds in f32 and rounded to nearest."""
+    f32 = np.float32
+    dw, dh = int(dsize[0]), int(dsize[1])
+    mi = _invert_affine(m).astype(f32)
+    xs = np.arange(dw, dtype=f32)[None, :]
+    ys = np.arange(dh, dtype=f32)[:, None]
+    vec = np.arange(dw)[None, :] < dw // WARP_BLOCK * WARP_BLOCK
+    coords = []
+    for r in (0, 3):
+        row = ys * mi[r + 1] + mi[r + 2]
+        coords.append(np.where(vec, _fma32(mi[r], xs, row),
+                               _fma32(xs, mi[r], ys * mi[r + 1]) + mi[r + 2]))
+    sx, sy = coords
+    ix, iy = np.floor(sx), np.floor(sy)
+    a = (sx - ix)[..., None]
+    b = (sy - iy)[..., None]
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    h, w = img.shape[:2]
+    x0, x1 = np.clip(ix, 0, w - 1), np.clip(ix + 1, 0, w - 1)
+    y0, y1 = np.clip(iy, 0, h - 1), np.clip(iy + 1, 0, h - 1)
+    src = img.reshape(h, w, -1).astype(f32)
+    p00, p01, p10, p11 = src[y0, x0], src[y0, x1], src[y1, x0], src[y1, x1]
+    q0 = _fma32(a, p01 - p00, p00)
+    q1 = _fma32(a, p11 - p10, p10)
+    out = np.clip(np.rint(_fma32(b, q1 - q0, q0)), 0, 255).astype(np.uint8)
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
 def host_letterbox(img: np.ndarray, out_hw: Tuple[int, int],
                    fill: Color = GRAY_FILL) -> np.ndarray:
     """Letterbox a BGR uint8 frame on the host into a uint8 [out_h, out_w,

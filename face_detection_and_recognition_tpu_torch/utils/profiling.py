@@ -76,18 +76,20 @@ def force_completion(tree: Any) -> None:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str):
+def device_trace(log_dir: str, with_stack: bool = True):
     """A ``torch.profiler`` trace of the block, with Python stacks
-    (``with_stack=True``), of the CPU and, where there is one, the CUDA
-    device, written into ``log_dir`` as ``*.pt.trace.json`` when the block
-    ends (``utils.trace_analysis`` reads it). Yields the profiler."""
+    (``with_stack``: recording them slows the host's issue, so a trace
+    that times the host passes False),
+    of the CPU and, where there is one, the CUDA device, written into
+    ``log_dir`` as ``*.pt.trace.json`` when the block ends
+    (``utils.trace_analysis`` reads it). Yields the profiler."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts, with_stack=True,
+    with profile(activities=acts, with_stack=with_stack,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
 

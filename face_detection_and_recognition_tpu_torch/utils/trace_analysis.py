@@ -14,6 +14,8 @@ into numbers without TensorBoard:
 - ``summarize_by``: device ms (and GB) grouped by any key, for example
   ``source_file_key``, the innermost project file of the launch.
 - ``top_ops``: the heaviest kernels by name.
+- ``idle_share``: the device's busy time inside a host annotation
+  (``record_function``) and its idle share of that span.
 
 A kernel's frames are those of the ``python_function`` spans (traced with
 ``with_stack=True``) open on the launching thread when its runtime launch
@@ -175,6 +177,32 @@ def load_device_ops(path: str) -> List[DeviceOp]:
             source=frames[0] if frames else "",
             source_stack="\n".join(frames)))
     return ops
+
+
+def idle_share(path: str, window: str) -> Tuple[float, float, float]:
+    """(busy device ms, wall ms, idle share) of the first ``window``
+    annotation (a ``record_function`` span) of a trace: the union of the
+    device's kernels, copies and memsets, clipped to the annotation's host
+    span, against that span. Overlapping device events (several streams)
+    count once."""
+    events = [e for e in _read_trace(find_trace_file(path)).get(
+        "traceEvents", []) if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == window]
+    if not spans:
+        raise ValueError(f"the trace holds no '{window}' annotation")
+    t0 = float(spans[0]["ts"])
+    t1 = t0 + float(spans[0]["dur"])
+    busy, end = 0.0, t0
+    for a, b in sorted((max(float(e["ts"]), t0),
+                        min(float(e["ts"]) + float(e.get("dur", 0)), t1))
+                       for e in events
+                       if e.get("cat") in DEVICE_CATEGORIES):
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / 1e3, (t1 - t0) / 1e3, 1.0 - busy / (t1 - t0)
 
 
 def summarize_by(ops: List[DeviceOp], key: Callable[[DeviceOp], str],

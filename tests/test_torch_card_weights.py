@@ -5,7 +5,8 @@ loading the ``.pt`` files on the CPU through ``eval/card_weights.py``,
 passes every gate and matches the JAX detections there.
 
 ``tools/make_card_weights.py`` writes the folder; its functions compute
-what is compared here. The JAX numbers are compared to the stored ones
+what is compared here. The port's ``quantize_golden`` calibration of the
+golden yolov5n gives the JAX CPU scales stored in ``expected.json``. The JAX numbers are compared to the stored ones
 with the tolerances of a rerun on another CPU (XLA may vectorize the sums
 in another order): the same counts and gate verdicts, boxes (rounded
 pixels) within 1 px, scores within 1e-4, embeddings at cosine >= 1 -
@@ -144,3 +145,28 @@ def test_port_decodes_the_golden_images_as_cv2(frames, images):
     pixels, so the gate sees the frames JAX saw."""
     for a, b in zip(images, frames):
         np.testing.assert_array_equal(a, b)
+
+
+def test_port_quantizer_calibrates_the_stored_scales(tmp_path):
+    """The port's ``quantize_golden`` calibration of ``yolov5n.pt`` on the
+    CPU (32 composites, seed 515) gives the stored JAX CPU scales within
+    ``JAX_SCALE_RTOL`` and the committed int8 file's within
+    ``COMMITTED_SCALE_RTOL``; its codes, weight scales and biases are the
+    committed file's."""
+    from face_detection_and_recognition_tpu_torch.cli import \
+        quantize_golden as Q
+
+    q = EXPECTED["quantize"]["yolov5n"]
+    out = str(tmp_path / "int8.pt")
+    scales = Q.quantize_checkpoint(
+        str(CW.CARD_WEIGHTS / q["file"]), out, q["arch"], q["size"],
+        str(tmp_path), n_calib=q["n_calib"], batch=q["batch"],
+        seed=q["seed"], device="cpu", log=lambda s: None)
+    diffs = CW.scale_differences(scales, q)
+    assert diffs["jax_cpu"] <= CW.JAX_SCALE_RTOL
+    got = torch.load(out)
+    ref = torch.load(CW.CARD_WEIGHTS / q["int8_file"])
+    assert set(got) == set(ref)
+    for k in ref:
+        if not k.endswith(".ascale"):
+            assert torch.equal(got[k], ref[k]), k

@@ -1,5 +1,5 @@
 """Import hygiene of the PyTorch port: it and ``chip_smoke.py`` load with
-jax, flax, orbax, cv2, PIL, grpc and h5py made unimportable (the gRPC
+jax, flax, optax, orbax, cv2, PIL, grpc and h5py made unimportable (the gRPC
 front door imports grpc inside its functions, the keras ``.h5`` reader
 h5py inside its own), and pull in no module of the JAX package; its entry
 points refuse to fall back to the CPU."""
@@ -14,7 +14,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL", "grpc", "h5py"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "grpc",
+             "h5py"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import face_detection_and_recognition_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
@@ -61,7 +62,10 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "ops.int8_conv", "utils.quantize", "utils.tensor_bundle",
                 "eval", "eval.coco_eval", "cli.eval_wider",
                 "eval.card_weights", "utils.trace_analysis",
-                "utils.profiling"):
+                "utils.profiling", "train", "train.detection", "train.data",
+                "train.device_loop", "train.golden", "train.blazeface",
+                "train.ssd", "cli.train_golden", "cli.train_detector",
+                "cli.quantize_golden"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 

@@ -127,6 +127,32 @@ def test_print_report_runs(synthetic_trace, capsys):
     assert "--" in out.split("-- top ops --")[0]
 
 
+def test_idle_share_over_an_annotation(tmp_path):
+    """The device's busy time inside a ``record_function`` span: events
+    clipped to the span, two streams' overlap counted once, host events
+    and a second annotation of the same name ignored."""
+    path = str(tmp_path / "tr" / "w.pt.trace.json.gz")
+
+    def window(ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": "chunk",
+                "pid": 100, "tid": 11, "ts": ts, "dur": dur, "args": {}}
+
+    _write_trace(path, [
+        window(100, 1000), window(5000, 10),
+        _kernel("before", 1, 50, 100),            # 50 us inside
+        _kernel("a", 2, 300, 200),                # 300-500
+        dict(_kernel("b", 3, 400, 200), tid=8),   # 400-600, another stream
+        _kernel("copy", 4, 700, 50, cat="gpu_memcpy"),
+        _kernel("after", 5, 1050, 100),           # 50 us inside
+        _kernel("later", 6, 4000, 100),
+        _launch(2, 290), _py("/repo/pkg/x.py(1): f", 0, 2000)])
+    busy, wall, idle = TA.idle_share(str(tmp_path / "tr"), "chunk")
+    assert (busy, wall) == pytest.approx((0.05 + 0.3 + 0.05 + 0.05, 1.0))
+    assert idle == pytest.approx(1 - 0.45)
+    with pytest.raises(ValueError, match="no 'step'"):
+        TA.idle_share(path, "step")
+
+
 def test_missing_trace_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         TA.find_trace_file(str(tmp_path))

@@ -7,7 +7,8 @@ Reads the orbax checkpoints under ``tests/data`` through the JAX package's
 ``load_variables`` (float leaves cast to f32, int8 codes kept), converts
 each through the port's bridge (``utils/weights.py``) and writes:
 
-- ``yolov5s.pt``, ``yolov5n_int8.pt`` (static scales included),
+- ``yolov5s.pt``, ``yolov5n.pt`` (the f32 net ``quantize_golden``
+  quantizes), ``yolov5n_int8.pt`` (static scales included),
   ``blazeface_front.pt``, ``mtcnn.pt``: ``FaceEngine.save_weights`` of a
   CPU engine holding the bridged state dict;
 - ``mobile_facenet.pt``: the embedder slot's state dict;
@@ -17,7 +18,10 @@ each through the port's bridge (``utils/weights.py``) and writes:
   tests set them), the JAX CPU engine's boxes and scores at each of the
   gate's thresholds on both images and whether the JAX engine passes the
   gate; yolov5s and MTCNN also through a bf16 JAX engine; MobileFaceNet's
-  embeddings of the three pinned face crops (``embed_faces``).
+  embeddings of the three pinned face crops (``embed_faces``); the
+  static activation scales that the JAX ``quantize_golden`` calibrates for
+  the golden yolov5n on this CPU (``QUANTIZE``: its composites, seed and
+  count), beside which the port's quantizer is held.
 
 Runs JAX on the CPU at the tests' matmul precision ("highest").
 ``tests/test_torch_card_weights.py`` holds the folder to this script's
@@ -38,7 +42,8 @@ ROOT = Path(__file__).resolve().parents[1]
 DATA = ROOT / "tests" / "data"
 
 # name -> (checkpoint, port file, engine settings, gate); the gates are
-# those of tests/test_golden_accuracy.py: yolov5s :280-299, int8 :397-421,
+# those of tests/test_golden_accuracy.py: yolov5s :280-299, yolov5n
+# :26-45, int8 :397-421,
 # BlazeFace front :134-165, MTCNN :432-450
 YOLO_GATE = {"det_thres": 0.6, "margin": 0.15, "iou_thres": 0.5,
              "require_ok": True, "iou_bars": [0.8, 0.8, 0.8]}
@@ -48,6 +53,8 @@ NETS = {
     "yolov5s-bf16": ("golden_yolov5s_ckpt", "yolov5s.pt",
                      {"detector": "yolov5s", "dtype": "bfloat16"},
                      YOLO_GATE, 1.0),
+    "yolov5n": ("golden_yolov5n_ckpt", "yolov5n.pt",
+                {"detector": "yolov5n"}, YOLO_GATE, 1.0),
     "yolov5n-int8": ("golden_yolov5n_int8_ckpt", "yolov5n_int8.pt",
                      {"detector": "yolov5n",
                       "overrides": {"quantized": "static"}},
@@ -68,6 +75,10 @@ NETS = {
                     "require_ok": False, "iou_bars": [0.8, 0.8, 0.8]}, 1.0),
 }
 EMBEDDER = ("golden_embed_ckpt", "mobile_facenet.pt", "mobile_facenet")
+# the JAX cli/quantize_golden.py calibration of the golden yolov5n
+QUANTIZE = {"checkpoint": "golden_yolov5n_ckpt", "file": "yolov5n.pt",
+            "int8_file": "yolov5n_int8.pt", "arch": "yolov5n", "size": 640,
+            "n_calib": 32, "batch": 8, "seed": 515}
 COS_MIN = 0.999
 
 
@@ -93,6 +104,7 @@ def port_state_dict(ckpt: str):
     v = load_f32(ckpt)
     return {
         "golden_yolov5s_ckpt": lambda: W.yolov5_face_state_dict(v, "yolov5s"),
+        "golden_yolov5n_ckpt": lambda: W.yolov5_face_state_dict(v, "yolov5n"),
         "golden_yolov5n_int8_ckpt":
             lambda: W.yolov5_face_state_dict(v, "yolov5n"),
         "golden_blaze_ckpt": lambda: W.blazeface_state_dict(v, False),
@@ -177,6 +189,8 @@ def expected():
         out["nets"][name] = {"checkpoint": ckpt, "file": file, **settings,
                              "gate": gate, "max_px": max_px,
                              "jax": jax_runs(eng, gate, pos, neg)}
+    out["quantize"] = {"yolov5n": {**QUANTIZE,
+                                   "jax_ascale": jax_activation_scales()}}
     emb = _jax_embeddings(pos, GOLDEN_BOXES_3)
     out["embedders"] = {EMBEDDER[2]: {
         "checkpoint": EMBEDDER[0], "file": EMBEDDER[1],
@@ -184,6 +198,29 @@ def expected():
         "boxes": GOLDEN_BOXES_3.tolist(), "cos_min": COS_MIN,
         "jax": {"embeddings": np.asarray(emb, np.float32).tolist()}}}
     return out
+
+
+def jax_activation_scales():
+    """{the port's module path: scale} of the JAX ``quantize_checkpoint``
+    on ``QUANTIZE``'s checkpoint, calibrated on the CPU."""
+    import tempfile
+
+    from face_detection_and_recognition_tpu.cli.quantize_golden import \
+        quantize_checkpoint
+    from face_detection_and_recognition_tpu.utils.checkpoint import \
+        load_variables
+    from face_detection_and_recognition_tpu_torch.utils import weights as W
+
+    q = QUANTIZE
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "int8")
+        quantize_checkpoint(str(DATA / q["checkpoint"]), out, q["arch"],
+                            q["size"], work, n_calib=q["n_calib"],
+                            batch=q["batch"], seed=q["seed"],
+                            log=lambda s: None)
+        sd = W.yolov5_face_state_dict(load_variables(out), q["arch"])
+    return {k[:-len(".ascale")]: float(v) for k, v in sorted(sd.items())
+            if k.endswith(".ascale")}
 
 
 def _jax_embeddings(img, boxes):
