@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
 res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights,
-bf16-families and training paths on one CUDA card, and trace its detect
-path.
+bf16-families, training and recognition-training paths on one CUDA card,
+and trace its detect path.
 
     python3 chip_smoke.py
 
@@ -51,8 +51,10 @@ seconds:
    the plain version, timed, its kept boxes a frame printed); then
    tracing: three ``detect_batch`` steps of that engine under
    ``utils.profiling.device_trace``, read back by
-   ``utils.trace_analysis``: the trace's device time a step within 10 %
-   of ``device_ms`` of the same call, B1's and B2's kernels found by
+   ``utils.trace_analysis``: the trace's device operations and time a
+   step equal to the same profiler session's ``key_averages`` (the count
+   exact, the time within 1 %), an untraced session printed beside it,
+   B1's and B2's kernels found by
    name, ``print_report`` and the share of device time left
    ``<unattributed>``;
 5. main path, ensemble: the yolov5s + mobile_facenet + age/gender engine,
@@ -243,7 +245,24 @@ seconds:
    Q1; three steps of the BlazeFace-front (128) and ssd-resnet10 (300)
    trainers, each loss against the CPU's. Each of ``train_golden`` and
    ``quantize_golden`` is a part of the path;
-18. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+18. main path, recognition training: one ArcFace step of MobileFaceNet
+   (112 x 112, 512-d, B = 48, three golden identities, s = 16, center
+   gain 0.02) on the card and on the CPU from the same weights and batch:
+   the loss, each parameter, BN statistic and SGD momentum buffer within
+   the stated tolerances; the step timed (ms between events, steps/s,
+   device ms and operations, the device's idle share over a traced chunk);
+   ``train_golden_embedder`` (50 steps of its recipe) with its ``.pt``
+   reloaded into a fresh engine bit for bit, and ``evaluate_retrieval``
+   over 16 identities with ``use_pallas=True`` (B4) and ``False``, the
+   same rank-1 lists; ``train_golden_ag`` from ``card_weights/yolov5n.pt``
+   (its gates through B1 / B2 / B3, the reload bit for bit);
+   ``train_golden_mtcnn`` on 12 composites (B1 / B3, the reload bit for
+   bit); three res10-ssd and ov-0204 steps against the CPU's, res10's BN
+   statistics unmoved, the exported ``.caffemodel`` / ``.xml`` reloaded by
+   ``FaceEngine.load_weights`` giving the in-memory net's detections bit
+   for bit. The gates' verdicts are printed, not asserted; each trainer is
+   a part of the path;
+19. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -3542,10 +3561,16 @@ TRACE_KERNELS = {"B1 nms_fixpoint": ("nms_overlap_mask_kernel",
 def run_tracing(eng, frames, card):
     """``TRACE_STEPS`` ``detect_batch`` steps of the f32 yolov5s engine
     ``eng`` under ``utils.profiling.device_trace``, read back by
-    ``utils.trace_analysis``: the device time a step against
-    ``device_ms`` of the same call (within 10 %), B1's and B2's kernels
-    found by name, the report, and the share of device time whose launch
-    the trace leaves ``<unattributed>``. A trace that records no device
+    ``utils.trace_analysis``: the device operations and device time the
+    reader finds in the trace file against the profiler's own aggregate
+    (``key_averages``) of the same session (the same count, the time
+    within 1 %), B1's and B2's kernels found by name, the report, and the
+    share of device time whose launch the trace leaves ``<unattributed>``.
+    An untraced profiler session of the same call (``device_ops``) is
+    printed beside it, with the operations whose time differs most: a
+    traced step's device time may drift from an untraced one's (the
+    frames' upload from pageable memory runs on a shared host), so that
+    comparison is read, not held. A trace that records no device
     operation is taken again, up to three times. Returns its numbers."""
     from face_detection_and_recognition_tpu_torch.utils import \
         trace_analysis as TA
@@ -3559,7 +3584,7 @@ def run_tracing(eng, frames, card):
     for _ in range(3):
         shutil.rmtree(out_dir, ignore_errors=True)
         t = time.time()
-        with torch.inference_mode(), device_trace(str(out_dir)):
+        with torch.inference_mode(), device_trace(str(out_dir)) as prof:
             for _ in range(TRACE_STEPS):
                 run()
             torch.cuda.synchronize()
@@ -3573,10 +3598,26 @@ def run_tracing(eng, frames, card):
         raise AssertionError("three device traces recorded no device "
                              "operation")
     step_ms = sum(o.duration_us for o in ops) / 1e3 / TRACE_STEPS
-    ref_ms, ref_ops = device_ms(run, TRACE_STEPS)
-    if abs(step_ms - ref_ms) > 0.10 * ref_ms:
-        raise AssertionError(f"trace: {step_ms:.4f} device ms a step "
-                             f"against device_ms's {ref_ms:.4f}")
+    agg = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    agg_ms = sum(e.self_device_time_total for e in agg) / 1e3 / TRACE_STEPS
+    agg_n = sum(e.count for e in agg)
+    if len(ops) != agg_n or abs(step_ms - agg_ms) > 0.01 * agg_ms:
+        raise AssertionError(f"trace: the reader found {len(ops)} device "
+                             f"operations, {step_ms:.4f} device ms a step, "
+                             f"against the session's key_averages' {agg_n}, "
+                             f"{agg_ms:.4f} ms")
+    traced = {}
+    for o in ops:
+        traced[o.name] = traced.get(o.name, 0.0) + o.duration_us / 1e3
+    untraced = device_ops(run, TRACE_STEPS)
+    ref_ms = sum(ms * n for ms, n in untraced.values()) or None
+    ref_ops = sum(n for _, n in untraced.values())
+    drift = sorted(((traced.get(k, 0.0) / TRACE_STEPS
+                     - untraced.get(k, (0.0, 0))[0]
+                     * untraced.get(k, (0.0, 0))[1], k)
+                    for k in set(traced) | set(untraced)),
+                   key=lambda d: -abs(d[0]))[:3]
     found = {}
     for label, names in TRACE_KERNELS.items():
         hits = [o for o in ops if any(n in o.name for n in names)]
@@ -3593,9 +3634,13 @@ def run_tracing(eng, frames, card):
     share = unattributed / sum(o.duration_us for o in ops)
     say(f"  trace of {TRACE_STEPS} detect_batch steps (yolov5s f32, "
         f"{B} x 576x1024): {len(ops)} device operations, {step_ms:.4f} "
-        f"device ms a step against device_ms's {ref_ms:.4f} ms in "
-        f"{ref_ops} operations on {card}; traced in {trace_s:.2f} s, "
+        f"device ms a step, against the session's key_averages' {agg_n} "
+        f"and {agg_ms:.4f} ms on {card}; traced in {trace_s:.2f} s, "
         f"parsed in {parse_s:.2f} s")
+    say(f"  an untraced session: {ref_ms and round(ref_ms, 4)} device ms"
+        f" a step in {ref_ops} operations; traced minus untraced,"
+        f" the largest per operation (ms a step): "
+        + "; ".join(f"{k[:60]} {d:+.4f}" for d, k in drift))
     for label, f in found.items():
         say(f"  {label}: {json.dumps(f)}")
     say(f"  <unattributed> share of the device time: {share:.4f}")
@@ -3603,7 +3648,8 @@ def run_tracing(eng, frames, card):
         TA.print_report(str(out_dir), steps=TRACE_STEPS, n=10)
     for line in report.getvalue().splitlines():
         say(f"  | {line}")
-    return {"step_ms": step_ms, "device_ms": ref_ms, "ops": len(ops),
+    return {"step_ms": step_ms, "key_averages_ms": agg_ms,
+            "device_ms": ref_ms, "ops": len(ops),
             "unattributed_share": share, "kernels": found,
             "trace_s": trace_s, "parse_s": parse_s}
 
@@ -4297,6 +4343,535 @@ def run_training(card):
     return win.total(), stats
 
 
+REC_DIR = WORK_DIR / "recognition"
+REC_DEVICE = "cuda"
+ARC_B, ARC_IDS, ARC_S, ARC_CENTER = 48, 3, 16.0, 0.02
+ARC_TIMED_STEPS = 20
+EMBED_STEPS, EMBED_PER_ID = 50, 96
+AG_STEPS, AG_EVAL, AG_BUFFER, AG_B = 60, 20, 256, 64
+MTCNN_IMAGES, MTCNN_CROPS, MTCNN_B, MTCNN_STEPS = 12, 512, 64, 20
+GRAPH_STEPS, GRAPH_B = 3, 4
+# card against CPU, one ArcFace step of MobileFaceNet (112 px, 512-d) from
+# the same weights and batch, f32 with TF32 off: the loss, and each
+# parameter's, BN statistic's and SGD momentum buffer's largest difference
+# over the tensor's largest value (at least 0.01). At flax's init the
+# MobileFaceNet gradient moves by percents of its largest value under 1e-5
+# relative changes of an activation: on the CPU the f32 step against the
+# same step in f64 parts by 4.2e-4 in a parameter (conv1.bn.bias, the
+# 0.01 floor) and 2.7e-2 in a momentum buffer (the gradient after one
+# step), and the card's convolutions differ from the CPU's by more than
+# f32 rounding; hence 2e-3 and 0.1
+ARC_LOSS_RTOL, ARC_TENSOR_RTOL, ARC_MOMENTUM_RTOL = 1e-4, 2e-3, 0.1
+# the same step in f64 on both sides (MobileFaceNet at B = 6: the CPU's
+# f64 depthwise convolutions are slow; and the FaceNet slot, 160 px, 128-d,
+# B = 15, whose JAX step the CPU tests do not compile): the nets still
+# round their embeddings to f32, as JAX's do, so an element a rounding
+# apart moves a gradient by ~1e-7 of its scale (3.7e-7 measured on the
+# H100); 1e-5
+ARC_F64_RTOL = 1e-5
+MOBILE_F64_B, FACENET_B = 6, 15
+GRAPH_LOSS_RTOL = 1e-3      # res10-ssd and ov-0204, three steps
+
+
+# the path's kernel wrappers, spied where the path calls them, by their
+# launch counters' names
+REC_COUNTS = {"nms_fixpoint": "nms_fixpoint",
+              "candidate_decode": "rows_gather",
+              "crop_resize": "crop_resize", "topk_gallery": "topk_gallery"}
+
+
+def spied_part(win, part, fn, kernels):
+    """``win.run(part, fn)`` with spies on the B1 / B2 / B3 / B4 wrappers
+    where the path calls them (outside inference mode: the part trains).
+    Each of ``kernels`` must have launched in the part, and every launch
+    must be a spied call; after the window each call is replayed against
+    its plain version bit for bit (those launches are not the path's).
+    Returns (fn's result, {kernel: calls replayed})."""
+    from face_detection_and_recognition_tpu_torch.models import \
+        yolov5_face
+    from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
+    from face_detection_and_recognition_tpu_torch.ops import nms as nms_ops
+    from face_detection_and_recognition_tpu_torch.pipelines import \
+        similarity
+
+    with spied_calls([(yolov5_face, "nms_fixpoint"),
+                      (yolov5_face, "candidate_decode")]) as yolo, \
+            spied_calls([(nms_ops, "nms_fixpoint"),
+                         (crop_ops, "crop_resize"),
+                         (similarity, "topk_gallery")]) as rest:
+        out = win.run(part, fn)
+    calls = {"nms_fixpoint": yolo["nms_fixpoint"] + rest["nms_fixpoint"],
+             "candidate_decode": yolo["candidate_decode"],
+             "crop_resize": rest["crop_resize"],
+             "topk_gallery": rest["topk_gallery"]}
+    replayed = {}
+    for name in kernels:
+        launches, seen = win.parts[part][REC_COUNTS[name]], calls[name]
+        if launches <= 0 or len(seen) < launches:
+            raise AssertionError(f"{name} in {part}: {launches} launches, "
+                                 f"{len(seen)} spied calls")
+        check_on_path(f"{name} in {part}", getattr(ck, name),
+                      getattr(ck, f"{name}_plain"), seen)
+        replayed[name] = len(seen)
+    return out, replayed
+
+
+def arcface_batch(embedder="mobile_facenet", n=ARC_B):
+    """The golden-embed recipe's first batch for ``embedder``: ``n`` crops
+    of the three golden identities at its size (the trainer's crop sets,
+    seed 1, aug 1.6), normalized as the slot normalizes them."""
+    from face_detection_and_recognition_tpu_torch.models.embedders import (
+        get_embedder, preprocess_crops)
+    from face_detection_and_recognition_tpu_torch.train import \
+        golden_embed as GE
+
+    spec = get_embedder(embedder)
+    sets = GE.make_identity_crops(SEED + 1, n // ARC_IDS,
+                                  size=spec.input_size[0], aug_scale=1.6)
+    x = torch.from_numpy(np.concatenate([np.stack(c) for c in sets]))
+    y = torch.from_numpy(np.repeat(np.arange(ARC_IDS), n // ARC_IDS))
+    return preprocess_crops(spec, x.float()), y
+
+
+def arcface_steps(x, y, embedder="mobile_facenet", dim=512,
+                  dtype=torch.float32):
+    """One ArcFace step (three identities, s = 16, center gain 0.02) of
+    ``embedder`` on the card and on the CPU from the same weights and
+    batch, in ``dtype``. Returns ({device: state}, gaps): the loss's
+    relative difference, and (largest difference over max(the tensor's
+    largest value, 0.01), its name) of the parameters, the BN statistics
+    and the SGD momentum buffers."""
+    from face_detection_and_recognition_tpu_torch.train import arcface as A
+
+    cfg = A.ArcFaceTrainConfig(num_classes=ARC_IDS, embedding_size=dim,
+                               s=ARC_S, lr=0.01, center_gain=ARC_CENTER,
+                               embedder=embedder)
+    states, losses = {}, {}
+    for dev in (REC_DEVICE, "cpu"):
+        st = A.create_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                  device=dev)
+        if dtype == torch.float64:
+            st["net"].double()
+            for mod in st["net"].modules():
+                if hasattr(mod, "compute_dtype"):
+                    mod.compute_dtype = dtype
+            st["arcface_kernel"].data = st["arcface_kernel"].data.double()
+        t = time.time()
+        losses[dev] = float(A.make_train_step(st)(
+            x.to(st["device"], dtype), y.to(st["device"])))
+        say(f"  one {embedder} ArcFace step in {dtype} on {st['device']}: "
+            f"loss {losses[dev]:.9f} ({time.time() - t:.1f} s)")
+        states[dev] = st
+
+    def tensors(st):
+        net = st["net"]
+        params, stats = split_state(net)
+        params["arcface_kernel"] = st["arcface_kernel"].detach().cpu()
+        named = dict(net.named_parameters(), arcface_kernel=st[
+            "arcface_kernel"])
+        mom = {k: st["opt"].state[p]["momentum_buffer"].detach().cpu()
+               for k, p in named.items() if p in st["opt"].state}
+        return params, stats, mom
+
+    (cp, cs, cm), (rp, rs, rm) = tensors(states[REC_DEVICE]), \
+        tensors(states["cpu"])
+    return states, {"loss_rel": abs(losses[REC_DEVICE] - losses["cpu"])
+                    / abs(losses["cpu"]), "params": tensor_gap(cp, rp),
+                    "bn_stats": tensor_gap(cs, rs),
+                    "momentum": tensor_gap(cm, rm), "n_momentum": len(rm)}
+
+
+def arcface_step_card_vs_cpu(x, y):
+    """The MobileFaceNet ArcFace step (512-d, 112 px, B = 48) card against
+    CPU in f32 (the precision it trains in), the same net at B = 6 in f64,
+    and the FaceNet slot's step (128-d, 160 px, B = 15) in f64. Returns (the card's f32
+    MobileFaceNet state, numbers); raises when a difference exceeds its
+    tolerance."""
+    states, out = arcface_steps(x, y)
+    say(f"  card against CPU, f32: loss relative difference "
+        f"{out['loss_rel']:.3e} (tolerance {ARC_LOSS_RTOL}); largest "
+        f"relative difference (over the tensor's largest value, at least "
+        f"0.01; tolerance {ARC_TENSOR_RTOL}): parameters "
+        f"{out['params'][0]:.3e} ({out['params'][1]}), BN statistics "
+        f"{out['bn_stats'][0]:.3e} ({out['bn_stats'][1]}); momentum "
+        f"buffers {out['momentum'][0]:.3e} ({out['momentum'][1]}) over "
+        f"{out['n_momentum']} tensors (same measure, tolerance "
+        f"{ARC_MOMENTUM_RTOL})")
+    if out["loss_rel"] > ARC_LOSS_RTOL or max(
+            out["params"][0], out["bn_stats"][0]) > ARC_TENSOR_RTOL \
+            or out["momentum"][0] > ARC_MOMENTUM_RTOL:
+        raise AssertionError(f"ArcFace step: card against CPU {out}")
+    f64 = {"mobile_facenet": arcface_steps(
+        *arcface_batch(n=MOBILE_F64_B), dtype=torch.float64)[1],
+        "facenet": arcface_steps(*arcface_batch("facenet", FACENET_B),
+                                 "facenet", 128, torch.float64)[1]}
+    for name, g in f64.items():
+        worst = max(g["loss_rel"], g["params"][0], g["bn_stats"][0],
+                    g["momentum"][0])
+        say(f"  card against CPU, f64, {name}: loss {g['loss_rel']:.3e}, "
+            f"parameters {g['params'][0]:.3e}, BN statistics "
+            f"{g['bn_stats'][0]:.3e}, momentum {g['momentum'][0]:.3e} "
+            f"({g['momentum'][1]}) (tolerance {ARC_F64_RTOL})")
+        if worst > ARC_F64_RTOL:
+            raise AssertionError(f"{name} f64 ArcFace step: card against "
+                                 f"CPU {g}")
+    out["f64"] = f64
+    return states[REC_DEVICE], out
+
+
+def time_arcface(state, x, y):
+    """The card's figures of the B = 48 MobileFaceNet step: ms a step
+    between CUDA events over ``ARC_TIMED_STEPS`` steps, steps/s, device ms
+    and operations a step (profiler), and the device's idle share over a
+    traced chunk of steps."""
+    from torch.profiler import record_function
+
+    from face_detection_and_recognition_tpu_torch.train import arcface as A
+    from face_detection_and_recognition_tpu_torch.utils import \
+        trace_analysis as TA
+    from face_detection_and_recognition_tpu_torch.utils.profiling import \
+        device_trace
+
+    dev = state["device"]
+    x, y = x.to(dev), y.to(dev)
+    step = A.make_train_step(state)
+
+    def chunk():
+        for _ in range(ARC_TIMED_STEPS):
+            loss = step(x, y)
+        return loss
+
+    step_ms = cuda_ms(chunk, iters=1) / ARC_TIMED_STEPS
+    dev_ms, dev_ops = device_ms(lambda: step(x, y), iters=3)
+    trace_dir = REC_DIR / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with device_trace(str(trace_dir), with_stack=False):
+        with record_function("chunk"):
+            loss = chunk()
+            torch.cuda.synchronize()
+    busy_ms, wall_ms, idle = TA.idle_share(str(trace_dir), "chunk")
+    out = {"step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+           "device_ms_per_step": dev_ms, "device_ops_per_step": dev_ops,
+           "chunk_wall_ms": wall_ms, "chunk_busy_ms": busy_ms,
+           "idle_share": idle, "chunk_loss": float(loss),
+           "idle_share_untraced": 1.0 - dev_ms / step_ms}
+    if not math.isfinite(out["chunk_loss"]):
+        raise AssertionError(f"ArcFace timing: {out}")
+    return out
+
+
+def golden_embed_part(card):
+    """``train_golden_embedder`` (MobileFaceNet, its recipe, ~50 steps),
+    the ``.pt`` reloaded into a fresh engine against the in-memory net's
+    embeddings bit for bit. The gate's verdict is printed, not
+    asserted."""
+    from face_detection_and_recognition_tpu_torch.train import \
+        golden_embed as GE
+
+    lines = []
+    t = time.time()
+    r = GE.train_golden_embedder(
+        str(REC_DIR / "golden_embed.pt"), batch_size=ARC_B,
+        max_steps=EMBED_STEPS, eval_every=EMBED_STEPS,
+        n_train_per_id=EMBED_PER_ID, seed=SEED, device=REC_DEVICE,
+        log=lines.append)
+    sec = time.time() - t
+    for line in lines:
+        say(f"  {line}")
+    crops = np.stack(GE.make_identity_crops(SEED + 9, 16)[0])
+    a, b = r["engine"].embed_crops(crops), r["embed"](crops)
+    if not np.array_equal(a, b):
+        raise AssertionError("golden_embed: the reloaded .pt's embeddings "
+                             "differ from the in-memory net's")
+    if not all(math.isfinite(v) for v in r["losses"]):
+        raise AssertionError(f"golden_embed losses {r['losses']}")
+    return r, {"s": sec, "steps": r["steps"], "losses": r["losses"],
+               "gate_ok": r["ok"], "reload_ok": r["reload_ok"],
+               "same_acc": r["same_acc"], "cross_acc": r["cross_acc"],
+               "margin": r["margin"], "reload_bit_equal": True}
+
+
+def retrieval_part(engine):
+    """``evaluate_retrieval`` of the reloaded engine over the 16-identity
+    population, the search through B4 (``use_pallas=True``) and the plain
+    one: the same rank-1 lists."""
+    from face_detection_and_recognition_tpu_torch.train import \
+        golden_embed as GE
+
+    out = {}
+    for pallas in (True, False):
+        t = time.time()
+        out[pallas] = GE.evaluate_retrieval(engine.embed_crops,
+                                            use_pallas=pallas,
+                                            device=REC_DEVICE)
+        out[pallas]["s"] = time.time() - t
+    if not np.array_equal(out[True]["top1"], out[False]["top1"]):
+        raise AssertionError("evaluate_retrieval: B4's rank-1 list differs "
+                             "from the plain search's")
+    r = out[True]
+    return {"rank1": r["rank1"], "same_acc": r["same_acc"],
+            "cross_acc": r["cross_acc"], "margin_min": r["margin_min"],
+            "ok": r["ok"], "n_probes": int(len(r["top1"])),
+            "s_b4": out[True]["s"], "s_plain": out[False]["s"],
+            "same_rank1_lists": True}
+
+
+def golden_ag_part():
+    """``train_golden_ag`` from ``card_weights/yolov5n.pt`` for a few
+    chunks; the reloaded heads' probabilities on the golden faces against
+    the in-memory heads' bit for bit."""
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+    from face_detection_and_recognition_tpu_torch.train import \
+        golden_ag as AG
+
+    lines = []
+    t = time.time()
+    r = AG.train_golden_ag(str(REC_DIR / "golden_ag.pt"),
+                           str(CW.CARD_WEIGHTS / "yolov5n.pt"),
+                           n_buffer=AG_BUFFER, batch_size=AG_B,
+                           max_steps=AG_STEPS, eval_every=AG_EVAL, seed=SEED,
+                           device=REC_DEVICE, log=lines.append)
+    sec = time.time() - t
+    for line in lines:
+        say(f"  {line}")
+    crops = AG.build_ag_buffer(8, seed=SEED + 5)[0]
+    a = r["engine"].classify_crops_age_gender(crops)
+    b = r["reload_engine"].classify_crops_age_gender(crops)
+    if not all(np.array_equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError("golden_ag: the reloaded .pt classifies "
+                             "otherwise than the in-memory heads")
+    if not all(math.isfinite(v) for v in r["losses"]):
+        raise AssertionError(f"golden_ag losses {r['losses']}")
+    return {"s": sec, "steps": r["steps"], "losses": r["losses"],
+            "gate_ok": r["ok"], "reload_ok": r["reload_ok"],
+            "labels": r["labels"], "reload_bit_equal": True}
+
+
+def golden_mtcnn_part(frames):
+    """``train_golden_mtcnn`` at a few steps a stage on a small composite
+    set, one bootstrap round; the reloaded cascade against the in-memory
+    one bit for bit: its tensors, each stage's outputs on seeded crops, and
+    the raw detections of the golden image and of 2 frames."""
+    from face_detection_and_recognition_tpu_torch.train import golden as G
+    from face_detection_and_recognition_tpu_torch.train import \
+        golden_mtcnn as GM
+
+    lines = []
+    t = time.time()
+    r = GM.train_golden_mtcnn(
+        str(REC_DIR / "golden_mtcnn.pt"), str(REC_DIR / "mtcnn_work"),
+        n_images=MTCNN_IMAGES, n_crops=MTCNN_CROPS, batch_size=MTCNN_B,
+        max_steps=MTCNN_STEPS, eval_every=MTCNN_STEPS // 2, seed=SEED,
+        device=REC_DEVICE, bootstrap_rounds=1, log=lines.append)
+    sec = time.time() - t
+    for line in lines:
+        say(f"  {line}")
+    n = 0
+    for img in [G.imread(G.GOLDEN_IMG)] + list(frames[:2]):
+        a = r["engine"].detect_raw(img)
+        b = r["reload_engine"].detect_raw(img)
+        if not np.array_equal(a, b):
+            raise AssertionError("golden_mtcnn: the reloaded .pt detects "
+                                 "otherwise than the in-memory cascade")
+        n += len(a)
+    # the cascade may detect nothing after a few steps: the weights, and
+    # each stage's outputs on seeded crops, are compared too, never empty
+    mem, disk = r["engine"].net, r["reload_engine"].net
+    sa, sb = mem.state_dict(), disk.state_dict()
+    if not sa or sa.keys() != sb.keys() or not all(
+            same_bits(sa[k], sb[k]) for k in sa):
+        raise AssertionError("golden_mtcnn: the reloaded .pt's tensors "
+                             "differ from the in-memory cascade's")
+    gen, rows = torch.Generator().manual_seed(SEED + 7), 0
+    with torch.inference_mode():
+        for name, size in GM.STAGE_SIZES.items():
+            x = (torch.rand((MTCNN_B, 3, size, size), generator=gen) * 2
+                 - 1).to(REC_DEVICE)
+            outs = getattr(mem, name)(x), getattr(disk, name)(x)
+            if not all(same_bits(u, v) for u, v in zip(*outs)):
+                raise AssertionError(f"golden_mtcnn: the reloaded {name} "
+                                     "answers otherwise than the in-memory "
+                                     "one")
+            rows += len(outs[0][0])
+    if rows <= 0:
+        raise AssertionError("golden_mtcnn: no stage rows compared")
+    losses = {k: v for k, v in r["losses"].items()}
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+        raise AssertionError(f"golden_mtcnn losses {losses}")
+    return {"s": sec, "losses": losses, "gate_ok": r["ok"],
+            "reload_ok": r["reload_ok"], "n_pos": r["n_pos"],
+            "n_neg": r["n_neg"], "reload_raw_rows": n,
+            "reload_tensors": len(sa), "reload_stage_rows": rows,
+            "reload_bit_equal": True}
+
+
+def graph_batches(size):
+    rng = np.random.RandomState(SEED)
+    out = []
+    for _ in range(GRAPH_STEPS):
+        x = rng.randint(0, 255, (GRAPH_B, size, size, 3)).astype(np.uint8)
+        t = np.zeros((GRAPH_B, 4, 14), np.float32)
+        t[..., 4:] = -1.0
+        t[:, 0, :4] = rng.uniform(0.3, 0.7, (GRAPH_B, 4)) * [
+            size, size, 0.5 * size, 0.5 * size]
+        out.append((x, t, t[..., 2] > 0))
+    return out
+
+
+def graph_steps_part(frames):
+    """Three steps of the res10-ssd and ov-0204 trainers on the card and
+    on the CPU from the same weights (the CPU state's LSUV'd / seeded init
+    poured into the card's) and seeded batches, each loss against the
+    CPU's; then the card's trained weights exported (``.caffemodel``,
+    ``.xml`` + ``.bin``), reloaded by ``FaceEngine.load_weights`` and held
+    to an engine with the same weights in memory, bit for bit, on the 8
+    frames."""
+    from face_detection_and_recognition_tpu_torch.models.ov_topologies \
+        import export_trained_ir
+    from face_detection_and_recognition_tpu_torch.train import \
+        caffe_golden as CG
+    from face_detection_and_recognition_tpu_torch.train import \
+        ov_golden as OG
+    from face_detection_and_recognition_tpu_torch.train.detection import \
+        load_train_weights
+
+    out = {}
+    for name, cfg, create, make, ext in (
+            ("res10-ssd", CG.CaffeGoldenConfig(max_targets=4),
+             CG.create_res10_train_state, CG.make_res10_train_step_ema,
+             ".caffemodel"),
+            ("ov-0204", OG.OVGoldenConfig(max_targets=4),
+             OG.create_ov_train_state, OG.make_ov_train_step_ema, ".xml")):
+        size = cfg.input_size[0]
+        batches = graph_batches(size)
+        cpu = create(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        dev = create(cfg, torch.Generator().manual_seed(SEED), REC_DEVICE)
+        init = {k: v.clone() for k, v in cpu["net"].state_dict().items()}
+        load_train_weights(dev, init)
+        losses = {}
+        for tag, st in (("card", dev), ("cpu", cpu)):
+            step = make(st)
+            losses[tag] = [float(step(*(torch.from_numpy(a).to(
+                st["device"]) for a in b))[0]) for b in batches]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"])]
+        if max(rel) > GRAPH_LOSS_RTOL or not all(
+                math.isfinite(v) for v in losses["card"]):
+            raise AssertionError(f"{name} steps: card against CPU {losses}")
+        frozen = 0
+        if name == "res10-ssd":
+            for s in dev["net"].steps:
+                if s.op == "batchnorm":
+                    for i, b in enumerate(dev["net"].layer_blobs(s.name)):
+                        k = f"blobs.{s.name}.{i}"
+                        if not torch.equal(b.detach().cpu(), init[k]):
+                            raise AssertionError(f"{k} moved")
+                        frozen += 1
+        sd = {k: v.detach().cpu() for k, v in dev["net"].state_dict().items()}
+        path = str(REC_DIR / f"{name}{ext}")
+        if name == "res10-ssd":
+            CG.export_trained_caffemodel(sd, path)
+        else:
+            export_trained_ir(name, sd, path)
+        ecfg = EngineConfig(detector=name, det_thres=0.05)
+        mem = FaceEngine(ecfg, device=REC_DEVICE)
+        mem.load_state_dict(sd)
+        disk = FaceEngine(ecfg, device=REC_DEVICE)
+        disk.load_weights(path)
+        a, b = mem.detect_batch(frames), disk.detect_batch(frames)
+        for field in ("boxes", "scores", "valid"):
+            if not torch.equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"{name}: the exported {ext} detects "
+                                     "otherwise than the in-memory net")
+        say(f"  {name} at {size}x{size}, B = {GRAPH_B}: losses card "
+            f"{[round(v, 6) for v in losses['card']]}, CPU "
+            f"{[round(v, 6) for v in losses['cpu']]}, relative differences "
+            f"{[f'{r:.2e}' for r in rel]} (tolerance {GRAPH_LOSS_RTOL})"
+            + (f"; {frozen} BN statistic blobs unmoved" if frozen else "")
+            + f"; the exported {ext} reloaded gives the in-memory net's "
+            f"{int(a.valid.sum())} detections of the 8 frames bit for bit")
+        out[name] = {"card": losses["card"], "cpu": losses["cpu"],
+                     "rel": rel, "frozen_bn_blobs": frozen,
+                     "reload_detections": int(a.valid.sum())}
+    return out
+
+
+def run_recognition_training(frames, card):
+    """The recognition-training main path: the ArcFace step card against
+    CPU and its figures, ``train_golden_embedder`` with its reload and the
+    retrieval through B4 and the plain search, ``train_golden_ag``,
+    ``train_golden_mtcnn``, and three res10-ssd and ov-0204 steps with
+    their exports. Each trainer is a part of the path. Returns
+    (launches, numbers)."""
+    t_phase = time.time()
+    shutil.rmtree(REC_DIR, ignore_errors=True)
+    REC_DIR.mkdir(parents=True)
+    win, stats = Windows(), {}
+    x, y = arcface_batch()
+    state, stats["arcface_step"] = win.run(
+        "arcface_step", lambda: arcface_step_card_vs_cpu(x, y))
+    stats["arcface_timing"] = time_arcface(state, x, y)
+    del state
+    torch.cuda.empty_cache()
+    res, stats["golden_embed"] = win.run("golden_embed",
+                                         lambda: golden_embed_part(card))
+    stats["retrieval"], replayed = spied_part(
+        win, "retrieval", lambda: retrieval_part(res["engine"]),
+        ("topk_gallery",))
+    stats["replayed"] = {"retrieval": replayed}
+    say(f"  retrieval over 16 identities through the reloaded engine: "
+        f"rank-1 {stats['retrieval']['rank1']:.3f}, same "
+        f"{stats['retrieval']['same_acc']:.3f}, cross "
+        f"{stats['retrieval']['cross_acc']:.3f}, verdict (printed, not "
+        f"asserted) {stats['retrieval']['ok']}; B4's and the plain "
+        f"search's rank-1 lists of {stats['retrieval']['n_probes']} probes "
+        f"equal")
+    del res
+    # each part's own kernels: B1 / B2 / B3 in the age/gender cascade's
+    # gates, B1 / B3 in MTCNN's, B1 in the graph nets' reloads
+    for part, fn, kernels in (
+            ("golden_ag", golden_ag_part,
+             ("nms_fixpoint", "candidate_decode", "crop_resize")),
+            ("golden_mtcnn", lambda: golden_mtcnn_part(frames),
+             ("nms_fixpoint", "crop_resize")),
+            ("graph_steps", lambda: graph_steps_part(frames),
+             ("nms_fixpoint",))):
+        stats[part], stats["replayed"][part] = spied_part(win, part, fn,
+                                                          kernels)
+    ge, ag, mt = (stats["golden_embed"], stats["golden_ag"],
+                  stats["golden_mtcnn"])
+    say(f"  train_golden_embedder: {ge['steps']} steps, losses "
+        f"{[round(v, 4) for v in ge['losses']]}, gate (printed, not "
+        f"asserted) ok {ge['gate_ok']} same {ge['same_acc']:.2f} cross "
+        f"{ge['cross_acc']:.2f} margin {ge['margin']:.3f}, reload ok "
+        f"{ge['reload_ok']}; the .pt reloaded gives the in-memory net's "
+        f"embeddings bit for bit ({ge['s']:.1f} s)")
+    say(f"  train_golden_ag: {ag['steps']} steps, chunk losses "
+        f"{[round(v, 4) for v in ag['losses']]}, gate ok {ag['gate_ok']}, "
+        f"reload ok {ag['reload_ok']}, labels {ag['labels']}; the .pt "
+        f"reloaded classifies bit for bit ({ag['s']:.1f} s)")
+    say(f"  train_golden_mtcnn: gate ok {mt['gate_ok']} (pos {mt['n_pos']}"
+        f", neg {mt['n_neg']}), reload ok {mt['reload_ok']}; the .pt "
+        f"reloaded: {mt['reload_tensors']} tensors, the P/R/O-Net outputs "
+        f"on {mt['reload_stage_rows']} seeded crops and "
+        f"{mt['reload_raw_rows']} raw detection rows of 3 images bit for "
+        f"bit ({mt['s']:.1f} s)")
+    tm = stats["arcface_timing"]
+    say(f"  {card}: MobileFaceNet 112x112 512-d B = {ARC_B} ArcFace step "
+        f"{tm['step_ms']:.2f} ms between events = {tm['steps_per_s']:.2f} "
+        f"steps/s; device {tm['device_ms_per_step']:.2f} ms a step from "
+        f"the profiler ({tm['device_ops_per_step']} device operations a "
+        f"step); the device idle {100 * tm['idle_share']:.1f} % of a traced "
+        f"{ARC_TIMED_STEPS}-step chunk ({tm['chunk_busy_ms']:.1f} busy of "
+        f"{tm['chunk_wall_ms']:.1f} ms), "
+        f"{100 * tm['idle_share_untraced']:.1f} % of an untraced step")
+    stats["s"] = time.time() - t_phase
+    stats["windows"] = win.parts
+    say(f"  recognition training phase: {stats['s']:.1f} s")
+    return win.total(), stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -4538,6 +5113,15 @@ def main():
                                      f"{part}")
     phase_end("main path: training")
 
+    say("[main path: recognition training] the ArcFace step (card against "
+        "CPU), train_golden_embedder and retrieval, train_golden_ag, "
+        "train_golden_mtcnn, the res10-ssd and ov-0204 trainers")
+    rec_launches, rec = run_recognition_training(frames, card)
+    say(f"  launches on the recognition training path: {rec_launches}, by "
+        f"part {json.dumps(rec['windows'])}")
+    say(f"  recognition training numbers: {json.dumps(rec)}")
+    phase_end("main path: recognition training")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -4581,7 +5165,8 @@ def main():
                    "bf16": bf16_launches[k["name"]],
                    "trained weights": tw_launches[k["name"]],
                    "bf16 families": bf16f_launches[k["name"]],
-                   "training": train_launches[k["name"]]}
+                   "training": train_launches[k["name"]],
+                   "recognition training": rec_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

@@ -7,9 +7,11 @@ faces at IoU >= the gate's bar against the pinned boxes of
 tests/image_tests/test_yolov5_face.py:58-66, none on the 0-face image),
 writes a ``.pt`` checkpoint, reloads it through a fresh engine and regates;
 then the held-out composite AP. The JAX flags, and ``-d/--device`` (the card
-unless ``-d cpu``). ``--resume-from`` takes a ``.pt``. The res10-ssd and
-OpenVINO trainers, and so ``--export-caffemodel`` / ``--export-ir``, are
-not ported yet (ROADMAP A12b).
+unless ``-d cpu``). ``--resume-from`` takes a ``.pt``. With
+``--export-caffemodel`` (res10-ssd) or ``--export-ir`` (ov-*), a passing
+checkpoint is also written as a binary ``.caffemodel`` with the deploy
+graph, or as an IR ``model.xml`` + ``.bin``, which ``FaceEngine.
+load_weights`` reads.
 
     python -m face_detection_and_recognition_tpu_torch.cli.train_golden \\
         --out yolov5s_golden.pt --arch yolov5s --steps 4000
@@ -46,9 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gate-iou", type=float, default=0.5,
                     help="per-box IoU the gate requires")
     ap.add_argument("--export-caffemodel", default=None,
-                    help="(res10-ssd only; not ported yet: ROADMAP A12b)")
+                    help="(res10-ssd only) also write the trained blobs "
+                         "into a binary .caffemodel at this path")
     ap.add_argument("--export-ir", default=None,
-                    help="(ov-* only; not ported yet: ROADMAP A12b)")
+                    help="(ov-* only) also write the trained weights into "
+                         "a model.xml (+ sibling .bin) at this path")
     ap.add_argument("--face-px", default=None,
                     help="'lo,hi' pixel band for composite face sizes")
     ap.add_argument("--loss-override", action="append", default=[],
@@ -63,10 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.export_caffemodel or args.export_ir:
-        raise NotImplementedError(
-            "--export-caffemodel / --export-ir: the res10-ssd and OpenVINO "
-            "trainers and exporters are not ported yet: ROADMAP A12b")
+    if args.export_caffemodel and args.arch != "res10-ssd":
+        ap.error("--export-caffemodel applies to --arch res10-ssd only")
+    if args.export_ir and not args.arch.startswith("ov-"):
+        ap.error("--export-ir applies to the ov-* topologies only")
 
     from ..train.golden import (evaluate_holdout_ap, golden_engine,
                                 train_golden)
@@ -93,6 +97,21 @@ def main(argv=None) -> int:
                                   seed=args.seed + 7777)
         print(f"holdout AP50={ap_['AP50']:.3f} AP={ap_['AP']:.3f} "
               f"AR={ap_['AR']:.3f}")
+        if args.export_caffemodel or args.export_ir:
+            from ..core.engine import read_state_dict
+
+            sd = read_state_dict(args.out)
+        if args.export_caffemodel:
+            from ..train.caffe_golden import export_trained_caffemodel
+
+            export_trained_caffemodel(sd, args.export_caffemodel)
+            print(f"trained .caffemodel written to "
+                  f"{args.export_caffemodel}")
+        if args.export_ir:
+            from ..models.ov_topologies import export_trained_ir
+
+            export_trained_ir(args.arch, sd, args.export_ir)
+            print(f"trained IR written to {args.export_ir} (+ .bin)")
     return 0 if (r["ok"] and r.get("reload_ok")) else 1
 
 

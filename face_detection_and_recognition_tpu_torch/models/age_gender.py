@@ -9,7 +9,7 @@ reference ``.caffemodel`` pours in without a permutation.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ AGE_BUCKETS = (
     "(60-100)"
 )
 GENDERS = ("Male", "Female")
+DROP_KEEP = 0.5  # flax Dropout(0.5)'s keep probability, in train mode
 
 
 def _lrn(x: torch.Tensor) -> torch.Tensor:
@@ -53,10 +54,14 @@ class CaffeNetHead(nn.Module):
     """conv 96@7x7/4 -> pool/LRN -> conv 256@5x5 -> pool/LRN -> conv
     384@3x3 -> pool -> fc 512 -> fc 512 -> logits. The pools are caffe's
     ceil-mode 3x3/2 (227 -> 56 -> 28 -> 14 -> 7, fc6 input 384*7*7).
-    Dropout is training, so it has no counterpart here. Takes NCHW. A
-    bf16 input runs the JAX package's bf16 head (``models/layers.py``):
-    convolutions and Dense layers with their bias in bf16, the logits
-    widened to f32."""
+    Takes NCHW. A bf16 input runs the JAX package's bf16 head
+    (``models/layers.py``): convolutions and Dense layers with their bias
+    in bf16, the logits widened to f32.
+
+    In train mode fc6's and fc7's outputs go through flax's dropout at
+    rate 0.5 (``where(keep, x / 0.5, 0)``): ``keep`` is a pair of [N, 512]
+    bool masks, or drawn from ``generator`` (``torch.rand < 0.5`` on the
+    input's device) when it is None. Inference is untouched."""
 
     def __init__(self, num_classes: int):
         super().__init__()
@@ -68,7 +73,12 @@ class CaffeNetHead(nn.Module):
         self.fc7 = nn.Linear(512, 512)
         self.fc8 = nn.Linear(512, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x, keep, generator)
         if x.dtype == BF16:
             x = _lrn(self.pool(F.relu(conv_bias_bf16(self.conv1, x))))
             x = _lrn(self.pool(F.relu(conv_bias_bf16(self.conv2, x))))
@@ -82,6 +92,20 @@ class CaffeNetHead(nn.Module):
         x = F.relu(self.fc6(x.flatten(1)))  # (C, H, W) order
         x = F.relu(self.fc7(x))
         return self.fc8(x).float()
+
+    def _train_forward(self, x, keep, generator) -> torch.Tensor:
+        if keep is None:
+            keep = tuple(torch.rand((x.shape[0], 512), generator=generator,
+                                    device=x.device) < DROP_KEEP
+                         for _ in range(2))
+        x = _lrn(self.pool(F.relu(self.conv1(x))))
+        x = _lrn(self.pool(F.relu(self.conv2(x))))
+        x = self.pool(F.relu(self.conv3(x)))
+        x = F.relu(self.fc6(x.flatten(1)))
+        x = torch.where(keep[0], x / DROP_KEEP, 0.0)
+        x = F.relu(self.fc7(x))
+        x = torch.where(keep[1], x / DROP_KEEP, 0.0)
+        return self.fc8(x)
 
 
 class AgeGenderNet(nn.Module):

@@ -437,14 +437,33 @@ class CaffeGraphNet(nn.Module):
             f"caffe layer type '{lt}' ({L.name}) not supported")
 
     # -- execution -----------------------------------------------------------
-    def forward(self, imgs: torch.Tensor):
-        """imgs: [B, H, W, C] preprocessed (mean-subtracted BGR)."""
+    def forward(self, imgs: torch.Tensor, taps: Sequence[str] = ()):
+        """imgs: [B, H, W, C] preprocessed (mean-subtracted BGR). With
+        ``taps`` (blob names) it returns {blob: tensor} after the whole
+        run (the trainer reads the heads' ``mbox_loc`` and
+        ``mbox_conf_reshape`` logits, before the softmax)."""
         env: Dict[str, object] = {
             "data": imgs.to(self.compute_dtype).permute(0, 3, 1, 2)}
         for s in self.steps:
             x = env[s.inputs[0]] if s.inputs else None
             env[s.output] = self._run(s, x, env)
+        if taps:
+            return {t: env[t] for t in taps}
         return env[self.outputs[0]]
+
+    def train_blobs(self) -> List[torch.nn.Parameter]:
+        """Make every blob but the BatchNorm statistics trainable (Caffe's
+        fine-tuning: the following Scale layers carry the affine) and
+        return them in graph order."""
+        frozen = {param_key(s.name) for s in self.steps
+                  if s.op == "batchnorm"}
+        out = []
+        for key, blobs in self.blobs.items():
+            for b in blobs:
+                b.requires_grad_(key not in frozen)
+                if key not in frozen:
+                    out.append(b)
+        return out
 
     def _run(self, s: _Step, x, env):
         op, a = s.op, s.attrs

@@ -8,10 +8,12 @@ carry the names of the common PyTorch Inception-ResNet-V1 (``conv2d_1a``,
 ``repeat_1``, ``mixed_6a``, ``block8``, ``last_linear``, ``last_bn``...).
 
 The conv block is conv (no bias) + BatchNorm without a scale (flax's
-``use_scale=False``: here a BatchNorm whose weight stays 1) with epsilon
-1e-3, then relu. Flax's ``SAME`` padding at stride 1 is (k - 1) / 2 on each
-side of each axis, so the (1, 7) and (7, 1) kernels pad (0, 3) and (3, 0);
-every stride-2 conv and the max pools are ``VALID``.
+``use_scale=False``: here a BatchNorm whose weight stays 1, with no
+gradient, ``layers.freeze_scale``) with epsilon 1e-3, then relu; in train
+mode the BatchNorms are flax's (momentum 0.99 in flax's sense). Flax's
+``SAME`` padding at stride 1 is (k - 1) / 2 on each side of each axis, so
+the (1, 7) and (7, 1) kernels pad (0, 3) and (3, 0); every stride-2 conv
+and the max pools are ``VALID``.
 
 ``compute_dtype`` bfloat16 runs the JAX package's bf16 net
 (``models/layers.py``): the blocks' up-projections are bf16 convolutions
@@ -26,9 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (BF16, batch_norm_bf16, bf16_scalar,
-                     conv_bias_bf16, conv_sums, l2_normalize, linear_sums,
-                     mean_hw_bf16, set_compute_dtype)
+from .layers import (BF16, BatchNorm1d, BatchNorm2d, batch_norm_bf16,
+                     bf16_scalar, conv_bias_bf16, conv_sums, freeze_scale,
+                     l2_normalize, linear_sums, mean_hw_bf16,
+                     set_compute_dtype)
 
 Kernel = Union[int, Tuple[int, int]]
 
@@ -44,7 +47,7 @@ class BasicConv2d(nn.Module):
         kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         pad = ((kh - 1) // 2, (kw - 1) // 2) if same else (0, 0)
         self.conv = nn.Conv2d(c_in, c_out, (kh, kw), stride, pad, bias=False)
-        self.bn = nn.BatchNorm2d(c_out, eps=1e-3)
+        self.bn = freeze_scale(BatchNorm2d(c_out, eps=1e-3, momentum=0.01))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == BF16:
@@ -171,7 +174,8 @@ class InceptionResNetV1(nn.Module):
         self.repeat_3 = nn.Sequential(*(Block8() for _ in range(5)))
         self.block8 = Block8(scale=1.0, relu=False)
         self.last_linear = nn.Linear(1792, embedding_size, bias=False)
-        self.last_bn = nn.BatchNorm1d(embedding_size, eps=1e-3)
+        self.last_bn = freeze_scale(BatchNorm1d(embedding_size, eps=1e-3,
+                                                momentum=0.01))
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -213,7 +217,7 @@ class InceptionResNetV1(nn.Module):
         self.train()
         self(torch.randn((4, 160, 160, 3), generator=generator))
         for bn in bns:
-            bn.momentum = 0.1
+            bn.momentum = 0.01
         return self.eval()
 
 

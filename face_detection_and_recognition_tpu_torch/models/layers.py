@@ -40,7 +40,7 @@ a net casts its input to its ``compute_dtype`` (``set_compute_dtype``).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -202,34 +202,95 @@ def set_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
     return net
 
 
+def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
+                          x: torch.Tensor, dims: Tuple[int, ...]
+                          ) -> torch.Tensor:
+    """flax ``BatchNorm``'s training forward (``use_fast_variance``) with
+    ``bn``'s parameters over the reduced ``dims`` (the channel axis is
+    1): the batch mean and the biased variance ``max(E[x^2] - E[x]^2, 0)``
+    normalize the batch as ``(x - mean) * (rsqrt(var + eps) * weight) +
+    bias``, and the running statistics move toward them, ``ra * (1 -
+    momentum) + stat * momentum``, the running variance toward the biased
+    variance. In f32, or f64 for an f64 input."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach() * m)
+        bn.num_batches_tracked.add_(1)
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mean.view(shape)) * mul.view(shape)
+            + bn.bias.view(shape)).to(x.dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training forward is flax ``BatchNorm``'s
-    (``use_fast_variance``): the batch mean and the biased variance
-    ``max(E[x^2] - E[x]^2, 0)`` normalize the batch as ``(x - mean) *
-    (rsqrt(var + eps) * weight) + bias``, and the running statistics move
-    toward them, ``ra * (1 - momentum) + stat * momentum``, the running
-    variance toward the biased variance (``nn.BatchNorm2d`` moves it toward
-    the unbiased one, n / (n - 1) larger). The form is written out in
-    elementwise ops: ``F.batch_norm``'s fused training kernel on the card
-    put a step's parameters up to 3e-3 of their scale from the CPU's.
-    Inference, and a ``momentum`` of None (the cumulative average the
-    seeded nets use to set their statistics from one batch), are
-    ``nn.BatchNorm2d``'s own."""
+    (``flax_batch_norm_train``): the running variance moves toward the
+    biased variance (``nn.BatchNorm2d`` moves it toward the unbiased one,
+    n / (n - 1) larger). The form is written out in elementwise ops:
+    ``F.batch_norm``'s fused training kernel on the card put a step's
+    parameters up to 3e-3 of their scale from the CPU's. Inference, and a
+    ``momentum`` of None (the cumulative average the seeded nets use to
+    set their statistics from one batch), are ``nn.BatchNorm2d``'s own.
+    flax's ``momentum`` m is this module's ``1 - m``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
             return super().forward(x)
-        xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
-            self.running_var.mul_(1.0 - m).add_(var.detach() * m)
-            self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
-                + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+        return flax_batch_norm_train(self, x, (0, 2, 3))
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``BatchNorm2d``'s flax training form for [N, C] features (the
+    embedders' last BatchNorm after their Dense)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        return flax_batch_norm_train(self, x, (0,))
+
+
+def freeze_scale(bn: nn.modules.batchnorm._BatchNorm
+                 ) -> nn.modules.batchnorm._BatchNorm:
+    """A BatchNorm without a scale (flax ``use_scale=False``): its weight
+    stays 1, neither trained nor decayed (no gradient)."""
+    bn.weight.requires_grad_(False)
+    return bn
+
+
+class _JaxClip(torch.autograd.Function):
+    """``jnp.clip(x, lo, hi)``, its gradient as JAX's: ``maximum(lo, x)``
+    then ``minimum(hi, .)``, each passing ``g`` times 1 inside, 0.5 at a
+    tie and 0 outside, by multiplication (so a NaN or inf ``g`` outside
+    the bounds stays NaN, where ``torch.clamp`` writes 0)."""
+
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.minimum(torch.maximum(x, x.new_tensor(lo)),
+                             x.new_tensor(hi))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        y = torch.maximum(x, x.new_tensor(lo))
+        w_min = torch.where(y < hi, 1.0, torch.where(y == hi, 0.5, 0.0))
+        w_max = torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0))
+        return g * w_min * w_max, None, None
+
+
+def jax_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip`` with JAX's gradient at and beyond the bounds (a value
+    at a bound takes half the gradient; ``torch.clamp`` passes all of
+    it). Where no gradient is taken it is ``torch.clamp``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _JaxClip.apply(x, lo, hi)
+    return x.clamp(lo, hi)
 
 
 def autopad(k: int, p: Optional[int] = None) -> int:
@@ -249,6 +310,11 @@ def param_key(name: str) -> str:
     refuse or split on) become '%2E' and '%2F', one to one."""
     return (name.replace("%", "%25").replace(".", "%2E")
             .replace("/", "%2F"))
+
+
+def param_unkey(key: str) -> str:
+    """The file name ``param_key`` encoded."""
+    return key.replace("%2E", ".").replace("%2F", "/").replace("%25", "%")
 
 
 _ACTS = {"silu": nn.SiLU, "relu": nn.ReLU, "relu6": nn.ReLU6,
@@ -544,13 +610,14 @@ class FinalBlazeBlock(nn.Module):
 
 class MFConvBlock(nn.Module):
     """Conv (no bias) + BN + per-channel PReLU: the reference's
-    ``Conv_block`` (``conv``, ``bn``, ``prelu``). BN epsilon 1e-5."""
+    ``Conv_block`` (``conv``, ``bn``, ``prelu``). BN epsilon 1e-5; in
+    train mode flax's BatchNorm at its default momentum 0.99."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: int = 0, groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, k, s, p, groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
+        self.bn = BatchNorm2d(c_out, eps=1e-5, momentum=0.01)
         self.prelu = nn.PReLU(c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -562,13 +629,13 @@ class MFConvBlock(nn.Module):
 
 class MFLinearBlock(nn.Module):
     """Conv (no bias) + BN, no activation: the reference's
-    ``Linear_block``."""
+    ``Linear_block``. The BN as ``MFConvBlock``'s."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: int = 0, groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, k, s, p, groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(c_out, eps=1e-5)
+        self.bn = BatchNorm2d(c_out, eps=1e-5, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == BF16:

@@ -6,17 +6,22 @@ submodules carry the reference torch implementation's names (``conv1``,
 ``conv2_dw``, ``conv_23``, ``conv_3.model.{i}``, ..., ``linear``, ``bn``), the
 names the JAX package's ``convert_mobile_facenet`` reads, so a reference
 state dict loads unchanged. Input normalization, (x - 127.5) / 127.5 on BGR
-crops, is ``models.embedders.preprocess_crops``. The ArcFace head is
-training and arrives with the training slice.
+crops, is ``models.embedders.preprocess_crops``. ``arcface_logits`` is the
+ArcFace margin head that ``train/arcface.py`` trains the embedders with. In
+train mode every BatchNorm is flax's (``layers.BatchNorm2d`` /
+``BatchNorm1d``, momentum 0.99 in flax's sense).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .layers import (BF16, MFConvBlock, MFDepthWise, MFLinearBlock,
-                     batch_norm_bf16, l2_normalize, linear_sums,
-                     set_compute_dtype)
+from .layers import (BF16, BatchNorm1d, MFConvBlock, MFDepthWise,
+                     MFLinearBlock, batch_norm_bf16, jax_clip, l2_normalize,
+                     linear_sums, set_compute_dtype)
 
 
 class Residual(nn.Module):
@@ -52,7 +57,7 @@ class MobileFaceNet(nn.Module):
         self.conv_6_sep = MFConvBlock(128, 512, 1)
         self.conv_6_dw = MFLinearBlock(512, 512, 7, groups=512)
         self.linear = nn.Linear(512, embedding_size, bias=False)
-        self.bn = nn.BatchNorm1d(embedding_size, eps=1e-5)
+        self.bn = BatchNorm1d(embedding_size, eps=1e-5, momentum=0.01)
         self.compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -90,8 +95,33 @@ class MobileFaceNet(nn.Module):
         self.train()
         self(torch.rand((8, 112, 112, 3), generator=generator) * 2 - 1)
         for bn in bns:
-            bn.momentum = 0.1
+            bn.momentum = 0.01
         return self.eval()
+
+
+def arcface_logits(embeddings: torch.Tensor, labels: torch.Tensor,
+                   kernel: torch.Tensor, s: float = 64.0, m: float = 0.5
+                   ) -> torch.Tensor:
+    """ArcFace additive-angular-margin logits (the reference's
+    ``mobile_facenet.py:160-201``; JAX ``models/mobile_facenet.py:78-101``).
+
+    embeddings [B, D] L2-normalized, labels [B], kernel [D, C] (each column
+    normalized inside). Returns s * cos(theta) [B, C] with cos(theta + m)
+    at the label positions, and the fallback ``cos - sin(m) * m`` where
+    ``cos <= cos(pi - m)``. The clips are ``jax_clip``, so that the
+    gradient at cos = +-1 is JAX's; the product is in the wider of the two
+    dtypes, as JAX promotes it."""
+    kn = l2_normalize(kernel, axis=0)
+    emb = embeddings.to(torch.promote_types(embeddings.dtype, kn.dtype))
+    cos = jax_clip(emb @ kn, -1.0, 1.0)
+    sin = torch.sqrt(jax_clip(1.0 - cos ** 2, 0.0, 1.0))
+    cos_m, sin_m = math.cos(m), math.sin(m)
+    cos_theta_m = cos * cos_m - sin * sin_m
+    threshold = math.cos(math.pi - m)
+    keep = cos - sin_m * m
+    cos_theta_m = torch.where(cos - threshold <= 0, keep, cos_theta_m)
+    onehot = F.one_hot(labels.long(), kernel.shape[1]).to(cos.dtype)
+    return s * (onehot * cos_theta_m + (1.0 - onehot) * cos)
 
 
 def make_mobile_facenet(generator: torch.Generator, device: torch.device,

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +34,7 @@ from torch import nn
 from ..utils.ir_graph import IRGraph
 from ..utils.model_formats import _IR_DTYPES
 from .caffe_ssd import caffe_priorbox, make_detection_output, pool2d
-from .layers import param_key
+from .layers import jax_clip, param_key
 
 
 def _floats(s: str) -> List[float]:
@@ -354,15 +354,27 @@ class OVGraphNet(nn.Module):
         return self.consts[self.weight_names[name]]
 
     # -- execution -----------------------------------------------------------
-    def forward(self, imgs: torch.Tensor):
-        """imgs: [B, H, W, C], raw BGR values."""
+    def forward(self, imgs: torch.Tensor, taps: Sequence[str] = ()):
+        """imgs: [B, H, W, C], raw BGR values. With ``taps`` (layer names)
+        it returns {layer: output} after the whole run (the trainer reads
+        the heads' ``mbox_loc_flat`` and ``mbox_conf_reshape``, before the
+        softmax)."""
         env: Dict[str, object] = {
             self.input_key or "data":
                 imgs.to(self.compute_dtype).permute(0, 3, 1, 2)}
         for s in self.steps:
             x = env[s.inputs[0]] if s.inputs else None
             env[s.output] = self._run(s, x, env)
+        if taps:
+            by_name = {s.name: s.output for s in self.steps}
+            return {t: env[by_name[t]] for t in taps}
         return env[self.outputs[0]]
+
+    def train_consts(self) -> List[torch.nn.Parameter]:
+        """Make every registered constant trainable and return them."""
+        for c in self.consts.values():
+            c.requires_grad_(True)
+        return list(self.consts.values())
 
     def _operand(self, s: _Step, env) -> torch.Tensor:
         return (self.consts[param_key(s.inputs[1])] if s.attrs["const2"]
@@ -395,8 +407,8 @@ class OVGraphNet(nn.Module):
             return torch.where(x >= 0, x, x * alpha)
         if op == "unary":
             return _UNARY[a["kind"]](x)
-        if op == "clamp":
-            return x.clamp(a["min"], a["max"])
+        if op == "clamp":  # with jnp.clip's gradient, for training
+            return jax_clip(x, a["min"], a["max"])
         if op == "softmax":
             return torch.softmax(x, a["axis"])
         if op == "pool":

@@ -14,7 +14,8 @@ reference runs two OpenVINO face detectors through ``OVModel``
 Both are IR graph tables here (``face_detection_0204_defs``,
 ``face_detection_retail_0004_defs``): they build ``utils.ir_graph.IRGraph``
 objects that the IR interpreter (``models/ov_graph.OVGraphNet``) executes,
-and ``write_ir_graph`` turns into a real ``model.xml`` + ``model.bin``.
+and ``write_ir_graph`` turns into a real ``model.xml`` + ``model.bin``
+(``export_trained_ir`` with trained constants).
 The vendors' weights and exact prior clusters are not public: the weights
 are He-init constants drawn from a seed (numpy, as in the JAX package, so
 the same seed gives the same constants there), and the clusters are a
@@ -289,6 +290,47 @@ def build_ov_topology(name: str, seed: int = 0) -> IRGraph:
     """IRGraph for one of the reference's OpenVINO detector topologies."""
     layers, edges = _TOPOLOGIES[name](seed)
     return IRGraph(layers=layers, edges=edges)
+
+
+def export_trained_ir(name: str, weights: Dict[str, object],
+                      xml_path: str) -> None:
+    """Write trained interpreter weights into a real ``model.xml`` +
+    ``model.bin`` pair of topology ``name`` (the artifact class ``OVModel``
+    loads, ``modules/openvino/model.py:21``), so that
+    ``FaceEngine.load_weights('*.xml')`` runs the file's own graph with
+    the trained constants. ``weights``: an ``OVGraphNet`` state dict
+    (``consts.<param_key(name)>``, e.g. the ``.pt`` the golden loop
+    saves); every float constant of the topology must be given, at its
+    shape."""
+    import os
+
+    from ..utils.ir_graph import write_ir_graph
+    from .layers import param_unkey
+
+    arrays = {param_unkey(k[len("consts."):]):
+              np.asarray(v.detach().cpu().float(), np.float32)
+              for k, v in weights.items()}
+    layers, edges = _TOPOLOGIES[name]()
+    poured = trainable = 0
+    for L in layers:
+        if L.type != "Const" or L.value is None or not np.issubdtype(
+                L.value.dtype, np.floating):
+            continue
+        trainable += 1
+        if L.name in arrays:
+            arr = arrays[L.name]
+            if tuple(arr.shape) != tuple(L.value.shape):
+                raise ValueError(f"{L.name}: trained shape {arr.shape} != "
+                                 f"topology shape {L.value.shape}")
+            L.value = arr
+            poured += 1
+    if poured != trainable:
+        raise ValueError(f"poured {poured}/{trainable} trainable consts")
+    xml, blob = write_ir_graph(layers, edges)
+    with open(xml_path, "wb") as f:
+        f.write(xml)
+    with open(os.path.splitext(xml_path)[0] + ".bin", "wb") as f:
+        f.write(blob)
 
 
 def count_params(name: str) -> int:

@@ -8,9 +8,9 @@ stable rank (``detection.mined_conf_loss``), and box targets are the net's
 raw regression units: ``(gt - anchor_center) * scale`` for xy and ``gt_wh *
 scale`` for wh (the inverse of ``ops.boxes.decode_boxes``). The net has no
 BatchNorm; its four heads start at zero (the norm-free backbone's
-activations run into the hundreds at init). The optimizer is
-``torch.optim.AdamW`` (optax's adamw: decay on the conv weights only) after
-clipping the gradients to a global norm of 10.
+activations run into the hundreds at init). The optimizer is optax's adamw
+(``train.optim.OptaxAdam``; decay on the conv weights only) after clipping
+the gradients to a global norm of 10.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from ..ops.platform import resolve_device
 from .detection import (decay_groups, flax_init_, images_to_float,
                         lr_schedule, mined_conf_loss, new_state,
                         optimizer_step, weighted_bce_logits, with_ema)
+from .optim import OptaxAdam
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +115,7 @@ def create_blaze_train_state(cfg: BlazeTrainConfig,
                      net.regressor_16):
             head.weight.zero_()
     net = net.to(device=device, memory_format=torch.channels_last).train()
-    opt = torch.optim.AdamW(decay_groups(net, cfg.weight_decay), lr=cfg.lr,
-                            betas=(0.9, 0.999), eps=1e-8)
+    opt = OptaxAdam(decay_groups(net, cfg.weight_decay), lr=cfg.lr)
     return new_state(net, cfg, opt, device,
                      anchors=torch.from_numpy(generate_anchors()).to(device))
 

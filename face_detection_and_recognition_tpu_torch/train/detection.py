@@ -329,12 +329,14 @@ def mined_conf_loss(ce: torch.Tensor, pos: torch.Tensor,
 def decay_groups(net: nn.Module, weight_decay: float) -> List[Dict]:
     """Two parameter groups, as optax's ``decay_mask`` splits a flax tree:
     the weights of convolutions and linear layers (flax ``kernel`` leaves)
-    decay by ``weight_decay``; BatchNorm scales and shifts and every bias
-    do not."""
+    decay by ``weight_decay``; BatchNorm scales and shifts, every bias and
+    PReLU's slopes (flax's ``alpha``) do not. Parameters without a gradient
+    (a BatchNorm without a scale) are in neither."""
     decay_ids = {id(m.weight) for m in net.modules()
                  if isinstance(m, (nn.Conv2d, nn.Linear))}
-    decay = [p for p in net.parameters() if id(p) in decay_ids]
-    rest = [p for p in net.parameters() if id(p) not in decay_ids]
+    params = [p for p in net.parameters() if p.requires_grad]
+    decay = [p for p in params if id(p) in decay_ids]
+    rest = [p for p in params if id(p) not in decay_ids]
     return [{"params": decay, "weight_decay": weight_decay},
             {"params": rest, "weight_decay": 0.0}]
 
@@ -354,7 +356,7 @@ def flax_init_(net: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
     return net
 

@@ -40,9 +40,6 @@ GOLDEN_BOXES_3 = np.array(
 GOLDEN_IMG = str(CARD_WEIGHTS / POS_IMAGE)
 NEGATIVE_IMG = str(CARD_WEIGHTS / NEG_IMAGE)
 
-# families whose trainers are not ported yet
-_NOT_PORTED = ("res10-ssd", "ov-")
-
 
 # --------------------------------------------------------------------------
 # synthetic composite datasets
@@ -519,6 +516,27 @@ def _family_state(arch: str, input_size: int, max_targets: int, lr: float,
     gen = torch.Generator().manual_seed(seed)
     sched = dict(lr=lr, warmup_steps=warmup, total_steps=max_steps,
                  ema_decay=0.999, ema_tau=500.0, max_targets=max_targets)
+    if arch == "res10-ssd":
+        # the public deploy graph, trained through the Caffe interpreter
+        from .caffe_golden import (CaffeGoldenConfig,
+                                   create_res10_train_state,
+                                   make_res10_train_step_ema)
+
+        if input_size != 300:
+            raise ValueError("res10-ssd runs the fixed 300x300 deploy "
+                             "graph: pass --size 300")
+        cfg = CaffeGoldenConfig(**sched)
+        return cfg, create_res10_train_state(cfg, gen, device), \
+            make_res10_train_step_ema
+    if arch.startswith("ov-"):
+        # the OpenVINO topologies, trained through the IR interpreter
+        from .ov_golden import (OVGoldenConfig, create_ov_train_state,
+                                make_ov_train_step_ema)
+
+        cfg = OVGoldenConfig(topology=arch,
+                             input_size=(input_size, input_size), **sched)
+        return cfg, create_ov_train_state(cfg, gen, device), \
+            make_ov_train_step_ema
     if arch.startswith("ssd"):
         from .ssd import (SSDTrainConfig, create_ssd_train_state,
                           make_ssd_train_step_ema)
@@ -580,10 +598,12 @@ def train_golden(ckpt_out: str, work_dir: str, arch: str = "yolov5n",
     -> regate.
 
     Families: the yolov5-face archs, their ``-official`` heads, blazeface
-    front and back, the ssd-* nets; res10-ssd and ov-* raise naming
-    ROADMAP A12b. ``resume_from`` (a ``.pt``) pours its weights into the
-    live net and the EMA copy (the optimizer restarts cold). Returns the gate's result plus ``steps``, ``weights``
-    (the passing candidate, "ema" or "live"), ``reload_ok``,
+    front and back, the ssd-* nets, res10-ssd (the deploy graph through the
+    Caffe interpreter, ``train/caffe_golden.py``) and the ov-* topologies
+    (through the IR interpreter, ``train/ov_golden.py``). ``resume_from``
+    (a ``.pt``) pours its weights into the live net and the EMA copy (the
+    optimizer restarts cold). Returns the gate's result plus ``steps``,
+    ``weights`` (the passing candidate, "ema" or "live"), ``reload_ok``,
     ``reload_ious``, ``chunk_losses``, the final ``n_updates`` and
     ``candidate``, the checkpointed state dict."""
     from ..core.engine import read_state_dict
@@ -591,12 +611,8 @@ def train_golden(ckpt_out: str, work_dir: str, arch: str = "yolov5n",
     from .detection import load_train_weights
     from .device_loop import build_example_buffer, run_device_training
 
-    if arch.startswith(_NOT_PORTED):
-        raise NotImplementedError(
-            f"train_golden({arch!r}): the res10-ssd and OpenVINO trainers "
-            "(train/caffe_golden.py, train/ov_golden.py) are not ported "
-            "yet: ROADMAP A12b")
-    is_ssd = arch.startswith("ssd")
+    # the SSD conventions: BGR input, no RGB swap
+    is_ssd = arch.startswith(("ssd", "ov-")) or arch == "res10-ssd"
     max_targets = 48 if crowded else 8
     ann, images_root = make_composite_dataset(
         os.path.join(work_dir, "golden_ds"), n_images=n_images,

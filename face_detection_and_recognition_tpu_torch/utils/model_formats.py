@@ -7,8 +7,9 @@ protobuf wire decoder (varints and length-delimited fields, unknown fields
 skipped) and its encoder primitives, ``read_caffemodel`` (V2 ``layer`` and
 legacy V1 ``layers``), ``read_tf_graphdef`` (every Const tensor, with
 half-precision and negative-integer encodings), ``read_openvino_ir`` (the
-IR's constants, in layer order) and its fixture writer
-``write_openvino_ir``. The arrays come out in the files' own layouts;
+IR's constants, in layer order) and the writers ``write_caffemodel``,
+``write_graphdef`` and ``write_openvino_ir``, byte for byte the JAX
+package's. The arrays come out in the files' own layouts;
 ``utils/weights.py`` maps them onto the port's modules.
 """
 from __future__ import annotations
@@ -199,6 +200,31 @@ def read_caffemodel(src: Union[str, bytes]) -> List[CaffeLayer]:
     return layers
 
 
+def write_caffemodel(layers: Sequence[CaffeLayer], v1: bool = False) -> bytes:
+    """Encode layers (name, type, blobs) as NetParameter bytes, the V2
+    ``layer`` messages or, with ``v1``, the V1 ``layers`` ones (the type
+    then an enum; unknown types 0): the JAX package's writer, byte for
+    byte. Each blob is f32 with a ``BlobShape``."""
+    out = bytearray(_len_field(1, b"net"))
+    name_f, type_f, blob_f = (4, 5, 6) if v1 else (1, 2, 7)
+    inv_v1 = {v: k for k, v in _V1_TYPES.items()}
+    for layer in layers:
+        body = bytearray(_len_field(name_f, layer.name.encode()))
+        if v1:
+            body += _varint_field(type_f, inv_v1.get(layer.type, 0))
+        else:
+            body += _len_field(type_f, layer.type.encode())
+        for blob in layer.blobs:
+            arr = np.ascontiguousarray(blob, dtype="<f4")
+            shape_payload = _len_field(
+                1, b"".join(_write_varint(int(d)) for d in arr.shape))
+            blob_body = (_len_field(7, shape_payload)
+                         + _len_field(5, arr.tobytes()))
+            body += _len_field(blob_f, bytes(blob_body))
+        out += _len_field(100 if not v1 else 2, bytes(body))
+    return bytes(out)
+
+
 # ---------------------------------------------------------------------------
 # TensorFlow GraphDef (frozen .pb)
 # ---------------------------------------------------------------------------
@@ -307,6 +333,28 @@ def _read_graphdef_consts(buf, consts):
         if op == "Const" and tensor is not None:
             consts.append(GraphConst(name=name, value=tensor))
     return consts
+
+
+def write_graphdef(consts: Sequence[GraphConst]) -> bytes:
+    """Encode named arrays as the Const nodes of a frozen GraphDef (each
+    value in ``tensor_content``, little-endian, with its dtype code and
+    shape): the JAX package's writer, byte for byte."""
+    out = bytearray()
+    codes = {v: k for k, v in _TF_DTYPES.items()}
+    for c in consts:
+        arr = np.ascontiguousarray(c.value)
+        shape_payload = b"".join(
+            _len_field(2, _varint_field(1, int(d))) for d in arr.shape)
+        tensor = (_varint_field(1, codes[arr.dtype.type])
+                  + _len_field(2, shape_payload)
+                  + _len_field(4, arr.astype(
+                      arr.dtype.newbyteorder("<")).tobytes()))
+        attr_entry = _len_field(1, b"value") + _len_field(
+            2, _len_field(8, tensor))
+        node = (_len_field(1, c.name.encode()) + _len_field(2, b"Const")
+                + _len_field(5, attr_entry))
+        out += _len_field(1, node)
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,12 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "utils.profiling", "train", "train.detection", "train.data",
                 "train.device_loop", "train.golden", "train.blazeface",
                 "train.ssd", "cli.train_golden", "cli.train_detector",
-                "cli.quantize_golden"):
+                "cli.quantize_golden", "train.arcface", "train.optim",
+                "train.golden_embed", "train.golden_ag",
+                "train.golden_mtcnn", "train.caffe_golden",
+                "train.ov_golden", "cli.train_arcface",
+                "cli.train_golden_embed", "cli.train_golden_ag",
+                "cli.train_golden_mtcnn"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 

@@ -1,15 +1,24 @@
 """The port's training CLIs (``cli/train_golden.py``,
-``cli/train_detector.py``, ``cli/quantize_golden.py``) against the JAX
+``cli/train_detector.py``, ``cli/quantize_golden.py``,
+``cli/train_arcface.py``, ``cli/train_golden_embed.py``,
+``cli/train_golden_ag.py``, ``cli/train_golden_mtcnn.py``) against the JAX
 package's, on the CPU.
 
 Each CLI takes the JAX CLI's flags (the same option strings, destinations
 and defaults; ``quantize_golden``'s checkpoint paths default to ``.pt``
-files) and ``-d/--device``; ``--export-caffemodel`` / ``--export-ir`` raise
-naming ROADMAP A12b. ``train_detector -d cpu`` trains on a tiny WIDER tree
-and writes a ``.pt`` an engine loads. ``quantize_checkpoint`` on the golden
-yolov5n (``card_weights/yolov5n.pt``) with two calibration composites gives
-JAX ``quantize_checkpoint``'s int8 codes, weight scales and biases exactly,
-and its activation scales within 1e-5 relative (each is an absmax of an
+files) and ``-d/--device``; ``--export-caffemodel`` / ``--export-ir`` are
+refused for another arch, and for res10-ssd / ov-0204 write a
+``.caffemodel`` / ``.xml`` that ``FaceEngine.load_weights`` reads into the
+checkpoint's detections, bit for bit (the golden loop stubbed by one that
+writes a seeded checkpoint and passes). ``train_detector -d cpu`` trains on
+a tiny WIDER tree and writes a ``.pt`` an engine loads; ``train_arcface -d
+cpu`` trains on a tiny identity tree and writes a ``.pt`` whose
+``state_dict`` an engine's embed slot loads; ``train_golden_embed -d cpu``
+runs two steps end to end; ``train_arcface --mesh`` raises naming ROADMAP
+A12c. ``quantize_checkpoint`` on the golden yolov5n
+(``card_weights/yolov5n.pt``) with two calibration composites gives JAX
+``quantize_checkpoint``'s int8 codes, weight scales and biases exactly, and
+its activation scales within 1e-5 relative (each is an absmax of an
 activation the two frameworks compute with sums in another order).
 """
 import argparse
@@ -20,8 +29,15 @@ import pytest
 import torch
 
 from face_detection_and_recognition_tpu_torch.cli import quantize_golden as Q
+from face_detection_and_recognition_tpu_torch.cli import train_arcface as TA
 from face_detection_and_recognition_tpu_torch.cli import train_detector as TD
 from face_detection_and_recognition_tpu_torch.cli import train_golden as TG
+from face_detection_and_recognition_tpu_torch.cli import \
+    train_golden_ag as TGA
+from face_detection_and_recognition_tpu_torch.cli import \
+    train_golden_embed as TGE
+from face_detection_and_recognition_tpu_torch.cli import \
+    train_golden_mtcnn as TGM
 from face_detection_and_recognition_tpu_torch.core.engine import (
     EngineConfig, FaceEngine)
 from face_detection_and_recognition_tpu_torch.eval.card_weights import \
@@ -62,15 +78,18 @@ def _options(parser):
             if a.dest != "help"}
 
 
-@pytest.mark.parametrize("name", ["train_golden", "train_detector",
-                                  "quantize_golden"])
+_CLIS = {"train_golden": TG, "train_detector": TD, "quantize_golden": Q,
+         "train_arcface": TA, "train_golden_embed": TGE,
+         "train_golden_ag": TGA, "train_golden_mtcnn": TGM}
+
+
+@pytest.mark.parametrize("name", sorted(_CLIS))
 def test_flags_are_the_jax_clis(name, monkeypatch):
     import importlib
 
     jax_cli = importlib.import_module(
         f"face_detection_and_recognition_tpu.cli.{name}")
-    ours = _options({"train_golden": TG, "train_detector": TD,
-                     "quantize_golden": Q}[name].build_parser())
+    ours = _options(_CLIS[name].build_parser())
     theirs = _options(_jax_parser(jax_cli, [], monkeypatch))
     assert ours.pop("device")[0] == ("-d", "--device")
     assert set(ours) == set(theirs)
@@ -83,10 +102,45 @@ def test_flags_are_the_jax_clis(name, monkeypatch):
 
 
 def test_export_flags_raise_naming_the_roadmap(tmp_path):
-    for flag in ("--export-caffemodel", "--export-ir"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
-            TG.main(["--out", str(tmp_path / "x.pt"), flag,
+    """The export flags, which waited for the graph trainers, now refuse
+    only an arch they do not apply to."""
+    for flag, arch in (("--export-caffemodel", "yolov5n"),
+                       ("--export-ir", "res10-ssd")):
+        with pytest.raises(SystemExit):
+            TG.main(["--out", str(tmp_path / "x.pt"), "--arch", arch, flag,
                      str(tmp_path / "y"), "-d", "cpu"])
+
+
+@pytest.mark.parametrize("arch,size,flag,ext", [
+    ("res10-ssd", 300, "--export-caffemodel", ".caffemodel"),
+    ("ov-0204", 448, "--export-ir", ".xml")])
+def test_export_flags_write_files_an_engine_loads(arch, size, flag, ext,
+                                                  tmp_path, monkeypatch):
+    from face_detection_and_recognition_tpu_torch.train import golden as G
+
+    def passing_loop(ckpt_out, work_dir, arch, input_size, **kw):
+        eng = G.golden_engine(arch, input_size, device="cpu")
+        with torch.no_grad():
+            for v in eng.net.parameters():
+                v.mul_(1.01)
+        eng.save_weights(ckpt_out)
+        return {"ok": True, "reload_ok": True, "ious": [0.9] * 3,
+                "steps": 1}
+
+    monkeypatch.setattr(G, "train_golden", passing_loop)
+    monkeypatch.setattr(G, "evaluate_holdout_ap",
+                        lambda *a, **k: {"AP50": 0.0, "AP": 0.0, "AR": 0.0})
+    out, exported = str(tmp_path / "ck.pt"), str(tmp_path / f"model{ext}")
+    assert TG.main(["--out", out, "--arch", arch, "--size", str(size),
+                    flag, exported, "-d", "cpu"]) == 0
+    mem = FaceEngine(EngineConfig(detector=arch, det_thres=0.1),
+                     device="cpu")
+    mem.load_weights(out)
+    eng = FaceEngine(EngineConfig(detector=arch, det_thres=0.1),
+                     device="cpu")
+    eng.load_weights(exported)
+    img = G.imread(G.GOLDEN_IMG)
+    np.testing.assert_array_equal(eng.detect_raw(img), mem.detect_raw(img))
 
 
 def test_train_detector_on_a_tiny_wider_tree(tmp_path):
@@ -148,3 +202,37 @@ def test_quantize_checkpoint_equals_jax(tmp_path):
         "input_size": (640, 640)}), device="cpu")
     eng.load_weights(out)
     assert eng.net.quantized == "static"
+
+
+def test_train_arcface_on_a_tiny_identity_tree(tmp_path):
+    rng = np.random.RandomState(1)
+    for c in range(2):
+        d = tmp_path / "ids" / f"person{c}"
+        d.mkdir(parents=True)
+        for i in range(3):
+            write_image_bgr(str(d / f"{i}.jpg"), rng.randint(
+                0, 255, (60 + 7 * i, 50, 3)).astype(np.uint8))
+    out = str(tmp_path / "arc.pt")
+    assert TA.main(["-i", str(tmp_path / "ids"), "--batch", "2", "--steps",
+                    "2", "--embedding-size", "512", "--out", out,
+                    "--log-every", "1", "-d", "cpu"]) == 0
+    ck = torch.load(out)
+    assert ck["arcface_kernel"].shape == (512, 2)
+    eng = FaceEngine(EngineConfig(detector="blazeface-front",
+                                  embedder="mobile_facenet"), device="cpu")
+    eng.load_embed_state_dict(ck["state_dict"])
+    emb = eng.embed_crops(rng.randint(0, 255, (2, 112, 112, 3))
+                          .astype(np.uint8))
+    assert emb.shape == (2, 512) and np.isfinite(emb).all()
+    with pytest.raises(NotImplementedError, match="A12c"):
+        TA.main(["-i", str(tmp_path / "ids"), "--mesh", "-d", "cpu"])
+
+
+def test_train_golden_embed_runs_end_to_end(tmp_path, capsys):
+    out = str(tmp_path / "embed.pt")
+    rc = TGE.main(["--out", out, "--batch", "6", "--steps", "2",
+                   "--eval-every", "2", "--train-per-id", "4", "-d", "cpu"])
+    assert rc in (0, 1)
+    assert "golden-embed gate:" in capsys.readouterr().out
+    assert os.path.exists(out)
+    assert os.path.exists(os.path.join(str(tmp_path), "golden_meta.json"))

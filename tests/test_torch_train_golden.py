@@ -18,7 +18,8 @@ CPU.
 - a tiny ``train_golden`` run on the CPU (two chunks): finite chunk
   losses, the counter, the written ``.pt`` reloaded into a fresh engine
   giving the in-memory candidate's raw detections bit for bit; res10-ssd and
-  ``ov-*`` raise naming ROADMAP A12b;
+  ``ov-*`` (their trainers are ``test_torch_train_caffe_ov.py``'s) refuse
+  an input size their graphs do not take;
 - one BlazeFace-front and one ssd-resnet10 step against the JAX step from
   the same weights and batch: the loss within 1e-4 relative, and each
   tensor's change from the init within 1e-3 of JAX's change's largest value
@@ -232,10 +233,11 @@ def test_tiny_train_golden_reloads_its_checkpoint(tmp_path):
     disk.load_weights(ckpt)
     img = CW.golden_images()[0]
     np.testing.assert_array_equal(disk.detect_raw(img), mem.detect_raw(img))
+    # the graph trainers train their fixed input sizes only
     for arch in ("res10-ssd", "ov-0204", "ov-squeezenet-light"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
+        with pytest.raises(ValueError, match="pass --size"):
             G.train_golden(ckpt, str(tmp_path / "w2"), arch=arch,
-                           device="cpu")
+                           input_size=64, n_images=2, device="cpu")
 
 
 def _batch(rng, size, b=2):
