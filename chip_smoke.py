@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
 res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights,
-bf16-families, training and recognition-training paths on one CUDA card,
-and trace its detect path.
+bf16-families, training, recognition-training and multi-device paths on
+one CUDA card, and trace its detect path.
 
     python3 chip_smoke.py
 
@@ -262,7 +262,31 @@ seconds:
    ``FaceEngine.load_weights`` giving the in-memory net's detections bit
    for bit. The gates' verdicts are printed, not asserted; each trainer is
    a part of the path;
-19. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+19. multi-device: single-process meshes over the card (``parallel/``;
+   the entries repeat the card, or are dealt over the cards of a larger
+   host): yolov5s ``detect_batch_sharded`` and the yolov5s +
+   mobile_facenet + age/gender ensemble (``mesh=``, thresholds 0) on the 8
+   frames over 2 "data" entries, BlazeFace-front ``detect_batch_sharded``,
+   ``topk_similar(mesh=, use_pallas=True)`` of 512 queries against a
+   seeded 524,288 x 512 gallery over 2 "model" entries (B4 a shard, then
+   the merge), and the dynamic int8 yolov5n ``detect_batch_sharded`` (the
+   whole batch's absmax a layer, Q1 with that scale); each a part of the
+   path, held bit for bit to the unsharded call on each piece of the batch
+   (int8: each piece quantized with the whole batch's scales), held to
+   the unsharded call on the whole batch within ``MD_WHOLE_TOL`` (cuDNN
+   picks a convolution's algorithm by its batch size: the valid masks
+   equal, boxes and landmarks within 1 px, the crops of equal boxes equal;
+   the search must equal the whole search bit for bit), and timed (ms between events, sharded and
+   unsharded; the search also on tensors already on the card against B4
+   alone). B1 and B2 must
+   launch on the detect, ensemble and int8 parts, B3 on the ensemble, B5
+   fused on BlazeFace, B4 on the search and Q1 on int8. Then the
+   MobileFaceNet B = 48 ArcFace step DP + TP on a 2 x 2 mesh (4 classes,
+   the kernel split by classes) against the unsharded step on the card,
+   within phase 18's tolerances, both timed; and ``parallel.mp_demo`` as
+   one rank over NCCL (world size 1) in both modes, each result equal to
+   the same job on a one-entry mesh in this process;
+20. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -4872,6 +4896,365 @@ def run_recognition_training(frames, card):
     return win.total(), stats
 
 
+# the multi-device phase: single-process meshes over the card (its entries
+# repeat it on a one-card host, and are dealt over the cards on a larger
+# one), and mp_demo as one NCCL rank
+MD_DEVICE = "cuda"           # where the unsharded calls run
+MD_SHARDS = 2                # entries on "data" (and on "model")
+MD_ITERS = 5                 # calls each path is timed over
+MD_CLASSES = 4               # the DP + TP step's classes (3 identities),
+#                              split over 2 "model" entries
+MD_DIR = WORK_DIR / "multi_device"
+# mp_demo's rank against the same job in this process: cuDNN's backward
+# convolutions may sum in another order from one process to the next, so
+# the trained loss and kernel sum are held within 1e-4 relative; the
+# ensemble's summaries are inference and must be equal
+MD_MP_RTOL = 1e-4
+# the sharded call against the unsharded call on the whole batch: cuDNN
+# picks a convolution's algorithm by its batch size, so the sums of a piece
+# need not be those of the whole batch, and a box may move by a pixel. The
+# valid masks must be equal; on the rows valid in both, each field's
+# largest absolute difference is bounded here (boxes and landmarks in
+# pixels); on the rows whose boxes are equal bit for bit, the crops must be
+# equal and the embeddings and age / gender probabilities are bounded.
+# Read on an H100 at B = 8 against B = 4 pieces: boxes and landmarks 1 px,
+# scores 0, areas 1.7e-4, crops 0, embeddings 1.0e-7, age 4.2e-5, gender
+# 1.6e-10; each bound is the pixel, or about ten times the reading.
+MD_WHOLE_TOL = {"boxes": 1.0, "lmarks": 1.0, "scores": 1e-5, "areas": 1e-3,
+                "crops": 0.0, "embeddings": 1e-5, "age_probs": 5e-4,
+                "gender_probs": 1e-6}
+
+
+def md_mesh(axes, shape):
+    """A single-process mesh of ``shape`` whose entries are dealt over the
+    cards in turn (on one card, that card repeated)."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh(axes, shape, [torch.device("cuda", i % n)
+                                   for i in range(int(np.prod(shape)))])
+
+
+def md_leaves(tree):
+    from face_detection_and_recognition_tpu_torch.parallel.collectives \
+        import tree_map
+
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def md_cat(trees):
+    """Results of the pieces of a batch joined along dim 0, field by
+    field."""
+    from face_detection_and_recognition_tpu_torch.parallel.collectives \
+        import tree_map
+
+    joined = iter([torch.cat(parts) for parts in
+                   zip(*[md_leaves(t) for t in trees])])
+    return tree_map(lambda _: next(joined), trees[0])
+
+
+class ScaleTape:
+    """A ``models.layers.global_batch`` reduction in one process: records
+    each quantized layer's absmax on a whole batch, or hands the recorded
+    ones, in order, to a run on a piece of it (the piece quantized with
+    the whole batch's scales, as each shard of the sharded call is)."""
+
+    def __init__(self, replay=None):
+        self.maxes = list(replay or [])
+        self.replay = replay is not None
+
+    def __call__(self, t, op):
+        if self.replay:
+            return self.maxes.pop(0)
+        self.maxes.append(t)
+        return t
+
+
+def md_gap(a, b):
+    """The largest absolute difference of two tensors (0 when empty)."""
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def md_hold(label, got, pieces, whole):
+    """The sharded result against the unsharded call on each piece of the
+    batch (``pieces``, joined): every tensor bit for bit, or the run
+    fails. Against the unsharded call on the whole batch (``whole``):
+    within ``MD_WHOLE_TOL``, or the run fails. Returns (tensors, tensors
+    not bit for bit against the whole batch's, the readings against it)."""
+    a, p, w = md_leaves(got), md_leaves(pieces), md_leaves(whole)
+    if not a or len(a) != len(p) or len(a) != len(w):
+        raise AssertionError(f"{label}: {len(a)} tensors against "
+                             f"{len(p)} / {len(w)}")
+    for i, (x, y) in enumerate(zip(a, p)):
+        if not same_bits(x, y):
+            gap = md_gap(x, y) if x.shape == y.shape else float("nan")
+            raise AssertionError(f"{label}: tensor {i} of {len(a)} "
+                                 f"{tuple(x.shape)} differs from the "
+                                 f"unsharded call on its piece (largest "
+                                 f"difference {gap:.3e})")
+    n_off = sum(not same_bits(x, y) for x, y in zip(a, w))
+    det_got = got.det if hasattr(got, "det") else got
+    det_whole = whole.det if hasattr(whole, "det") else whole
+    valid = det_got.valid & det_whole.valid
+    read = {"valid_rows": int(valid.sum()),
+            "valid_rows_differ": int((det_got.valid
+                                      != det_whole.valid).sum())}
+    for f in ("boxes", "lmarks", "scores", "areas"):
+        read[f] = md_gap(getattr(det_got, f)[valid],
+                         getattr(det_whole, f)[valid])
+    if hasattr(got, "det"):
+        same = valid & (det_got.boxes == det_whole.boxes).all(-1)
+        read["rows_same_box"] = int(same.sum())
+        for f in ("crops", "embeddings", "age_probs", "gender_probs"):
+            x, y = getattr(got, f), getattr(whole, f)
+            if x is not None:
+                read[f] = md_gap(x[same], y[same])
+    over = {k: v for k, v in read.items()
+            if k in MD_WHOLE_TOL and v > MD_WHOLE_TOL[k]}
+    if read["valid_rows_differ"] or over:
+        raise AssertionError(f"{label}: against the unsharded call on the "
+                             f"whole batch {read}, past {MD_WHOLE_TOL}")
+    return len(a), n_off, read
+
+
+def md_arcface(win, stats, card):
+    """The MobileFaceNet B = 48 ArcFace step, DP + TP on a 2 x 2 mesh of
+    the card, against the unsharded step on the card from the same init
+    and batch, within the recognition-training phase's tolerances (card
+    against CPU): the loss, the parameters and BN statistics of the first
+    replica, the class kernel and the momentum buffers, the kernel's
+    joined from its shards."""
+    from face_detection_and_recognition_tpu_torch.train import arcface as A
+
+    x, y = arcface_batch()
+    x, y = x.to(MD_DEVICE), y.to(MD_DEVICE)
+    cfg = A.ArcFaceTrainConfig(num_classes=MD_CLASSES, embedding_size=512,
+                               s=ARC_S, lr=0.01, center_gain=ARC_CENTER)
+    plain, shard = (A.create_train_state(
+        cfg, torch.Generator().manual_seed(SEED), device=MD_DEVICE)
+        for _ in range(2))
+    mesh = md_mesh(("data", "model"), (MD_SHARDS, MD_SHARDS))
+    step, replicas = A.sharded_train_step(shard, mesh)
+    loss = float(win.run("arcface_step", lambda: step(x, y)))
+    want = float(A.make_train_step(plain)(x, y))
+    whole = A.gather_train_state(replicas, mesh)
+    got_p, got_s = split_state(shard["net"])
+    ref_p, ref_s = split_state(plain["net"])
+    got_p["arcface_kernel"] = whole["arcface_kernel"].cpu()
+    ref_p["arcface_kernel"] = plain["arcface_kernel"].detach().cpu()
+    named = dict(plain["net"].named_parameters())
+    shard_named = dict(shard["net"].named_parameters())
+    first = replicas[mesh.local_coords()[0]]
+    ref_m = {k: plain["opt"].state[p]["momentum_buffer"].cpu()
+             for k, p in named.items() if p in plain["opt"].state}
+    got_m = {k: first["opt"].state[shard_named[k]]["momentum_buffer"].cpu()
+             for k in ref_m}
+    ref_m["arcface_kernel"] = plain["opt"].state[plain[A.KERNEL]][
+        "momentum_buffer"].cpu()
+    got_m["arcface_kernel"] = whole["kernel_momentum"].cpu()
+    out = {"loss": loss, "loss_rel": abs(loss - want) / abs(want),
+           "params": tensor_gap(got_p, ref_p),
+           "bn_stats": tensor_gap(got_s, ref_s),
+           "momentum": tensor_gap(got_m, ref_m),
+           "kernel_shard": list(first[A.KERNEL].shape)}
+    say(f"  arcface DP + TP (mesh {mesh.shape}, B = {x.shape[0]}, "
+        f"{MD_CLASSES} classes, the kernel shard {out['kernel_shard']}) "
+        f"against the unsharded step on the card: loss {loss:.6f}, "
+        f"relative difference {out['loss_rel']:.3e} (tolerance "
+        f"{ARC_LOSS_RTOL}); parameters {out['params'][0]:.3e} "
+        f"({out['params'][1]}), BN statistics {out['bn_stats'][0]:.3e} "
+        f"({out['bn_stats'][1]}) (tolerance {ARC_TENSOR_RTOL}); momentum "
+        f"{out['momentum'][0]:.3e} ({out['momentum'][1]}) (tolerance "
+        f"{ARC_MOMENTUM_RTOL})")
+    if out["loss_rel"] > ARC_LOSS_RTOL or max(
+            out["params"][0], out["bn_stats"][0]) > ARC_TENSOR_RTOL \
+            or out["momentum"][0] > ARC_MOMENTUM_RTOL:
+        raise AssertionError(f"DP + TP ArcFace step: {out}")
+    out["ms"] = cuda_ms(lambda: step(x, y), MD_ITERS)
+    plain_step = A.make_train_step(plain)
+    out["plain_ms"] = cuda_ms(lambda: plain_step(x, y), MD_ITERS)
+    say(f"  arcface step: {out['ms']:.2f} ms sharded against "
+        f"{out['plain_ms']:.2f} ms unsharded, between events on {card}")
+    stats["arcface_step"] = out
+
+
+def md_mp_demo(stats):
+    """mp_demo as one rank over NCCL (world size 1), both modes at once in
+    processes of their own, each result against the same job on a
+    one-entry single-process mesh in this process."""
+    from face_detection_and_recognition_tpu_torch.parallel import \
+        mp_demo as MP
+
+    MD_DIR.mkdir(parents=True, exist_ok=True)
+    repo = Path(__file__).resolve().parent
+    procs = []
+    t = time.time()
+    for mode in ("train", "ensemble"):
+        out = MD_DIR / f"mp_demo_{mode}.json"
+        out.unlink(missing_ok=True)
+        procs.append((mode, out, subprocess.Popen(
+            [sys.executable, "-m",
+             "face_detection_and_recognition_tpu_torch.parallel.mp_demo",
+             "--procs", "1", "--pid", "0", "--coordinator",
+             f"127.0.0.1:{free_port()}", "--mode", mode, "--out", str(out)],
+            cwd=repo, env=dict(os.environ,
+                               OMP_NUM_THREADS=str(torch.get_num_threads())),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    for mode, out, proc in procs:
+        try:
+            log = proc.communicate(timeout=300)[0].decode(errors="replace")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"mp_demo --mode {mode} as one rank: exit "
+                                 f"{proc.returncode}\n{log[-3000:]}")
+        got = json.loads(out.read_text())
+        want = MP.run_local(1, mode, device=MD_DEVICE)
+        rtol = MD_MP_RTOL if mode == "train" else 0.0
+        for key, val in want.items():
+            if abs(got[key] - val) > rtol * abs(val):
+                raise AssertionError(f"mp_demo {mode}: {key} {got[key]} "
+                                     f"against {val} in process")
+        stats[f"mp_demo_{mode}"] = got
+        say(f"  mp_demo --mode {mode}, one rank over "
+            f"NCCL: {json.dumps(got)};"
+            f" the one-entry mesh in process: {json.dumps(want)} "
+            f"(relative tolerance {rtol})")
+    stats["mp_demo_s"] = time.time() - t
+
+
+def run_multi_device(frames, card, det, ens, blaze_front):
+    """The multi-device main path over ``md_mesh``: yolov5s detect
+    (``detect_batch_sharded``), the yolov5s + MobileFaceNet + age/gender
+    ensemble (``mesh=``), BlazeFace-front detect, the search
+    (``topk_similar(mesh=, use_pallas=True)``, B4 a shard) and the dynamic
+    int8 yolov5n detect, each on a mesh of 2 entries of the card and each
+    a part of the path, held bit for bit to the unsharded call on each
+    piece of the batch on the same engine (int8: each piece with the whole
+    batch's scales, ``ScaleTape``) and within ``MD_WHOLE_TOL`` to the
+    unsharded call on the whole batch (``md_hold``; the search bit for bit
+    to the whole search); the DP + TP ArcFace step on a 2 x 2 mesh
+    (``md_arcface``); ``mp_demo`` as one NCCL rank in both modes. Each
+    path's ms between events, sharded and unsharded. Returns (launches,
+    numbers)."""
+    from face_detection_and_recognition_tpu_torch.models.layers import \
+        global_batch
+    from face_detection_and_recognition_tpu_torch.parallel.sharding import \
+        topk_gallery_sharded
+    from face_detection_and_recognition_tpu_torch.pipelines import \
+        similarity as S
+
+    t_phase = time.time()
+    win, stats = Windows(), {}
+    data = md_mesh(("data",), (MD_SHARDS,))
+    model = md_mesh(("model",), (MD_SHARDS,))
+    q8 = FaceEngine(EngineConfig(detector="yolov5n", seed=SEED,
+                                 detector_overrides={"quantized": True}),
+                    device=MD_DEVICE)
+    kw = dict(det_thres=0.0, bbox_area_thres=0.0)
+    piece_call = {
+        "detect": det.detect_batch,
+        "ensemble": lambda x: ens.detect_embed_classify_batch(x, **kw),
+        "blazeface": blaze_front.detect_batch}
+    paths = {
+        "detect": (lambda: det.detect_batch_sharded(frames, data),
+                   lambda: det.detect_batch(frames)),
+        "ensemble": (lambda: ens.detect_embed_classify_batch(
+            frames, mesh=data, **kw),
+            lambda: ens.detect_embed_classify_batch(frames, **kw)),
+        "blazeface": (lambda: blaze_front.detect_batch_sharded(frames, data),
+                      lambda: blaze_front.detect_batch(frames)),
+        "int8": (lambda: q8.detect_batch_sharded(frames, data),
+                 lambda: q8.detect_batch(frames)),
+    }
+    half = frames.shape[0] // MD_SHARDS
+    pieces = [frames[i * half:(i + 1) * half] for i in range(MD_SHARDS)]
+    for part, (sharded, plain) in paths.items():
+        sharded()  # the workers' first call builds their cuDNN plans
+        torch.cuda.synchronize()
+        got = win.run(part, sharded)
+        if part == "int8":  # each piece with the whole batch's scales
+            tape = ScaleTape()
+            with global_batch(tape, 1):
+                q8.detect_batch(frames)
+            ref = []
+            for piece in pieces:
+                with global_batch(ScaleTape(tape.maxes[:]), 1):
+                    ref.append(q8.detect_batch(piece))
+        else:
+            ref = [piece_call[part](piece) for piece in pieces]
+        n, n_off, read = md_hold(part, got, md_cat(ref), plain())
+        stats[part] = {"ms": cuda_ms(sharded, MD_ITERS),
+                       "plain_ms": cuda_ms(plain, MD_ITERS), "tensors": n,
+                       "whole_batch_not_bitwise": n_off,
+                       "whole_batch": read}
+        say(f"  {part}: {B} x {frames.shape[1]}x{frames.shape[2]} frames "
+            f"over {data.shape} ({', '.join(map(str, data.devices.flat))}),"
+            f" {n} tensors equal bit for bit to the unsharded call on each "
+            f"piece; against the call on the whole batch {n - n_off} of {n}"
+            f" bit for bit, the largest differences {json.dumps(read)} "
+            f"within {json.dumps(MD_WHOLE_TOL)}; {stats[part]['ms']:.2f} ms"
+            f" sharded against {stats[part]['plain_ms']:.2f} ms unsharded, "
+            f"between events on {card}")
+
+    rng = np.random.default_rng(SEED + 5)
+    queries = rng.standard_normal((TOPK_N, TOPK_D), dtype=np.float32)
+    gallery = rng.standard_normal((TOPK_M, TOPK_D), dtype=np.float32)
+    S.topk_similar(queries[:8], gallery[:4096], k=TOPK_K, use_pallas=True,
+                   mesh=model)
+    got = win.run("search", lambda: S.topk_similar(
+        queries, gallery, k=TOPK_K, use_pallas=True, mesh=model))
+    want = S.topk_similar(queries, gallery, k=TOPK_K, use_pallas=True,
+                          device=MD_DEVICE)
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("search: the sharded top-k differs from the "
+                             "unsharded B4 search")
+    qt = torch.as_tensor(S.normalize_rows(queries), device=MD_DEVICE)
+    gt = torch.as_tensor(S.normalize_rows(gallery), device=MD_DEVICE)
+    del gallery
+    stats["search"] = {
+        "ms": cuda_ms(lambda: topk_gallery_sharded(
+            qt, gt, model, k=TOPK_K, use_pallas=True), MD_ITERS),
+        "plain_ms": cuda_ms(lambda: ck.topk_gallery(qt, gt, TOPK_K),
+                            MD_ITERS)}
+    say(f"  search: {TOPK_N} queries x {TOPK_M} x {TOPK_D}, k = {TOPK_K}, "
+        f"the gallery over {model.shape}, B4 a shard: scores and indices "
+        f"equal to the unsharded B4 search bit for bit; on the card's "
+        f"memory {stats['search']['ms']:.2f} ms sharded against "
+        f"{stats['search']['plain_ms']:.2f} ms for B4 on the whole gallery,"
+        f" between events on {card}")
+    del qt, gt
+    torch.cuda.empty_cache()
+
+    md_arcface(win, stats, card)
+    md_mp_demo(stats)
+    launches = win.total()
+    for part, names in (("detect", ("nms_fixpoint", "rows_gather")),
+                        ("ensemble", ("nms_fixpoint", "rows_gather",
+                                      "crop_resize")),
+                        ("blazeface", ("blaze_decode_blend",)),
+                        ("search", ("topk_gallery",)),
+                        ("int8", ("conv_int8", "nms_fixpoint",
+                                  "rows_gather"))):
+        for name in names:
+            if win.parts[part][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"sharded {part} path")
+    stats["windows"] = win.parts
+    stats["s"] = time.time() - t_phase
+    say(f"  multi-device phase: {stats['s']:.1f} s")
+    return launches, stats
+
+
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -5122,6 +5505,18 @@ def main():
     say(f"  recognition training numbers: {json.dumps(rec)}")
     phase_end("main path: recognition training")
 
+    say("[multi-device] yolov5s detect, the ensemble, BlazeFace-front, "
+        "the search (B4 a shard) and int8 yolov5n over 2 entries of the "
+        "card, the DP + TP ArcFace step over 2 x 2, mp_demo as one NCCL "
+        "rank")
+    md_launches, md = run_multi_device(frames, card, engines[False], ens,
+                                       blaze["blazeface-front"])
+    say(f"  launches on the multi-device path: {md_launches}, by part "
+        f"{json.dumps(md['windows'])}")
+    say(f"  multi-device numbers: "
+        f"{json.dumps({k: v for k, v in md.items() if k != 'windows'})}")
+    phase_end("multi-device")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -5166,7 +5561,8 @@ def main():
                    "trained weights": tw_launches[k["name"]],
                    "bf16 families": bf16f_launches[k["name"]],
                    "training": train_launches[k["name"]],
-                   "recognition training": rec_launches[k["name"]]}
+                   "recognition training": rec_launches[k["name"]],
+                   "multi-device": md_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

@@ -12,4 +12,6 @@ Layout:
     models/     the yolov5-face network and the detector registry
     core/       the Detections contract and the FaceEngine
     utils/      the flax -> state_dict weight bridge, detect-path profiling
+    parallel/   device meshes, sharded inference and search, training over
+                a mesh, multi-process runs
 """

@@ -7,8 +7,10 @@ cv2.resize slot, and normalized ``(x - 127.5) / 127.5``). The JAX flags,
 and ``-d/--device`` (the card unless ``-d cpu``); ``--out`` writes a
 ``.pt`` holding the net's state dict (``state_dict``, what
 ``FaceEngine.load_embed_weights`` reads) and the class kernel
-(``arcface_kernel``). ``--mesh`` (data- and class-parallel training over
-several cards) is not ported yet (ROADMAP A12c).
+(``arcface_kernel``). ``--mesh`` trains data-parallel over "data" with
+the class kernel split over "model" (2 when the card count is even)
+across every card; with one device it is the plain step, as the JAX CLI's
+rule has it.
 
     python -m face_detection_and_recognition_tpu_torch.cli.train_arcface \\
         -i identities/ --steps 1000 --batch 64 --out mobileface.pt
@@ -68,20 +70,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default=None, help="checkpoint output (.pt)")
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over all devices (not ported yet)")
+                    help="DP + TP over all devices")
     add_device_flag(ap)
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (data-parallel embedder, class-sharded ArcFace kernel "
-            "over several cards) is not ported yet: ROADMAP A12c")
 
     from ..train.arcface import (ArcFaceTrainConfig, create_train_state,
-                                 make_train_step)
+                                 gather_train_state, make_train_step,
+                                 sharded_train_step)
     from ..utils.logging_utils import setup_job_logger
 
     logger = setup_job_logger("train_arcface")
@@ -94,7 +93,20 @@ def main(argv=None) -> int:
                              embedding_size=args.embedding_size, lr=args.lr)
     state = create_train_state(cfg, torch.Generator().manual_seed(0),
                                device=args.device)
-    step = make_train_step(state)
+    devices = []
+    if args.mesh:
+        from ..parallel.mesh import make_mesh, mesh_devices
+
+        devices = mesh_devices(args.device)
+    mesh = None
+    if len(devices) > 1:
+        n = len(devices)
+        model_axis = 2 if n % 2 == 0 else 1
+        mesh = make_mesh(("data", "model"), (n // model_axis, model_axis),
+                         devices)
+        step, replicas = sharded_train_step(state, mesh)
+    else:
+        step = make_train_step(state)
     dev = state["device"]
     t0 = time.time()
     for i, (images, labels, _) in enumerate(itertools.chain([first], it)):
@@ -106,9 +118,11 @@ def main(argv=None) -> int:
             logger.info("step %d loss %.4f %.1f img/s", i, float(loss),
                         args.batch * (i + 1) / (time.time() - t0))
     if args.out:
+        kernel = state["arcface_kernel"]
+        if mesh is not None:  # the net trained in place; the kernel shards
+            kernel = gather_train_state(replicas, mesh)["arcface_kernel"]
         torch.save({"state_dict": state["net"].state_dict(),
-                    "arcface_kernel": state["arcface_kernel"].detach().cpu()},
-                   args.out)
+                    "arcface_kernel": kernel.detach().cpu()}, args.out)
         logger.info("saved %s", args.out)
     return 0
 

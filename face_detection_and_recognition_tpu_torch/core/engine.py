@@ -29,6 +29,7 @@ ensemble refuses it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import os
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -456,6 +457,8 @@ class FaceEngine:
         return run
 
     def _frames(self, imgs) -> torch.Tensor:
+        if isinstance(imgs, torch.Tensor):
+            return imgs.to(self.device)
         return torch.as_tensor(np.ascontiguousarray(imgs)).to(self.device)
 
     def detect_batch(self, imgs: np.ndarray, det_thres: float = None,
@@ -468,6 +471,70 @@ class FaceEngine:
         at = (self.cfg.bbox_area_thres if bbox_area_thres is None
               else bbox_area_thres)
         return run(self._frames(imgs), float(dt), float(at))
+
+    # ---------------- over a device mesh ----------------
+
+    def _replica(self, device: torch.device) -> "FaceEngine":
+        """This engine with its nets copied to ``device`` (itself when it
+        is already there)."""
+        from ..parallel.mesh import same_device
+
+        if same_device(device, self.device):
+            return self
+        other = copy.copy(self)
+        other.device = torch.device(device)
+        for name in ("net", "embed_net", "ag_net"):
+            net = getattr(self, name)
+            if net is not None:
+                setattr(other, name, copy.deepcopy(net).to(other.device))
+        other._pipelines = set()
+        return other
+
+    def _on_mesh(self, mesh, imgs, run: Callable) -> Any:
+        """``run(engine, frames)`` on each piece of the [B, H, W, 3] batch
+        split over the mesh's "data" axis (B must divide it), each on its
+        coordinate's device with a replica of the nets; the pieces'
+        outputs, every tensor's dim 0 a piece of the batch, are gathered
+        whole over "data" on every coordinate, as the JAX package's
+        sharded programs return replicated results. Inside, the layers see
+        the whole batch (``models.layers.global_batch``): a dynamic int8
+        net quantizes every piece with the whole batch's absmax. Returns
+        the result on this engine's device."""
+        from ..models.layers import global_batch
+        from ..parallel import collectives as C
+        from ..parallel.sharding import batch_sharding, put_global
+
+        frames = torch.as_tensor(np.ascontiguousarray(imgs)) \
+            if not isinstance(imgs, torch.Tensor) else imgs
+        pieces = put_global(frames, batch_sharding(mesh, 4))
+        engines = {}
+        for coord in mesh.local_coords():
+            dev = mesh.device(coord)
+            if dev not in engines:
+                engines[dev] = self._replica(dev)
+        shards = mesh.shape["data"]
+
+        def shard(coord):
+            with torch.inference_mode(), \
+                    global_batch(C.reduce_batch("data"), shards):
+                out = run(engines[mesh.device(coord)], pieces[coord])
+                return C.gather_batch(out, "data")
+
+        # cuDNN's flags are global: held here, around every shard thread
+        with _full_f32(mesh.device(mesh.local_coords()[0])):
+            out = C.run_spmd(mesh, shard)[mesh.local_coords()[0]]
+        return C.tree_map(lambda t: t.to(self.device), out)
+
+    def detect_batch_sharded(self, imgs: np.ndarray, mesh) -> Detections:
+        """Data-parallel ``detect_batch`` over a device mesh
+        (``parallel.mesh``): the frame batch splits over the mesh's "data"
+        axis (B must divide it), each piece runs the detect path on its
+        device, and the Detections come back whole: ``detect_batch`` on
+        each piece, a dynamic int8 net quantizing with the whole batch's
+        absmax (on the card cuDNN may sum a piece's convolutions otherwise
+        than the whole batch's). The config's thresholds apply."""
+        return self._on_mesh(mesh, imgs, lambda eng, frames:
+                             eng.detect_batch(frames))
 
     def detect_image(self, img: np.ndarray, det_thres: float = None,
                      bbox_area_thres: float = None) -> PostProcessedDetection:
@@ -542,6 +609,7 @@ class FaceEngine:
         bbox_area_thres: float = None,
         crop_size: Tuple[int, int] = None,
         embed_offsets: Tuple[float, ...] = None,
+        mesh=None,
         want_embed: bool = True,
         want_ag: bool = True,
     ) -> EnsembleResult:
@@ -553,6 +621,10 @@ class FaceEngine:
         embed_offsets: optional per-corner crop offsets applied to the boxes
         before cropping and embedding (the extraction pipelines'
         (-6, -1, +4, +5)); the reported boxes stay as detected.
+        mesh: a device mesh (``parallel.mesh``): the batch splits over its
+        "data" axis (B must divide it), each piece runs the ensemble on its
+        device, and every field comes back whole (``_on_mesh``), as
+        ``detect_batch_sharded`` does.
         want_embed / want_ag: skip those stages for this call.
         A native-resolution detector (MTCNN) raises
         ``NotImplementedError``, as in the JAX package: serving takes the
@@ -561,6 +633,13 @@ class FaceEngine:
             raise NotImplementedError(
                 "fused ensemble requires a fixed-size detector (got "
                 f"native-resolution '{self.spec.name}')")
+        if mesh is not None:
+            return self._on_mesh(mesh, imgs, lambda eng, frames:
+                                 eng.detect_embed_classify_batch(
+                                     frames, det_thres, bbox_area_thres,
+                                     crop_size, embed_offsets,
+                                     want_embed=want_embed,
+                                     want_ag=want_ag))
         if crop_size is None:
             crop_size = (112, 112)
             if self.embed_spec is not None:

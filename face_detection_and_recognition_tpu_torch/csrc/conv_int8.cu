@@ -612,27 +612,35 @@ struct Args {
   int B, H, W, C, xp, Cout, k, stride, pad, Ho, Wo, act;
 };
 
+constexpr int kMaxDevices = 64;  // cards whose limits are remembered
+
 // raise a kernel's dynamic shared memory limit to smem where it is above
-// the default 48 KB (the limit each kernel has been given, kept per kernel)
+// the default 48 KB, on the current card (the limit is a card's: the one
+// each kernel has been given is kept per kernel and card)
 template <auto Kernel>
 int allow_smem(size_t smem) {
-  static size_t allowed = 48 * 1024;
-  if (smem <= allowed) return 0;
+  static size_t allowed[kMaxDevices] = {};
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  const cudaError_t d = cudaGetDevice(&dev);
+  if (d != cudaSuccess) return (int)d;
+  if (dev < kMaxDevices && smem <= allowed[dev]) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
       Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  allowed = smem;
+  if (dev < kMaxDevices) allowed[dev] = smem;
   return 0;
 }
 
+// the current card's SM count
 int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+  static int n[kMaxDevices] = {};
+  int dev = 0, count = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && n[dev] != 0) return n[dev];
+  cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < kMaxDevices) n[dev] = count;
+  return count;
 }
 
 template <int WM, int WN, int MT, int NT>

@@ -201,11 +201,15 @@ def make_blazeface(cfg: BlazeFaceConfig, generator: torch.Generator,
     net = BlazeFaceNet(cfg.back_model).init_random_(generator, cfg)
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     set_compute_dtype(net, dtype)
-    anchors = torch.from_numpy(generate_anchors()).to(device)
+    # the anchors on each device a replica of the net decodes on
+    on_device = {}
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],
                in_hw: Tuple[int, int]):
         # anchors are normalized: the input size does not enter
-        return blazeface_postprocess(*raw, anchors, cfg)
+        dev = raw[0].device
+        if dev not in on_device:
+            on_device[dev] = torch.from_numpy(generate_anchors()).to(dev)
+        return blazeface_postprocess(*raw, on_device[dev], cfg)
 
     return net, decode

@@ -15,9 +15,10 @@ reference's ``Net`` loader has five feat-net types:
 
 ``build(generator, device, dtype)`` returns the network, whose forward maps
 normalized NHWC crops at the slot's ``input_size`` to [N, dim] f32;
-``dtype`` bfloat16 builds the JAX package's bf16 net (``models/layers.py``). The keras
-FaceNet SavedModel / HDF5 reader of the JAX engine is not ported yet: the
-port loads torch weight files and ``utils.weights`` state dicts.
+``dtype`` bfloat16 builds the JAX package's bf16 net (``models/layers.py``).
+Weights load from torch weight files, ``utils.weights`` state dicts and
+the keras FaceNet SavedModel / HDF5 files
+(``FaceEngine.load_embed_weights``).
 """
 from __future__ import annotations
 

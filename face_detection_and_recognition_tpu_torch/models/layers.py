@@ -39,17 +39,47 @@ a net casts its input to its ``compute_dtype`` (``set_compute_dtype``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_conv import conv_int8, pack_kernel_q
+from ..ops.int8_conv import RECIP_127, conv_int8, pack_kernel_q
 
 BF16 = torch.bfloat16
+
+# the reduction over the whole batch of a sharded run (global_batch)
+_batch = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(reduce: Callable[[torch.Tensor, str], torch.Tensor],
+                 shards: int):
+    """Within the block, in the calling thread, the batch a layer sees is
+    one of ``shards`` equal shards of a larger batch, and ``reduce(t,
+    op)`` sums (``"sum"``) or maxes (``"max"``) ``t`` over all of them
+    (``parallel.collectives.reduce_batch``). The layers whose result
+    depends on the whole batch use it, as the JAX package's single
+    program over a sharded batch does: a training BatchNorm normalizes
+    with the whole batch's statistics (``flax_batch_norm_train``), and a
+    dynamic int8 ConvBN quantizes with the whole batch's absmax
+    (``QConvBN``)."""
+    prev = getattr(_batch, "hook", None)
+    _batch.hook = (reduce, int(shards))
+    try:
+        yield
+    finally:
+        _batch.hook = prev
+
+
+def batch_reduction():
+    """(reduce, shards) of the enclosing ``global_batch``, or None."""
+    return getattr(_batch, "hook", None)
 
 
 def bf16_param(module: nn.Module, name: str,
@@ -211,10 +241,22 @@ def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
     normalize the batch as ``(x - mean) * (rsqrt(var + eps) * weight) +
     bias``, and the running statistics move toward them, ``ra * (1 -
     momentum) + stat * momentum``, the running variance toward the biased
-    variance. In f32, or f64 for an f64 input."""
+    variance. In f32, or f64 for an f64 input. Inside ``global_batch``
+    the statistics are the whole batch's: the shards' sums of ``x`` and
+    ``x^2`` reduced over the shards (the gradient flows back through the
+    reduction)."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    hook = batch_reduction()
+    if hook is None:
+        mean = xf.mean(dims)
+        mean2 = (xf * xf).mean(dims)
+    else:
+        reduce, shards = hook
+        n = math.prod(x.shape[d] for d in dims) * shards
+        sums = reduce(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]),
+                      "sum") / n
+        mean, mean2 = sums[0], sums[1]
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
@@ -355,7 +397,10 @@ class QConvBN(nn.Module):
     none. ``utils.quantize`` builds the weights. On the card the kernel
     reads them packed (``pack_kernel_q``), packed once for each new or
     changed ``kernel_q``. A bf16 input is widened to f32 first, as the JAX
-    layer does (``x.astype(f32)``); the output is f32 in either case."""
+    layer does (``x.astype(f32)``); the output is f32 in either case.
+    Inside ``global_batch`` a dynamic layer's scale is the whole batch's
+    absmax (the shards' absmaxes reduced), given to the kernel as a static
+    scale: the codes of the unsharded batch."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, groups: int = 1,
@@ -377,6 +422,14 @@ class QConvBN(nn.Module):
         self.kernel_q = self.kernel_q.contiguous()
         return out
 
+    def __getstate__(self):
+        # the packed weights are a cache of kernel_q that carries Q1's
+        # launch record (ctypes): a copy, a replica on another card, packs
+        # its own
+        state = dict(super().__getstate__())
+        state["_wpack"] = state["_wpack_of"] = None
+        return state
+
     def _packed(self) -> Optional[torch.Tensor]:
         """Q1's packed weights for the current ``kernel_q`` (None on the
         CPU): made again after ``to()`` or a weight load, which replace the
@@ -395,9 +448,13 @@ class QConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
+        ascale, hook = self.ascale, batch_reduction()
+        if ascale is None and hook is not None:
+            absmax = hook[0](x.abs().amax(), "max")
+            ascale = torch.clamp(absmax, min=1e-6) * RECIP_127
         return conv_int8(x, self.kernel_q, self.wscale, self.bias,
                          self.stride, self.pad, self.groups, self.act,
-                         self.ascale, self._packed())
+                         ascale, self._packed())
 
 
 def conv_bn(c_in: int, c_out: int, k: int = 1, s: int = 1,

@@ -16,7 +16,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .layers import (BF16, BatchNorm1d, MFConvBlock, MFDepthWise,
@@ -100,8 +99,8 @@ class MobileFaceNet(nn.Module):
 
 
 def arcface_logits(embeddings: torch.Tensor, labels: torch.Tensor,
-                   kernel: torch.Tensor, s: float = 64.0, m: float = 0.5
-                   ) -> torch.Tensor:
+                   kernel: torch.Tensor, s: float = 64.0, m: float = 0.5,
+                   col0: int = 0) -> torch.Tensor:
     """ArcFace additive-angular-margin logits (the reference's
     ``mobile_facenet.py:160-201``; JAX ``models/mobile_facenet.py:78-101``).
 
@@ -110,7 +109,9 @@ def arcface_logits(embeddings: torch.Tensor, labels: torch.Tensor,
     at the label positions, and the fallback ``cos - sin(m) * m`` where
     ``cos <= cos(pi - m)``. The clips are ``jax_clip``, so that the
     gradient at cos = +-1 is JAX's; the product is in the wider of the two
-    dtypes, as JAX promotes it."""
+    dtypes, as JAX promotes it. ``col0``: the class of the kernel's first
+    column, for a kernel that is one class shard of a wider one (a label
+    outside the shard takes no margin there)."""
     kn = l2_normalize(kernel, axis=0)
     emb = embeddings.to(torch.promote_types(embeddings.dtype, kn.dtype))
     cos = jax_clip(emb @ kn, -1.0, 1.0)
@@ -120,7 +121,8 @@ def arcface_logits(embeddings: torch.Tensor, labels: torch.Tensor,
     threshold = math.cos(math.pi - m)
     keep = cos - sin_m * m
     cos_theta_m = torch.where(cos - threshold <= 0, keep, cos_theta_m)
-    onehot = F.one_hot(labels.long(), kernel.shape[1]).to(cos.dtype)
+    cols = torch.arange(col0, col0 + kernel.shape[1], device=cos.device)
+    onehot = (labels.long()[:, None] == cols).to(cos.dtype)
     return s * (onehot * cos_theta_m + (1.0 - onehot) * cos)
 
 

@@ -307,11 +307,15 @@ def make_ssd_face(cfg: SSDConfig, generator: torch.Generator,
     net = SSDFaceNet(cfg).init_random_(generator)
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     set_compute_dtype(net, dtype)
-    priors = torch.from_numpy(generate_priors(cfg)).to(device)
+    # the priors on each device a replica of the net decodes on
+    on_device = {}
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],
                in_hw: Tuple[int, int]):
         # priors are normalized: the input size does not enter
-        return ssd_postprocess(*raw, priors, cfg)
+        dev = raw[0].device
+        if dev not in on_device:
+            on_device[dev] = torch.from_numpy(generate_priors(cfg)).to(dev)
+        return ssd_postprocess(*raw, on_device[dev], cfg)
 
     return net, decode

@@ -10,8 +10,9 @@ statistics logging (``:449-458``) and resume-by-existence.
 Prefetch-decoded frames accumulate across media into fixed [block, H, W, 3]
 blocks (per-resolution buckets, zero-padded tails), each block runs the
 fused detect -> crop -> embed ensemble in ONE engine call
-(``detect_embed_classify_batch``, B1/B2 or B5 and B3 on the card), and its
-valid mask and embeddings come to the host once. Crop offsets (-6, -1, +4,
+(``detect_embed_classify_batch``, B1/B2 or B5 and B3 on the card; with a
+device mesh, split over its "data" axis), and its valid mask and
+embeddings come to the host once. Crop offsets (-6, -1, +4,
 +5) match ``:290-291``. Crops are written through ``utils/native.py``'s
 JPEG codec: cv2.imwrite's bytes on every machine.
 """
@@ -33,10 +34,6 @@ from .dataset import (MAX_N_FACES_PER_FRAME, MAX_N_FRAME_FROM_VID,
                       walk_class_tree)
 
 logger = logging.getLogger("face_extraction")
-
-NO_MESH = ("mesh=: sharding a block over several cards is not ported yet "
-           "(ROADMAP A12)")
-
 
 @dataclasses.dataclass
 class ExtractionStats:
@@ -143,10 +140,13 @@ def extract_faces_from_dataset(
     blocks per source resolution and each block runs ONE fused
     detect+crop+embed call (``engine.detect_embed_classify_batch``).
     Native-resolution detectors run staged detection and a per-frame embed
-    inside the same block structure. ``mesh`` (a block sharded over several
-    cards) is not ported yet and raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(NO_MESH)
+    inside the same block structure. ``mesh`` (``parallel.mesh``): each
+    fused block splits over the mesh's "data" axis, which must divide
+    ``block_size`` (``detect_embed_classify_batch(mesh=)``)."""
+    if mesh is not None and block_size % mesh.shape["data"] != 0:
+        raise ValueError(
+            f"the mesh data axis ({mesh.shape['data']}) must divide "
+            f"block_size {block_size} so each device gets whole frames")
     t0 = time.time()
     stats = ExtractionStats()
     items = walk_class_tree(data_dir)
@@ -197,8 +197,8 @@ def extract_faces_from_dataset(
         if not fused:  # native-resolution cascade: staged detection
             return engine.detect_batch(imgs).to_numpy(), None, None
         res = engine.detect_embed_classify_batch(
-            imgs, embed_offsets=offsets, want_embed=save_features,
-            want_ag=False)
+            imgs, embed_offsets=offsets, mesh=mesh,
+            want_embed=save_features, want_ag=False)
         posts = res.det.to_numpy()
         if not save_features or res.embeddings is None:
             return posts, None, None

@@ -122,11 +122,18 @@ def topk_similar(embeddings: np.ndarray, gallery: np.ndarray, k: int = 5,
     k <= 16), which never forms the [N, M] scores, the path for very large
     galleries; the default is one f32 matrix product and a stable top-k.
 
-    ``mesh`` (the gallery sharded over several cards) is not ported yet and
-    raises ``NotImplementedError``."""
+    ``mesh``: a device mesh (``parallel.mesh``) whose "model" axis splits
+    the gallery's rows (``parallel.sharding.topk_gallery_sharded``: a
+    top-k a shard, B4 on each with ``use_pallas`` on the card, and a k-way
+    merge); ``device`` is then unused, the mesh names the devices."""
     if mesh is not None:
-        raise NotImplementedError("topk_similar: the sharded search (mesh=) "
-                                  "is not ported yet")
+        from ..parallel.sharding import topk_gallery_sharded
+
+        e = normalize_rows(np.asarray(embeddings, np.float32))
+        g = normalize_rows(np.asarray(gallery, np.float32))
+        scores, idx = topk_gallery_sharded(e, g, mesh, k=k,
+                                           use_pallas=use_pallas)
+        return scores.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
     dev = resolve_device(device)
     e = normalize_rows(np.asarray(embeddings, np.float32))
     g = normalize_rows(np.asarray(gallery, np.float32))

@@ -50,8 +50,9 @@ class ServiceConfig:
     face_size: Tuple[int, int] = (112, 112)
     with_embedder: bool = True
     with_age_gender: bool = True
-    # data-parallel serving over several cards: not ported yet (ROADMAP
-    # A12); anything but None raises
+    # a device mesh (parallel.mesh) for data-parallel serving: every
+    # batched ensemble dispatch splits over its "data" axis; None = the
+    # service's one device
     mesh: object = None
     # rect letterbox inference (yolov5 families): the smallest
     # stride-multiple canvas a source resolution fits in
@@ -75,11 +76,8 @@ class FaceService:
     """Single-process serving facade over a FaceEngine."""
 
     def __init__(self, cfg: ServiceConfig = ServiceConfig()):
-        if cfg.mesh is not None:
-            raise NotImplementedError(
-                "ServiceConfig.mesh: serving over several cards is not "
-                "ported yet (ROADMAP A12)")
         self.cfg = cfg
+        self.mesh = cfg.mesh
         self.engine = FaceEngine(
             EngineConfig(
                 detector=cfg.detector,
@@ -104,6 +102,24 @@ class FaceService:
             max_workers=1, thread_name_prefix="face-service-device")
         self._device_thread = self._device.submit(threading.get_ident) \
             .result()
+
+    def _ensemble(self, imgs, *args, **kw):
+        """``detect_embed_classify_batch``, through the mesh when one is
+        configured: the frame batch is padded with zero frames to a
+        multiple of the "data" axis (the split must be even) and every
+        field of the result is sliced back to the frames sent."""
+        if self.mesh is None:
+            return self.engine.detect_embed_classify_batch(imgs, *args, **kw)
+        from ..parallel.collectives import tree_map
+
+        b = len(imgs)
+        pad = (-b) % int(self.mesh.shape["data"])
+        if pad:
+            imgs = np.concatenate(
+                [imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
+        res = self.engine.detect_embed_classify_batch(
+            imgs, *args, mesh=self.mesh, **kw)
+        return tree_map(lambda t: t[:b], res) if pad else res
 
     def _on_device(self, fn, *args, **kwargs):
         """``fn(*args, **kwargs)`` on the service's engine thread."""
@@ -137,7 +153,7 @@ class FaceService:
                     self._on_device(self.engine.detect_batch, img)
                 else:
                     self._on_device(
-                        self.engine.detect_embed_classify_batch, img,
+                        self._ensemble, img,
                         crop_size=self.cfg.face_size,
                         want_embed=False, want_ag=False)
 
@@ -153,7 +169,7 @@ class FaceService:
 
         def faces(imgs, key):
             _, dt, at = key
-            res = self.engine.detect_embed_classify_batch(
+            res = self._ensemble(
                 imgs, dt, at, crop_size=self.cfg.face_size,
                 want_embed=False, want_ag=False)
             valid_t = res.det.valid
@@ -225,7 +241,7 @@ class FaceService:
                                bbox_area_thres)
 
     def _detect_faces(self, image_bgr, det_thres, bbox_area_thres):
-        res = self.engine.detect_embed_classify_batch(
+        res = self._ensemble(
             image_bgr[None], det_thres, bbox_area_thres,
             crop_size=self.cfg.face_size,
             want_embed=False, want_ag=False)   # Detect returns crops only
@@ -272,7 +288,7 @@ class FaceService:
     def _detect_embed_classify(self, image_bgr: np.ndarray):
         if self.engine.native_resolution:  # staged (mtcnn)
             return self._staged_embed_classify(image_bgr)
-        res = self.engine.detect_embed_classify_batch(image_bgr[None])
+        res = self._ensemble(image_bgr[None])
         v = res.det.valid[0]
         m = v.cpu().numpy()
         dim = self.engine.embed_spec.dim if self.engine.embed_spec else 512

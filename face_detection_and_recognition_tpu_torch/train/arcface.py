@@ -18,11 +18,22 @@ off on the card).
 
 A train state is a dict: ``net`` (train mode), ``arcface_kernel`` (a
 parameter on the device), ``opt``, ``cfg`` and ``device``.
-The class-sharded step of the JAX package (``shard_train_state``,
-``sharded_train_step``) waits for the multi-card slice (ROADMAP A12c).
+
+Over a device mesh (``shard_train_state``, ``sharded_train_step``) the
+embedder is data-parallel over "data" and the class kernel is split by
+classes over "model": each coordinate holds a replica of the net and its
+class shard [D, C / S] with its momentum. The step is the JAX package's
+global step: the BatchNorms normalize with the whole batch's statistics,
+every coordinate gathers the whole batch's embeddings, the softmax over
+classes takes its max and sum of exponentials across the class shards and
+the label's logit from the shard that holds it, and the gradients flow
+back through those reductions (``parallel.collectives``) before each
+replicated tensor's gradient is summed over its copies
+(``parallel.training``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -33,6 +44,8 @@ from torch import nn
 from ..models.mobile_facenet import arcface_logits
 from ..ops.platform import resolve_device
 from .detection import decay_groups, flax_init_, train_precision
+
+KERNEL = "arcface_kernel"  # the class kernel's name in a state and its copies
 
 
 @dataclasses.dataclass
@@ -100,14 +113,22 @@ def arcface_loss(state: Dict[str, Any], images: torch.Tensor,
     logits = arcface_logits(emb, labels, state["arcface_kernel"], s=cfg.s,
                             m=cfg.m)
     loss = F.cross_entropy(logits, labels.long())
-    if cfg.center_gain > 0.0:
-        emb = emb.to(logits.dtype)
-        onehot = F.one_hot(labels.long(), cfg.num_classes).to(emb.dtype)
-        counts = torch.clamp(onehot.sum(0), min=1.0)
-        centers = ((onehot.T @ emb) / counts[:, None]).detach()
-        d2 = torch.sum((emb - centers[labels.long()]) ** 2, -1)
-        loss = loss + cfg.center_gain * d2.mean()
-    return loss
+    return loss + center_term(cfg, emb, labels, logits.dtype)
+
+
+def center_term(cfg: ArcFaceTrainConfig, emb: torch.Tensor,
+                labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``center_gain`` times the mean squared distance of each embedding
+    from its class's batch mean (the means carry no gradient); 0 without
+    the term."""
+    if cfg.center_gain <= 0.0:
+        return torch.zeros((), dtype=dtype, device=emb.device)
+    emb = emb.to(dtype)
+    onehot = F.one_hot(labels.long(), cfg.num_classes).to(emb.dtype)
+    counts = torch.clamp(onehot.sum(0), min=1.0)
+    centers = ((onehot.T @ emb) / counts[:, None]).detach()
+    d2 = torch.sum((emb - centers[labels.long()]) ** 2, -1)
+    return cfg.center_gain * d2.mean()
 
 
 def make_train_step(state: Dict[str, Any]):
@@ -127,15 +148,133 @@ def make_train_step(state: Dict[str, Any]):
     return step
 
 
-def shard_train_state(state: Dict[str, Any], mesh):
-    """The class-sharded placement over several cards is not ported yet."""
-    raise NotImplementedError(
-        "shard_train_state (the ArcFace kernel class-sharded over a device "
-        "mesh) is not ported yet: ROADMAP A12c")
+def shard_train_state(state: Dict[str, Any], mesh
+                      ) -> Dict[Any, Dict[str, Any]]:
+    """DP + TP placement over ``mesh`` (axes "data" and "model"): ``{coord:
+    replica}`` for the coordinates this process holds. A replica holds the
+    net (replicated: the first coordinate takes ``state["net"]`` itself
+    when it is on that device, the others a copy), its class shard of the
+    kernel, ``[D, C / S]`` for its place on "model" (C must divide S), an
+    SGD over both with ``state["opt"]``'s groups and hyperparameters, and
+    the momentum: each parameter's copied, matched by name (the kernel by
+    its place in the state, not by shape, so a square embedder weight that
+    shares the kernel's shape stays whole), the kernel's split by classes
+    like the kernel."""
+    from ..parallel.mesh import same_device
+    from ..parallel.training import replica_optimizer
+
+    kernel = state[KERNEL]
+    d, c = kernel.shape
+    s = mesh.shape.get("model", 1)
+    if c % s:
+        raise ValueError(f"{c} classes do not split over {s} model shards")
+    cs = c // s
+    names = {id(p): n for n, p in state["net"].named_parameters()}
+    names[id(kernel)] = KERNEL
+    out = {}
+    for i, coord in enumerate(mesh.local_coords()):
+        dev = mesh.device(coord)
+        j = mesh.index(coord, "model") if "model" in mesh.shape else 0
+        net = state["net"] if i == 0 and same_device(
+            dev, state["device"]) else copy.deepcopy(state["net"]).to(dev)
+        shard = nn.Parameter(kernel.detach()[:, j * cs:(j + 1) * cs]
+                             .clone().to(dev))
+        params = dict(net.named_parameters())
+        params[KERNEL] = shard
+        opt = replica_optimizer(state["opt"], names, params, dev)
+        mom = opt.state.get(shard, {}).get("momentum_buffer")
+        if mom is not None:
+            opt.state[shard]["momentum_buffer"] = \
+                mom[:, j * cs:(j + 1) * cs].clone()
+        out[coord] = {"net": net, KERNEL: shard, "opt": opt,
+                      "cfg": state["cfg"], "device": dev, "col0": j * cs}
+    return out
+
+
+def sharded_loss(rep: Dict[str, Any], images: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Inside a shard of ``sharded_train_step``: the whole batch's ArcFace
+    loss from one coordinate's piece of the images (``labels``: the whole
+    batch's). The embeddings are gathered over "data"; the log-softmax's
+    max (no gradient) and sum of exponentials are reduced over "model",
+    and the label's logit comes from the shard that holds its class."""
+    from ..parallel import collectives as C
+
+    cfg: ArcFaceTrainConfig = rep["cfg"]
+    emb = C.all_gather_cat(rep["net"](images), "data")
+    kernel = rep[KERNEL]
+    logits = arcface_logits(emb, labels, kernel, s=cfg.s, m=cfg.m,
+                            col0=rep["col0"])
+    top = C.all_reduce(logits.detach().amax(1), "model", "max")
+    sumexp = C.all_reduce(torch.exp(logits - top[:, None]).sum(1), "model")
+    cols = torch.arange(rep["col0"], rep["col0"] + kernel.shape[1],
+                        device=logits.device)
+    own = (labels.long()[:, None] == cols).to(logits.dtype)
+    label_logit = C.all_reduce((logits * own).sum(1), "model")
+    loss = (torch.log(sumexp) + top - label_logit).mean()
+    return loss + center_term(cfg, emb, labels, logits.dtype)
 
 
 def sharded_train_step(state: Dict[str, Any], mesh):
-    """The data- and class-parallel step is not ported yet."""
-    raise NotImplementedError(
-        "sharded_train_step (data-parallel embedder, class-sharded ArcFace "
-        "kernel over a device mesh) is not ported yet: ROADMAP A12c")
+    """``(step, replicas)``: the DP + TP step over ``mesh`` and the
+    placement of ``shard_train_state``. ``step(images, labels) -> loss``
+    takes the whole batch (B divides the "data" axis; host arrays or
+    tensors), splits the images over "data", runs every replica in
+    lockstep and updates each in place: the net's gradient summed over
+    the whole mesh, a kernel shard's over "data". The loss (the whole
+    batch's) is the first coordinate's, on its device."""
+    from ..models.layers import global_batch
+    from ..parallel import collectives as C
+    from ..parallel.sharding import (batch_sharding, put_global,
+                                     replicate_to_mesh)
+    from ..parallel.training import reduce_grads, spmd_backward
+
+    replicas = shard_train_state(state, mesh)
+    first = mesh.local_coords()[0]
+    shards = mesh.shape["data"]
+    axes = mesh.axis_names
+
+    def shard(coord, x, y):
+        rep = replicas[coord]
+        rep["opt"].zero_grad(set_to_none=True)
+        with global_batch(C.reduce_batch("data"), shards):
+            loss = sharded_loss(rep, x[coord], y[coord])
+        spmd_backward(loss)
+        reduce_grads(list(rep["net"].parameters()), axes)
+        reduce_grads([rep[KERNEL]], "data")
+        rep["opt"].step()
+        return loss.detach()
+
+    def step(images, labels) -> torch.Tensor:
+        x = put_global(torch.as_tensor(images), batch_sharding(mesh))
+        y = replicate_to_mesh(torch.as_tensor(labels), mesh)
+        with train_precision(mesh.device(first)):
+            return C.run_spmd(mesh, lambda c: shard(c, x, y))[first]
+
+    return step, replicas
+
+
+def gather_train_state(replicas: Dict[Any, Dict[str, Any]], mesh
+                       ) -> Dict[str, torch.Tensor]:
+    """The whole state of a sharded run, on the first coordinate's device:
+    ``net`` (the first replica's state dict), ``arcface_kernel`` [D, C]
+    and ``kernel_momentum`` (None before the first step), the shards
+    joined over "model"."""
+    from ..parallel import collectives as C
+
+    first = mesh.local_coords()[0]
+
+    def join(coord):
+        rep = replicas[coord]
+        with torch.no_grad():
+            kernel = torch.cat(C.all_gather(rep[KERNEL].detach(), "model"),
+                               1)
+            mom = rep["opt"].state.get(rep[KERNEL], {}).get(
+                "momentum_buffer")
+            if mom is not None:
+                mom = torch.cat(C.all_gather(mom, "model"), 1)
+        return kernel, mom
+
+    kernel, mom = C.run_spmd(mesh, join)[first]
+    return {"net": replicas[first]["net"].state_dict(), KERNEL: kernel,
+            "kernel_momentum": mom}

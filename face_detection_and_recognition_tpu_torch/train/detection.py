@@ -414,10 +414,22 @@ def optimizer_step(state: Dict[str, Any], loss: torch.Tensor,
     learning rate for the current update count; with ``clip_norm`` the
     gradients are first clipped to that global norm as optax's
     ``clip_by_global_norm`` does (``g / norm * max`` where the norm
-    exceeds it). No host sync."""
+    exceeds it). No host sync. Inside a shard of ``parallel.training.
+    data_parallel_step`` the backward is the mesh's one backward and each
+    gradient the sum of its copies' (``spmd_backward``, ``reduce_grads``)
+    before the clip and the update."""
+    from ..parallel import collectives as C
+
     opt = state["opt"]
     opt.zero_grad(set_to_none=True)
-    loss.backward()
+    if C.in_spmd():
+        from ..parallel.training import reduce_grads, spmd_backward
+
+        spmd_backward(loss)
+        reduce_grads([p for g in opt.param_groups for p in g["params"]],
+                     C.current().mesh.axis_names)
+    else:
+        loss.backward()
     if clip_norm is not None:
         grads = [p.grad for g in opt.param_groups for p in g["params"]
                  if p.grad is not None]
@@ -498,8 +510,14 @@ def make_det_train_step_ema(state: Dict[str, Any]):
 
 
 def sharded_det_train_step(state: Dict[str, Any], mesh):
-    """Data-parallel training over several cards is not ported yet."""
-    raise NotImplementedError(
-        "sharded_det_train_step (data-parallel training over a device mesh) "
-        "is not ported yet: ROADMAP A12c")
+    """Data-parallel training over a device mesh (``parallel.mesh``):
+    returns ``(step, replicas)``, ``step(images, targets, target_valid) ->
+    (loss, metrics)`` over the whole batch (B divides the "data" axis),
+    weights and optimizer state replicated, each coordinate's piece of the
+    batch through its replica, the BatchNorms on the whole batch's
+    statistics and the gradients summed (``parallel.training.
+    data_parallel_step``): the step of ``make_det_train_step`` on the whole
+    batch. ``state`` trains in place as the first replica."""
+    from ..parallel.training import data_parallel_step
 
+    return data_parallel_step(state, make_det_train_step, mesh)

@@ -118,13 +118,25 @@ def make_chunk_trainer(step_fn: Callable, state: Dict, batch_size: int,
     paired with the live statistics are a mismatched net); without it the
     EMA copy takes the live statistics. ``draws(i)`` gives step ``i``'s
     (indices [B], flip mask [B] or None, gains [B, 1, 1, 1] or None) in
-    place of the generator's. ``mesh`` (data-parallel over several cards)
-    is not ported."""
+    place of the generator's.
+
+    ``mesh``: data-parallel over a device mesh. ``step_fn`` is then a
+    ``parallel.training.data_parallel_step`` (its ``replicas`` attribute
+    holds the replicated train states), each sampled batch splits over the
+    mesh's "data" axis inside it (``batch_size`` must divide the axis), and
+    every replica's EMA statistics move with its own live ones: weights,
+    EMA and EMA statistics stay replicated."""
+    replicas = [state]
     if mesh is not None:
-        raise NotImplementedError("make_chunk_trainer(mesh=...): data-"
-                                  "parallel training is ROADMAP A12c")
-    live_stats = bn_statistics(state["net"])
-    ema_stats = bn_statistics(state["ema"])
+        if batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch {batch_size} does not divide over the "
+                             f"mesh's {mesh.shape['data']} data shards")
+        if not hasattr(step_fn, "replicas"):
+            raise ValueError("with a mesh, step_fn is a parallel.training."
+                             "data_parallel_step")
+        replicas = list(step_fn.replicas.values())
+    stats = [(bn_statistics(r["ema"]), bn_statistics(r["net"]), r)
+             for r in replicas]
 
     def chunk(data_x, data_t, data_v, generator=None):
         k = data_x.shape[0]
@@ -149,12 +161,13 @@ def make_chunk_trainer(step_fn: Callable, state: Dict, batch_size: int,
                 x = device_brightness(None, x, brightness, gains)
             loss, metrics = step_fn(x, t, v)
             with torch.no_grad():
-                if ema_stats_cfg is not None:
-                    ema_update_ramped(ema_stats, live_stats,
-                                      state["n_updates"], *ema_stats_cfg)
-                else:
-                    for e, s in zip(ema_stats, live_stats):
-                        e.copy_(s)
+                for ema_stats, live_stats, rep in stats:
+                    if ema_stats_cfg is not None:
+                        ema_update_ramped(ema_stats, live_stats,
+                                          rep["n_updates"], *ema_stats_cfg)
+                    else:
+                        for e, s in zip(ema_stats, live_stats):
+                            e.copy_(s)
             if loss_sum is None:
                 loss_sum, metric_sums = loss, dict(metrics)
             else:
@@ -188,10 +201,13 @@ def run_device_training(state: Dict, make_step: Callable,
     candidates as host state dicts (each a matched weights + BatchNorm
     statistics pair); returning True stops training. Each chunk's losses
     are appended to ``state["chunk_losses"]``. Returns ``state``, trained
-    in place."""
-    if mesh is not None:
-        raise NotImplementedError("run_device_training(mesh=...): data-"
-                                  "parallel training is ROADMAP A12c")
+    in place.
+
+    ``mesh``: data-parallel over a device mesh: ``make_step``'s step runs
+    on a replica of the state at each coordinate
+    (``parallel.training.data_parallel_step``), ``state`` itself the first
+    on its device, each batch split over "data" (``batch_size`` must
+    divide the axis)."""
     dev = state["device"]
     x, t, v = data
     data_x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -201,14 +217,19 @@ def run_device_training(state: Dict, make_step: Callable,
     log(f"[device-loop] buffer resident: {data_x.nbytes / 1e6:.0f} MB "
         f"images, {data_x.shape[0]} examples")
     gen = torch.Generator(device=dev).manual_seed(seed ^ 0x5EED)
-    step = make_step(state)
+    if mesh is None:
+        step = make_step(state)
+    else:
+        from ..parallel.training import data_parallel_step
+
+        step, _ = data_parallel_step(state, make_step, mesh)
     losses = state.setdefault("chunk_losses", [])
     done, eval_mark = 0, 0
     while done < max_steps:
         steps = min(chunk_steps, max_steps - done)
         chunk = make_chunk_trainer(step, state, batch_size, steps,
                                    flip_lr=flip_lr, brightness=brightness,
-                                   ema_stats_cfg=ema_cfg)
+                                   ema_stats_cfg=ema_cfg, mesh=mesh)
         loss, metrics = chunk(data_x, data_t, data_v, gen)
         done += steps
         losses.append(float(loss))

@@ -70,8 +70,41 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "train.golden_mtcnn", "train.caffe_golden",
                 "train.ov_golden", "cli.train_arcface",
                 "cli.train_golden_embed", "cli.train_golden_ag",
-                "cli.train_golden_mtcnn"):
+                "cli.train_golden_mtcnn", "parallel", "parallel.mesh",
+                "parallel.sharding", "parallel.collectives",
+                "parallel.training", "parallel.mp_demo"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
+
+
+def test_make_mesh_raises_when_the_shape_does_not_fit_the_devices():
+    """As the JAX ``make_mesh`` does: the axis sizes' product must be the
+    device count (repeated ``"cpu"`` entries count one each)."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    with pytest.raises(ValueError, match="device count"):
+        make_mesh(("data", "model"), (2, 2), ["cpu"] * 3)
+    with pytest.raises(ValueError, match="device count"):
+        make_mesh(("data",), (4,), ["cpu"] * 2)
+    assert make_mesh(("data", "model"), (2, 2), ["cpu"] * 4).shape == {
+        "data": 2, "model": 2}
+
+
+def test_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """The mesh, the ``--mesh`` entries and ``mp_demo`` run on the card
+    unless the caller names the CPU."""
+    from face_detection_and_recognition_tpu_torch.parallel import \
+        mp_demo as MP
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import (
+        make_mesh, mesh_devices)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_mesh(("data",)), lambda: mesh_devices(),
+                 lambda: MP.run_local(1), lambda: MP.run_local(2, "ensemble"),
+                 lambda: MP.main(["--procs", "1", "--pid", "0"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert mesh_devices("cpu") == [torch.device("cpu")]
 
 
 def test_engine_raises_without_cuda(monkeypatch):

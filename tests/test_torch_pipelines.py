@@ -558,10 +558,39 @@ def test_feature_slot_alignment_matches_jax(tmp_path):
     assert got.shape == (45, 4) and (got[6:9] == 3.0).all()
 
 
-def test_extract_faces_mesh_raises(engines, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        TX.extract_faces_from_dataset(engines[1], str(tmp_path),
-                                      str(tmp_path / "o"), mesh=object())
+def test_extract_faces_mesh_raises(engines, face_tree, tmp_path):
+    """``mesh=``: each block splits over the mesh's "data" axis (two
+    repeated CPU entries) and the job writes what the unsharded job writes:
+    the crop JPEGs byte for byte, the feature rows within 1e-5 (the
+    embedder's f32 sums in a batch of another size); a block the axis does
+    not divide raises."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    teng = engines[1]
+    mesh = make_mesh(("data",), devices=["cpu"] * 2)
+    kw = dict(num_workers=2, block_size=4)
+    plain = TX.extract_faces_from_dataset(teng, str(face_tree),
+                                          str(tmp_path / "plain"), **kw)
+    sharded = TX.extract_faces_from_dataset(teng, str(face_tree),
+                                            str(tmp_path / "mesh"),
+                                            mesh=mesh, **kw)
+    assert sharded.classes == plain.classes and not sharded.failed
+    assert sharded.total_faces() >= 10
+    files = _files(tmp_path / "plain")
+    assert _files(tmp_path / "mesh") == files
+    for f in files:
+        if f.endswith(".npy"):
+            np.testing.assert_allclose(np.load(tmp_path / "mesh" / f),
+                                       np.load(tmp_path / "plain" / f),
+                                       atol=1e-5, rtol=0)
+        else:
+            assert (tmp_path / "mesh" / f).read_bytes() == \
+                (tmp_path / "plain" / f).read_bytes(), f
+    with pytest.raises(ValueError, match="must divide"):
+        TX.extract_faces_from_dataset(teng, str(face_tree),
+                                      str(tmp_path / "o"), block_size=3,
+                                      mesh=mesh)
 
 
 def _golden_tree(root, n_per_class=3, seed=0):

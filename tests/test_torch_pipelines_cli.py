@@ -255,15 +255,32 @@ def test_filter_faces_cli_with_a_state_dict(tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("case", ["mesh", "interactive", "savedmodel", "h5"])
-def test_cli_flags_the_port_does_not_serve_raise(image_tree, tmp_path, case):
+def test_cli_flags_the_port_does_not_serve_raise(image_tree, tmp_path, case,
+                                                monkeypatch):
     from face_detection_and_recognition_tpu_torch.cli import (
         extract_and_label, extract_faces, filter_faces)
 
     out = str(tmp_path / "out")
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="A12"):
-            extract_faces.main(["-i", str(image_tree), "-o", out, "--mesh",
-                                "-d", "cpu"])
+        # served now: each block split over two devices (here repeated
+        # CPU entries standing in for two cards), the files those of the
+        # run without the mesh
+        from face_detection_and_recognition_tpu_torch.parallel import \
+            mesh as PM
+
+        asked = []
+        monkeypatch.setattr(PM, "mesh_devices", lambda device=None: (
+            asked.append(device) or [torch.device("cpu")] * 2))
+        flags = ["-i", str(image_tree), "--md", "blazeface-front",
+                 "--block", "2", "-d", "cpu"]
+        assert extract_faces.main(flags + ["-o", out + "_plain"]) == 0
+        assert extract_faces.main(flags + ["-o", out, "--mesh"]) == 0
+        assert asked == ["cpu"]
+        tree = sorted((os.path.relpath(d, out), sorted(fs))
+                      for d, _, fs in os.walk(out))
+        assert tree == sorted((os.path.relpath(d, out + "_plain"), sorted(fs))
+                              for d, _, fs in os.walk(out + "_plain"))
+        return
     elif case == "interactive":
         with pytest.raises(RuntimeError, match="no display window"):
             extract_and_label.main(["-i", str(image_tree), "-o", out,

@@ -166,9 +166,42 @@ def test_embed_and_age_gender_match_jax(services, frame):
     assert svc.embed(np.zeros((0, 112, 112, 3), np.uint8)).shape == (0, 512)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        FaceService(ServiceConfig(**SMALL, mesh=object(), device="cpu"))
+def test_mesh_is_not_ported(ckpts, services, frame):
+    """``ServiceConfig.mesh`` serves now: a service over two repeated CPU
+    entries answers as the service without one, its one-frame dispatches
+    padded to the "data" axis and sliced back, and a batch of three frames
+    (padded to four) gives every field of the unsharded ensemble."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    _, plain = services
+    mesh = make_mesh(("data",), devices=["cpu"] * 2)
+    svc = FaceService(ServiceConfig(**SMALL, **ckpts["paths"], mesh=mesh,
+                                    device="cpu"))
+    try:
+        assert svc.mesh is mesh
+        _same_contract(svc.detect_faces(frame, 0.5, 0.0),
+                       plain.detect_faces(frame, 0.5, 0.0))
+        got, ref = svc.detect_embed_classify(frame), \
+            plain.detect_embed_classify(frame)
+        np.testing.assert_allclose(got["bboxes"], ref["bboxes"], atol=1.0,
+                                   rtol=0)
+        np.testing.assert_allclose(got["embeddings"], ref["embeddings"],
+                                   atol=1e-5, rtol=0)
+        assert got["labels"] == ref["labels"]
+        imgs = np.stack([frame, frame[:, ::-1], frame // 2])
+        res = svc._ensemble(imgs, 0.5, 0.0)
+        want = plain.engine.detect_embed_classify_batch(imgs, 0.5, 0.0)
+        assert res.det.valid.shape[0] == 3 and res.crops.shape[0] == 3
+        np.testing.assert_array_equal(res.det.valid.numpy(),
+                                      want.det.valid.numpy())
+        np.testing.assert_allclose(res.det.boxes.numpy(),
+                                   want.det.boxes.numpy(), atol=1e-3, rtol=0)
+        np.testing.assert_allclose(res.embeddings.numpy(),
+                                   want.embeddings.numpy(), atol=1e-5,
+                                   rtol=0)
+    finally:
+        svc.close()
 
 
 # ---------------- the dynamic batcher ----------------

@@ -88,8 +88,18 @@ def test_topk_similar_paths_agree_and_mesh_waits(rng):
     js, ji = JS.topk_similar(emb, gal[:2], k=4, use_pallas=True)
     np.testing.assert_array_equal(i, np.asarray(ji))
     np.testing.assert_allclose(s, np.asarray(js), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TS.topk_similar(emb, gal, mesh=object(), device="cpu")
+    # mesh=: the gallery's 700 rows over 3 "model" entries (pad 2), each
+    # shard's top-k merged: the unsharded answer on both paths
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    mesh = make_mesh(("model",), devices=["cpu"] * 3)
+    for use_pallas, (ws, wi) in ((False, a), (True, b)):
+        ms, mi = TS.topk_similar(emb, gal, k=3, use_pallas=use_pallas,
+                                 mesh=mesh)
+        assert mi.dtype == np.int32
+        np.testing.assert_array_equal(mi, wi)
+        np.testing.assert_allclose(ms, ws, rtol=0, atol=1e-6)
 
 
 def _wide_gap_threshold(d):

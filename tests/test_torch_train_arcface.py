@@ -280,6 +280,26 @@ def test_decay_mask_is_flax_leaf_mask(step_runs):
 
 
 def test_sharded_step_waits_for_a12c():
-    for fn in (A.shard_train_state, A.sharded_train_step):
-        with pytest.raises(NotImplementedError, match="A12c"):
-            fn({}, None)
+    """The class-sharded step is ported: one step of the f64 state's
+    config on a 1 x 2 mesh (the kernel over "model") from the same init
+    and batch gives the unsharded step's loss and kernel (rounding of f64
+    sums in another order)."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    cfg = A.ArcFaceTrainConfig(num_classes=4, embedding_size=16, s=16.0,
+                               lr=0.05)
+    one, two = (_port_f64(A.create_train_state(cfg, device="cpu"))
+                for _ in range(2))
+    mesh = make_mesh(("data", "model"), (1, 2), ["cpu"] * 2)
+    step, replicas = A.sharded_train_step(two, mesh)
+    assert A.shard_train_state(two, mesh).keys() == replicas.keys()
+    x = torch.rand(2, 112, 112, 3, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(4)) * 2 - 1
+    y = torch.tensor([1, 3])
+    want = A.make_train_step(one)(x, y)
+    got = step(x, y)
+    assert float(got) == pytest.approx(float(want), rel=1e-12)
+    kernel = A.gather_train_state(replicas, mesh)["arcface_kernel"]
+    torch.testing.assert_close(kernel, one["arcface_kernel"].detach(),
+                               rtol=0, atol=1e-12)

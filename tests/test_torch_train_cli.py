@@ -14,8 +14,9 @@ writes a seeded checkpoint and passes). ``train_detector -d cpu`` trains on
 a tiny WIDER tree and writes a ``.pt`` an engine loads; ``train_arcface -d
 cpu`` trains on a tiny identity tree and writes a ``.pt`` whose
 ``state_dict`` an engine's embed slot loads; ``train_golden_embed -d cpu``
-runs two steps end to end; ``train_arcface --mesh`` raises naming ROADMAP
-A12c. ``quantize_checkpoint`` on the golden yolov5n
+runs two steps end to end; ``train_arcface --mesh -d cpu``, its devices
+four repeated CPU entries, trains DP + TP and writes the same layout.
+``quantize_checkpoint`` on the golden yolov5n
 (``card_weights/yolov5n.pt``) with two calibration composites gives JAX
 ``quantize_checkpoint``'s int8 codes, weight scales and biases exactly, and
 its activation scales within 1e-5 relative (each is an absmax of an
@@ -204,7 +205,7 @@ def test_quantize_checkpoint_equals_jax(tmp_path):
     assert eng.net.quantized == "static"
 
 
-def test_train_arcface_on_a_tiny_identity_tree(tmp_path):
+def test_train_arcface_on_a_tiny_identity_tree(tmp_path, monkeypatch):
     rng = np.random.RandomState(1)
     for c in range(2):
         d = tmp_path / "ids" / f"person{c}"
@@ -224,8 +225,28 @@ def test_train_arcface_on_a_tiny_identity_tree(tmp_path):
     emb = eng.embed_crops(rng.randint(0, 255, (2, 112, 112, 3))
                           .astype(np.uint8))
     assert emb.shape == (2, 512) and np.isfinite(emb).all()
-    with pytest.raises(NotImplementedError, match="A12c"):
-        TA.main(["-i", str(tmp_path / "ids"), "--mesh", "-d", "cpu"])
+    # --mesh over four devices (here repeated CPU entries standing in for
+    # four cards): DP + TP on 2 x 2, the two classes one a "model" shard,
+    # writes the same checkpoint layout, the kernel joined from its shards
+    # (the step's values are held to the JAX step in f64 by
+    # tests/test_torch_parallel_train.py: in f32 a 2-crop batch's
+    # BatchNorm variance cancels to a few digits)
+    from face_detection_and_recognition_tpu_torch.parallel import mesh as PM
+
+    asked = []
+    monkeypatch.setattr(PM, "mesh_devices", lambda device=None: (
+        asked.append(device) or [torch.device("cpu")] * 4))
+    sharded = str(tmp_path / "arc_mesh.pt")
+    assert TA.main(["-i", str(tmp_path / "ids"), "--batch", "2", "--steps",
+                    "2", "--embedding-size", "512", "--out", sharded,
+                    "--log-every", "1", "--mesh", "-d", "cpu"]) == 0
+    assert asked == ["cpu"]
+    ms = torch.load(sharded)
+    assert ms["arcface_kernel"].shape == (512, 2)
+    assert torch.isfinite(ms["arcface_kernel"]).all()
+    assert ms["state_dict"].keys() == ck["state_dict"].keys()
+    moved = (ms["arcface_kernel"] - ck["arcface_kernel"]).abs().max()
+    assert float(moved) < 0.05   # the same init, two close steps
 
 
 def test_train_golden_embed_runs_end_to_end(tmp_path, capsys):

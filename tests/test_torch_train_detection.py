@@ -402,5 +402,22 @@ def test_init_statistics_match_flax():
 
 
 def test_sharded_step_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A12c"):
-        D.sharded_det_train_step({}, None)
+    """The data-parallel step is ported: yolov5n over two repeated CPU
+    entries, B = 2 split one a piece, gives the unsharded step's loss and
+    moves the weights as it does (BatchNorm statistics of the whole
+    batch)."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    cfg = D.DetTrainConfig(input_size=(SIZE, SIZE), **SCHED, **HEADS["face"])
+    one, two = (D.create_det_train_state(cfg, device="cpu")
+                for _ in range(2))
+    init = {k: v.clone() for k, v in one["net"].state_dict().items()}
+    step, replicas = D.sharded_det_train_step(
+        two, make_mesh(("data",), devices=["cpu"] * 2))
+    assert len(replicas) == 2 and next(iter(replicas.values())) is two
+    x, t, v = map(torch.from_numpy, _batch(np.random.RandomState(8)))
+    want, got = D.make_det_train_step(one)(x, t, v), step(x, t, v)
+    assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+    assert not change_gaps(two["net"].state_dict(), one["net"].state_dict(),
+                           init, 1e-3)

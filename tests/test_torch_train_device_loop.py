@@ -190,6 +190,15 @@ def test_chunks_lower_the_loss_and_move_the_ema():
 
 
 def test_mesh_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A12c"):
-        DL.make_chunk_trainer(lambda *a: None, {"net": None, "ema": None},
-                              2, 2, mesh=object())
+    """``mesh=`` is ported: the chunk trainer refuses a batch the "data"
+    axis does not divide and a step that is not data-parallel (a
+    ``parallel.training.data_parallel_step``)."""
+    from face_detection_and_recognition_tpu_torch.parallel.mesh import \
+        make_mesh
+
+    mesh = make_mesh(("data",), devices=["cpu"] * 2)
+    state = {"net": None, "ema": None}
+    with pytest.raises(ValueError, match="does not divide"):
+        DL.make_chunk_trainer(lambda *a: None, state, 3, 2, mesh=mesh)
+    with pytest.raises(ValueError, match="data_parallel_step"):
+        DL.make_chunk_trainer(lambda *a: None, state, 2, 2, mesh=mesh)
