@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
-yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
+export, yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
 res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights,
 bf16-families, training, recognition-training and multi-device paths on
 one CUDA card, and trace its detect path.
@@ -12,7 +12,8 @@ seconds:
 
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernels of the paths;
-2. build: ``csrc/*.cu`` through one nvcc call (cold, or found built);
+2. build: ``csrc/*.cu``, one nvcc a source at once and a link (cold, or
+   found built);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main paths' shapes; each must be exactly equal. B1, in each of
    its three option sets: B = 8 frames of K = 1024 candidates, K = 1000
@@ -74,10 +75,28 @@ seconds:
    timed alone, and the engine's fused stage bit for bit against the ops
    layer's route (``decode_boxes`` + ``weighted_blend_nms``, the
    standalone B5, which no engine calls).
+8. main path, export (``utils/export.py``): ``export_detector`` of the
+   phase 4 yolov5s engine (B1 + B2), BlazeFace-front (B5 fused), a dynamic
+   int8 yolov5n (Q1 + B2 + B1) and ov-0204 (B1 at K = 400), each on its
+   preprocessed 8 frames; ``export_ensemble`` of the phase 5 engine on the
+   8 576 x 1024 frames (B1 + B2 + B3; thresholds 0); ``export_jitted`` of
+   a B4 search of the similarity path's gallery (its live embeddings as
+   queries) and of the ops layer's blend NMS (the standalone B5) on seeded
+   rows. Each program is written under ``build/chip_smoke/export/``,
+   reloaded by ``load_exported`` and called; its outputs must equal the
+   eager call's bit for bit, the ensemble's nets' outputs within
+   ``EXPORT_NET_TOL`` (the program runs them on every slot, the eager call
+   on the live ones). The counts are zeroed after each program's export
+   (which runs it once eagerly) and reload, and read after its reloaded
+   call: its kernels must launch there, and the path's counts are the sum
+   over the reloaded calls. Then the export and reload seconds, each program's ms between
+   CUDA events in turns with its eager call (eager, reloaded, reloaded,
+   eager), the device ms and operations of both (profiler), and B1's host
+   us a call through ``fdr::nms_fixpoint`` against its wrapper;
    Each main path zeroes the launch counts just before it and reads them
    just after; every kernel of the path must have launched, and every
    output must be finite and of the contract's shape;
-8. main path, yolov5 family + embedders: yolov5s6-face (four levels, gd
+9. main path, yolov5 family + embedders: yolov5s6-face (four levels, gd
    0.33, gw 0.50) ``detect_batch`` on the 8 frames square (640 x 640),
    rect (640 x 384) and at 960 x 960; yolov5s-official (nc 80, no
    landmarks) ``detect_batch``; yolov5s6 + FaceNet (160 x 160, 128-d) +
@@ -92,7 +111,7 @@ seconds:
    on the official head's class-shifted candidates (coordinates up to
    ~3.3e5), bit for bit and timed; each net's device ms on up to 512
    crops;
-9. main path, cli + serving: a seeded smooth 576 x 1024 frame through the
+10. main path, cli + serving: a seeded smooth 576 x 1024 frame through the
    port's JPEG codec (``utils/native.py``: encoded, decoded, the round
    trip's error bounded, the codec's library printed); the ``detect_face`` CLI in
    process on that JPEG (yolov5s, thresholds 0, then again with
@@ -108,7 +127,7 @@ seconds:
    answer against the engine's answer in a batch of its dispatch's size
    (the batcher records each dispatch's size); the request times (p50,
    max) and the batcher's counts are printed;
-10. main path, pipelines: the dataset CLIs on seeded trees written through
+11. main path, pipelines: the dataset CLIs on seeded trees written through
    the card's JPEG encoder. ``extract_faces`` (yolov5s + mobile_facenet,
    blocks of 64, thresholds 0) on two classes of 48 576 x 1024 JPEGs, a
    PNG and a BMP, with a WebP and a video that must end in
@@ -125,7 +144,7 @@ seconds:
    bit. Then extract_faces on 2 media a class on the card and on the CPU
    (face counts equal, feature rows of the same boxes within 1e-4), and
    1-px, sliver and odd-sized crops through the port's JPEG codec;
-11. main path, ssd + mtcnn: ``detect_batch`` of ssd-resnet10 (300 x 300),
+12. main path, ssd + mtcnn: ``detect_batch`` of ssd-resnet10 (300 x 300),
    ssd-mobilenetv2 (448 x 448) and ssd-squeezenet (300 x 300) on the 8
    frames at thresholds 0, one B1 launch each; mtcnn at native resolution
    at its default thresholds and with every stage full (thresholds 0): 11
@@ -143,7 +162,7 @@ seconds:
    MTCNN's global pass and in ``min`` mode, and B3 pad at 24 and 48,
    timed beside their bounds; the host JPEG codec's decode of a 576 x 1024
    quality-95 frame and encode of the frame and of 112 x 112 crops;
-12. main path, res10 + openvino: a seeded res10 caffemodel and a seeded
+13. main path, res10 + openvino: a seeded res10 caffemodel and a seeded
    ov-0204 IR (``.xml`` + ``.bin``) written under ``build/chip_smoke/``
    by the port's writers; ``detect_batch`` (8 frames, thresholds 0) and
    ``detect_image`` of res10-ssd (the caffemodel through
@@ -159,7 +178,7 @@ seconds:
    2 frames against the port on the CPU (1e-4); frames/s, the stage split
    (``utils/profiling.detect_stages``) and B1 at K = 400 of each detector,
    timed beside its bound;
-13. main path, int8 + keras + eval: yolov5n and yolov5s at full width
+14. main path, int8 + keras + eval: yolov5n and yolov5s at full width
    built with ``detector_overrides={"quantized": True}`` and ``"static"``
    (seeded f32 weights folded and quantized by ``utils/quantize.py``; the
    static scales calibrated again on the 8 frames), ``detect_batch`` of
@@ -174,7 +193,8 @@ seconds:
    one forward of each net and mode, captured by a spy, against its plain
    version (the pre-activation bit for bit, SiLU within 4 ulps), and
    yolov5n's dynamic ones against the plain version on the CPU on the
-   same inputs (the pre-activation bit for bit, SiLU's ulps printed); Q1
+   first two frames of the same inputs (the pre-activation bit for bit,
+   SiLU's ulps printed); Q1
    on a fixed sweep of its edge shapes (``Q1_SWEEP``: ragged C_in, C_out
    and M, k = 5, depthwise, channel-slice and NCHW inputs; both modes)
    against its plain version the same way; Q1 timed
@@ -188,7 +208,7 @@ seconds:
    it takes, beside Q1's device ms of the same calls; each net's rows
    on the first 2 frames against the port on the CPU (the difference
    printed); frames/s and network ms of int8 against f32;
-14. main path, bf16: ``FaceEngine(EngineConfig(detector="yolov5s",
+15. main path, bf16: ``FaceEngine(EngineConfig(detector="yolov5s",
    dtype=torch.bfloat16))`` at full width with seeded weights,
    ``detect_batch`` on the 8 frames square and rect and ``detect_image`` on
    the 3 single frames, then the yolov5s + mobile_facenet + age/gender bf16
@@ -207,7 +227,7 @@ seconds:
    the card against the same layer on the CPU (at least 99.9 % of its
    elements bit for bit and every difference within 2 bf16 ulps of its
    largest output, or the run fails);
-15. main path, trained weights: the nets of ``card_weights/``
+16. main path, trained weights: the nets of ``card_weights/``
    (``eval/card_weights.py``; yolov5s f32 and bf16, yolov5n f32 and int8
    static, blazeface-front, mtcnn f32 and bf16, loaded through the engine's
    weight loaders) through the golden gate of each net's JAX test on the
@@ -216,7 +236,7 @@ seconds:
    int8 net: the same counts, its largest difference printed), and
    MobileFaceNet's embeddings of the pinned crops at cosine >= 0.999 to
    JAX's; each net is a part of the path;
-16. main path, bf16 families: blazeface front and back, the three SSDs,
+17. main path, bf16 families: blazeface front and back, the three SSDs,
    mtcnn (every stage full), res10-ssd, ov-0204, ov-squeezenet-light and
    openvino-ir with ``EngineConfig(dtype=torch.bfloat16)``,
    ``detect_batch`` on the 8 frames at thresholds 0, a part each; then B1,
@@ -225,17 +245,18 @@ seconds:
    against the same net on the CPU (the share of equal elements), and
    each network's ms between events and device ms and operations, bf16
    beside f32;
-17. main path, training: one ``make_det_train_step_ema`` step of yolov5s
-   at 640 x 640, B = 16 (golden composites) on the card and on the CPU
+18. main path, training: one ``make_det_train_step_ema`` step of yolov5s
+   at 640 x 640, B = 4 (golden composites) on the card and on the CPU
    from the same weights and batch, in the step's own precision (f32,
    TF32 off, as the timed chunks and ``train_golden`` train): the loss
    and each updated parameter, BN statistic and EMA tensor within the
    stated tolerances;
    the device loop's step timed (ms between events, steps/s) and one
    chunk traced (device ms a step, the device's idle share);
-   ``train_golden`` (yolov5s, 640, B = 16, 40 steps resumed from
-   ``card_weights/yolov5s.pt``, evals every 20, 32 composites): finite
-   chunk losses, 40 updates, the EMA moved, B1 and B2 launched by the
+   ``train_golden`` (yolov5s, 640, B = 16, 4 steps resumed from
+   ``card_weights/yolov5s.pt``, evals every 2, 32 composites, a buffer of
+   the 64 augmented examples the steps draw): finite
+   chunk losses, 4 updates, the EMA moved, B1 and B2 launched by the
    gates, the written ``.pt`` reloaded into a fresh engine giving the
    in-memory candidate's detections of the golden pair bit for bit (the
    gate's verdict printed, not asserted); ``quantize_golden`` of
@@ -245,13 +266,13 @@ seconds:
    Q1; three steps of the BlazeFace-front (128) and ssd-resnet10 (300)
    trainers, each loss against the CPU's. Each of ``train_golden`` and
    ``quantize_golden`` is a part of the path;
-18. main path, recognition training: one ArcFace step of MobileFaceNet
+19. main path, recognition training: one ArcFace step of MobileFaceNet
    (112 x 112, 512-d, B = 48, three golden identities, s = 16, center
    gain 0.02) on the card and on the CPU from the same weights and batch:
    the loss, each parameter, BN statistic and SGD momentum buffer within
    the stated tolerances; the step timed (ms between events, steps/s,
    device ms and operations, the device's idle share over a traced chunk);
-   ``train_golden_embedder`` (50 steps of its recipe) with its ``.pt``
+   ``train_golden_embedder`` (25 steps of its recipe) with its ``.pt``
    reloaded into a fresh engine bit for bit, and ``evaluate_retrieval``
    over 16 identities with ``use_pallas=True`` (B4) and ``False``, the
    same rank-1 lists; ``train_golden_ag`` from ``card_weights/yolov5n.pt``
@@ -262,7 +283,7 @@ seconds:
    ``FaceEngine.load_weights`` giving the in-memory net's detections bit
    for bit. The gates' verdicts are printed, not asserted; each trainer is
    a part of the path;
-19. multi-device: single-process meshes over the card (``parallel/``;
+20. multi-device: single-process meshes over the card (``parallel/``;
    the entries repeat the card, or are dealt over the cards of a larger
    host): yolov5s ``detect_batch_sharded`` and the yolov5s +
    mobile_facenet + age/gender ensemble (``mesh=``, thresholds 0) on the 8
@@ -283,10 +304,10 @@ seconds:
    fused on BlazeFace, B4 on the search and Q1 on int8. Then the
    MobileFaceNet B = 48 ArcFace step DP + TP on a 2 x 2 mesh (4 classes,
    the kernel split by classes) against the unsharded step on the card,
-   within phase 18's tolerances, both timed; and ``parallel.mp_demo`` as
+   within phase 19's tolerances, both timed; and ``parallel.mp_demo`` as
    one rank over NCCL (world size 1) in both modes, each result equal to
    the same job on a one-entry mesh in this process;
-20. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+21. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -1312,7 +1333,8 @@ def run_similarity(emb, card):
     """The similarity main path: the ensemble's live embeddings searched
     with ``topk_similar`` on both paths against a seeded numpy gallery of
     IMDB-WIKI's size, then ``filter_embeddings`` on the card. Returns the
-    launch counts of this path alone."""
+    launch counts of this path alone, and the normalised gallery on the
+    card (the export phase searches it)."""
     from face_detection_and_recognition_tpu_torch.pipelines import \
         similarity as S
 
@@ -1328,7 +1350,7 @@ def run_similarity(emb, card):
     g = S.normalize_rows(gallery)
     t_norm = time.time() - t
     t = time.time()
-    torch.as_tensor(g, device="cuda")
+    g_card = torch.as_tensor(g, device="cuda")
     torch.cuda.synchronize()
     t_copy = time.time() - t
     del g
@@ -1375,7 +1397,7 @@ def run_similarity(emb, card):
     if keep.shape != (probes.shape[0],) or (keep != keep_cpu).any():
         raise AssertionError("filter_embeddings on the card is off")
     torch.cuda.synchronize()
-    return dict(ck.LAUNCHES)
+    return dict(ck.LAUNCHES), g_card
 
 
 def run_blazeface(frames, singles, card):
@@ -3159,13 +3181,14 @@ def check_q1_sweep():
 
 def q1_card_against_cpu(label, calls):
     """Each Q1 call of a forward on the card against the plain version on
-    the CPU, on the same inputs copied there: the pre-activation bit for
-    bit (both convolve the same codes exactly), and SiLU's largest
-    distance in ulps (the card's expf against PyTorch's exp on the CPU).
-    Returns that distance."""
+    the CPU, on the first ``CPU_FRAMES`` frames of its input, copied
+    there: the pre-activation bit for bit (both convolve the same codes
+    exactly), and SiLU's largest distance in ulps (the card's expf against
+    PyTorch's exp on the CPU). Returns that distance."""
     worst = 0
     with torch.inference_mode():
         for args, _ in calls:
+            args = (args[0][:CPU_FRAMES],) + args[1:]
             host = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
             if not same_bits(ck.conv_int8(*q1_linear(args)).cpu(),
                              q1_plain(q1_linear(host))):
@@ -3176,7 +3199,8 @@ def q1_card_against_cpu(label, calls):
             worst = max(worst, max_ulps(ck.conv_int8(*args).cpu(),
                                         q1_plain(host)))
     say(f"  Q1 on {label}, card against the CPU's plain version, layer by "
-        f"layer on the card's inputs: {len(calls)} calls, pre-activation "
+        f"layer on the card's inputs (their first {CPU_FRAMES} frames): "
+        f"{len(calls)} calls, pre-activation "
         f"bit for bit, SiLU within {worst} ulps")
     return worst
 
@@ -4044,15 +4068,21 @@ def run_int8_keras_eval(frames, card):
 
 
 # [main path: training]: yolov5s at the main path's width and train_golden's
-# batch; the golden run resumes from the trained net, 40 steps, two evals
+# batch; the golden run resumes from the trained net, 4 steps, two evals:
+# its augmented buffer then holds the 64 examples the steps draw, where
+# 768 (the buffer of a run of 48 steps or more) took ~100 of the phase's
+# 167 s of host mosaic on the card's host (~0.15-0.3 s an example)
 TRAIN_DIR = WORK_DIR / "training"
 TRAIN_DEVICE = "cuda"
 TRAIN_ARCH, TRAIN_SIZE, TRAIN_B = "yolov5s", 640, 16
-GOLDEN_STEPS, GOLDEN_EVAL, GOLDEN_IMAGES = 40, 20, 32
+GOLDEN_STEPS, GOLDEN_EVAL, GOLDEN_IMAGES = 4, 2, 32
 # the strict IoU bar keeps the run from stopping at its first eval (the
 # trained net's IoUs are 0.85-0.96): the verdict is printed, not asserted
 GOLDEN_GATE = {"gate_det_thres": 0.6, "gate_margin": 0.15, "gate_iou": 0.95}
-TIMED_STEPS = 10
+TIMED_STEPS = 5
+# the card-against-CPU step runs on the batch's first STEP_B examples (all
+# 16 took ~11 s of the CPU on the card's host)
+STEP_B = 4
 FAMILY_STEPS, FAMILY_B = 3, 8
 # card against CPU, one step from the same weights and batch, in the
 # precision every step trains in (train_precision: f32, TF32 off): the
@@ -4266,7 +4296,8 @@ def run_training(card):
         out_wh=(TRAIN_SIZE, TRAIN_SIZE), seed=SEED, include_real=False)
     data = build_example_buffer(load_wider_index(ann, root), TRAIN_B,
                                 (TRAIN_SIZE, TRAIN_SIZE), 8, seed=SEED)
-    state, stats["step"] = train_step_card_vs_cpu(data)
+    state, stats["step"] = train_step_card_vs_cpu(
+        tuple(a[:STEP_B] for a in data))
     stats["timing"] = time_training(state, data)
     del state
     torch.cuda.empty_cache()
@@ -4370,8 +4401,11 @@ def run_training(card):
 REC_DIR = WORK_DIR / "recognition"
 REC_DEVICE = "cuda"
 ARC_B, ARC_IDS, ARC_S, ARC_CENTER = 48, 3, 16.0, 0.02
-ARC_TIMED_STEPS = 20
-EMBED_STEPS, EMBED_PER_ID = 50, 96
+ARC_TIMED_STEPS = 5
+# the card-against-CPU step runs on the batch's first STEP_B examples (all
+# 16 took ~11 s of the CPU on the card's host)
+STEP_B = 4
+EMBED_STEPS, EMBED_PER_ID = 25, 96
 AG_STEPS, AG_EVAL, AG_BUFFER, AG_B = 60, 20, 256, 64
 MTCNN_IMAGES, MTCNN_CROPS, MTCNN_B, MTCNN_STEPS = 12, 512, 64, 20
 GRAPH_STEPS, GRAPH_B = 3, 4
@@ -4585,7 +4619,7 @@ def time_arcface(state, x, y):
 
 
 def golden_embed_part(card):
-    """``train_golden_embedder`` (MobileFaceNet, its recipe, ~50 steps),
+    """``train_golden_embedder`` (MobileFaceNet, its recipe, 25 steps),
     the ``.pt`` reloaded into a fresh engine against the in-memory net's
     embeddings bit for bit. The gate's verdict is printed, not
     asserted."""
@@ -4901,7 +4935,7 @@ def run_recognition_training(frames, card):
 # one), and mp_demo as one NCCL rank
 MD_DEVICE = "cuda"           # where the unsharded calls run
 MD_SHARDS = 2                # entries on "data" (and on "model")
-MD_ITERS = 5                 # calls each path is timed over
+MD_ITERS = 3                 # calls each path is timed over
 MD_CLASSES = 4               # the DP + TP step's classes (3 identities),
 #                              split over 2 "model" entries
 MD_DIR = WORK_DIR / "multi_device"
@@ -5105,6 +5139,15 @@ def md_mp_demo(stats):
             cwd=repo, env=dict(os.environ,
                                OMP_NUM_THREADS=str(torch.get_num_threads())),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    # the same jobs in this process while the ranks run
+    try:
+        wants = {mode: MP.run_local(1, mode, device=MD_DEVICE)
+                 for mode, _, _ in procs}
+    except BaseException:
+        for _, _, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
     for mode, out, proc in procs:
         try:
             log = proc.communicate(timeout=300)[0].decode(errors="replace")
@@ -5116,7 +5159,7 @@ def md_mp_demo(stats):
             raise AssertionError(f"mp_demo --mode {mode} as one rank: exit "
                                  f"{proc.returncode}\n{log[-3000:]}")
         got = json.loads(out.read_text())
-        want = MP.run_local(1, mode, device=MD_DEVICE)
+        want = wants[mode]
         rtol = MD_MP_RTOL if mode == "train" else 0.0
         for key, val in want.items():
             if abs(got[key] - val) > rtol * abs(val):
@@ -5255,6 +5298,217 @@ def run_multi_device(frames, card, det, ens, blaze_front):
 
 
 
+EXPORT_DIR = WORK_DIR / "export"
+EXPORT_DEVICE = "cuda"       # where the exported programs run
+EXPORT_ITERS = 3             # calls each program is timed over
+# the exported ensemble runs its nets on all B x K slots, masked; the eager
+# call on the slots before the last live column. cuDNN picks a
+# convolution's algorithm by its batch size, so where the two batches
+# differ the nets' sums may too: the boxes, scores, valid masks and crops
+# must be equal bit for bit, the nets' outputs within these bounds, each
+# about ten times the reading of the same effect in the multi-device phase
+# on an H100 (embeddings 1.0e-7, age 4.2e-5, gender 1.6e-10; MD_WHOLE_TOL)
+EXPORT_NET_TOL = {"embeddings": 1e-5, "age_probs": 5e-4,
+                  "gender_probs": 1e-6}
+
+
+def export_program(label, export, path, args, eager, expect, stats,
+                   tol=None):
+    """Export a program to ``path`` (``export(path)``), reload it with
+    ``load_exported`` and call it on ``args``; its outputs against
+    ``eager`` (the engine's outputs on the same inputs, a tuple), bit for
+    bit or, where ``tol`` names an output's index, within its bound. The
+    launch counts are zeroed after the export (which runs the program
+    eagerly first) and the reload, and read after the reloaded call: each
+    kernel in ``expect`` must have launched there. Records the export and
+    reload seconds in ``stats[label]`` and returns the reloaded program
+    and the reloaded call's counts."""
+    from face_detection_and_recognition_tpu_torch.utils.export import \
+        load_exported
+
+    t = time.time()
+    export(str(path))
+    t_export = time.time() - t
+    t = time.time()
+    ex = load_exported(str(path))
+    t_load = time.time() - t
+    ck.reset_launches()
+    out = ex.call(*args)
+    sync()
+    launches = dict(ck.LAUNCHES)
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"export {label}: the reloaded program "
+                                 f"launched no {name}")
+    if len(out) != len(eager):
+        raise AssertionError(f"export {label}: {len(out)} outputs, eager "
+                             f"{len(eager)}")
+    gaps = []
+    for i, (got, ref) in enumerate(zip(out, eager)):
+        if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype \
+                or got.device != ref.device:
+            raise AssertionError(f"export {label}: output {i} is "
+                                 f"{tuple(got.shape)} {got.dtype} on "
+                                 f"{got.device}, eager {tuple(ref.shape)} "
+                                 f"{ref.dtype} on {ref.device}")
+        if tol and i in tol:
+            gap = float((got - ref).abs().max()) if got.numel() else 0.0
+            gaps.append(gap)
+            if not gap <= tol[i]:
+                raise AssertionError(f"export {label}: output {i} is "
+                                     f"{gap:.3e} from the eager call's "
+                                     f"(bound {tol[i]})")
+        elif not same_bits(got, ref):
+            raise AssertionError(f"export {label}: output {i} differs from "
+                                 "the eager call's")
+    stats[label] = {"export_s": round(t_export, 3),
+                    "load_s": round(t_load, 3),
+                    "file_mb": round(path.stat().st_size / 2**20, 2),
+                    "launches": {k: v for k, v in launches.items() if v}}
+    if gaps:
+        stats[label]["gaps"] = gaps
+    say(f"  {label}: exported in {t_export:.2f} s "
+        f"({stats[label]['file_mb']} MiB), reloaded in {t_load:.2f} s, "
+        f"{len(out)} outputs equal to the eager call's"
+        + (f" (within bounds: {', '.join(f'{g:.2e}' for g in gaps)})"
+           if gaps else " bit for bit")
+        + f"; its call launched {stats[label]['launches']}")
+    return ex, launches
+
+
+def sync():
+    if EXPORT_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_export(frames, card, det, ens, blaze_front, queries, gallery):
+    """The export main path (``utils/export.py``): the yolov5s detector
+    (B1 + B2), BlazeFace-front (B5 fused), the dynamic int8 yolov5n (Q1 +
+    B2 + B1) and ov-0204 (B1 at K = 400) through ``export_detector``, the
+    yolov5s + MobileFaceNet + age/gender ensemble on the 576 x 1024 frames
+    through ``export_ensemble`` (B1 + B2 + B3), a search of the similarity
+    path's gallery (B4) and BlazeFace's ops-layer blend NMS (the
+    standalone B5) through ``export_jitted``: each exported to
+    ``build/chip_smoke/export/``, reloaded by ``load_exported`` and called
+    on the phase's inputs, its outputs held to the eager call's. The
+    launch counts are zeroed after each program's export and reload and
+    read after its reloaded call (``export_program``); the path's counts
+    are their sum (the eager references run before, their timings
+    after). Returns the counts of this path alone and the numbers."""
+    from face_detection_and_recognition_tpu_torch.ops.nms import \
+        weighted_blend_nms
+    from face_detection_and_recognition_tpu_torch.utils import export as X
+
+    if EXPORT_DIR.exists():
+        shutil.rmtree(EXPORT_DIR)
+    EXPORT_DIR.mkdir(parents=True)
+    dev = torch.device(EXPORT_DEVICE)
+    t = time.time()
+    int8 = FaceEngine(EngineConfig(detector="yolov5n", seed=SEED,
+                                   detector_overrides={"quantized": True}),
+                      device=dev)
+    ov = FaceEngine(EngineConfig(detector="ov-0204", seed=SEED), device=dev)
+    say(f"  int8 yolov5n and ov-0204 engines built in "
+        f"{time.time() - t:.1f} s")
+    frames_t = torch.from_numpy(frames).to(dev)
+    dets_in, valid_in = blend_inputs(torch.Generator().manual_seed(SEED + 9),
+                                     frames.shape[0], 896)
+    dets_in, valid_in = dets_in.to(dev), valid_in.to(dev)
+    thr = dict(det_thres=0.0, bbox_area_thres=0.0)
+
+    def blend(d, v):
+        return weighted_blend_nms(d, v, 0.3, 16)
+
+    def search(q, g):
+        return ck.topk_gallery(q, g, TOPK_K)
+
+    # (label, export, inputs, eager function, the kernels its reloaded
+    # call must launch); the detectors take their preprocessed input
+    b1, b2 = "nms_fixpoint", "rows_gather"
+    programs = []
+    for label, eng, expect in (
+            ("yolov5s detect", det, (b1, b2)),
+            ("blazeface-front detect", blaze_front, ("blaze_decode_blend",)),
+            ("int8 yolov5n detect", int8, ("conv_int8", b1, b2)),
+            ("ov-0204 detect", ov, (b1,))):
+        with torch.no_grad():  # an input export takes: no inference tensor
+            x = eng._preprocess(frames_t)
+        programs.append((label, lambda p, e=eng, n=x.shape[0]:
+                         X.export_detector(e, p, batch=n), (x,), eng._detect,
+                         expect))
+
+    def ensemble(imgs):
+        r = ens.detect_embed_classify_batch(imgs, **thr)
+        return (r.det.boxes, r.det.scores, r.det.valid, r.crops,
+                r.embeddings, r.age_probs, r.gender_probs)
+
+    programs.append(("yolov5s + mobile_facenet + age/gender ensemble",
+                     lambda p: X.export_ensemble(
+                         ens, p, batch=frames.shape[0],
+                         image_hw=frames.shape[1:3], **thr),
+                     (frames_t,), ensemble, (b1, b2, "crop_resize")))
+    programs.append(("topk_gallery search", lambda p: X.export_jitted(
+        search, [queries, gallery], p, device=dev), (queries, gallery),
+        search, ("topk_gallery",)))
+    programs.append(("weighted_blend_nms", lambda p: X.export_jitted(
+        blend, [dets_in, valid_in], p, device=dev), (dets_in, valid_in),
+        blend, ("blend_nms",)))
+    eager = {}
+    for label, _, args, fn, _ in programs:
+        with torch.inference_mode():
+            out = fn(*args)
+        eager[label] = tuple(out) if isinstance(out, tuple) else (out,)
+    sync()
+    stats, loaded = {}, {}
+    tol = {4 + i: EXPORT_NET_TOL[n] for i, n in
+           enumerate(("embeddings", "age_probs", "gender_probs"))}
+    launches = dict.fromkeys(ck.LAUNCHES, 0)
+    t_phase = time.time()
+    for label, export, args, _, expect in programs:
+        path = EXPORT_DIR / (re.sub(r"[^a-z0-9]+", "_", label) + ".pt2")
+        loaded[label], counts = export_program(
+            label, export, path, args, eager[label], expect, stats,
+            tol=tol if "ensemble" in label else None)
+        for name, n in counts.items():
+            launches[name] += n
+    say(f"  exported, reloaded and checked in {time.time() - t_phase:.1f} s")
+    # after the counts are read: each program timed in turns with its eager
+    # call (eager, reloaded, reloaded, eager), and its device time and
+    # operations from the profiler
+    for label, _, args, fn, _ in programs:
+        def eager_call(fn=fn, args=args):
+            with torch.inference_mode(), _full_f32(dev):
+                return fn(*args)
+
+        def reloaded(ex=loaded[label], args=args):
+            return ex.call(*args)
+
+        turns = [cuda_ms(f, EXPORT_ITERS) for f in (eager_call, reloaded,
+                                                      reloaded, eager_call)]
+        (dev_r, ops_r), (dev_e, ops_e) = (device_ms(f, 1) for f in
+                                          (reloaded, eager_call))
+        stats[label].update(ms=turns[1:3], eager_ms=[turns[0], turns[3]],
+                            device_ms=dev_r, device_ops=ops_r,
+                            eager_device_ms=dev_e, eager_device_ops=ops_e)
+        say(f"  {label}: reloaded {turns[1]:.3f} / {turns[2]:.3f} ms, eager "
+            f"{turns[0]:.3f} / {turns[3]:.3f} ms between CUDA events (in "
+            f"turns); device {dev_r:.3f} ms in {ops_r} operations against "
+            f"{dev_e:.3f} ms in {ops_e} on {card}")
+    # the dispatcher hop a reloaded program adds to each kernel call: B1
+    # through its operator against its wrapper, host us a call
+    nms_args = (*nms_inputs(torch.Generator().manual_seed(SEED + 10)), 0.3,
+                True, False, "union")
+    nms_args = tuple(a.to(dev) if torch.is_tensor(a) else a
+                     for a in nms_args)
+    hop = {"operator_us": host_us(lambda: torch.ops.fdr.nms_fixpoint.default(
+        *nms_args)), "wrapper_us": host_us(lambda: ck.nms_fixpoint(*nms_args))}
+    stats["B1 host us a call"] = hop
+    say(f"  B1 (8 x 1024) host us a call: {hop['operator_us']:.1f} through "
+        f"fdr::nms_fixpoint, {hop['wrapper_us']:.1f} through its wrapper")
+    shutil.rmtree(EXPORT_DIR)
+    return launches, stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -5370,7 +5624,7 @@ def main():
     say("[main path: similarity] the ensemble's embeddings against a "
         "gallery")
     emb = ens_result.embeddings[ens_result.det.valid].cpu().numpy()
-    similarity_launches = run_similarity(emb, card)
+    similarity_launches, gallery = run_similarity(emb, card)
     say(f"  launches on the similarity path: {similarity_launches}")
     if similarity_launches["topk_gallery"] <= 0:
         raise AssertionError("kernel topk_gallery never launched on the path")
@@ -5384,6 +5638,22 @@ def main():
                              "the path")
     kernels[-1].update(check_blaze_on_path(blaze, frames))
     phase_end("main path: blazeface")
+
+    say("[main path: export] utils/export.py: yolov5s, BlazeFace-front, "
+        "int8 yolov5n and ov-0204 detectors, the yolov5s ensemble, a "
+        "gallery search and the blend NMS, exported, reloaded and called")
+    queries = unit_rows(torch.from_numpy(emb)).cuda()
+    export_launches, export_stats = run_export(
+        frames, card, engines[False], ens, blaze["blazeface-front"], queries,
+        gallery)
+    del gallery, queries
+    say(f"  launches on the export path: {export_launches}")
+    say(f"  export numbers: {json.dumps(export_stats)}")
+    for name in ck.LAUNCHES:
+        if export_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "export path")
+    phase_end("main path: export")
 
     say("[main path: yolov5 family + embedders] yolov5s6, yolov5s-official,"
         " facenet, facenet-512, reid-mnv2, demographics")
@@ -5551,6 +5821,7 @@ def main():
                    "ensemble": ensemble_launches[k["name"]],
                    "similarity": similarity_launches[k["name"]],
                    "blazeface": blaze_launches[k["name"]],
+                   "export": export_launches[k["name"]],
                    "yolov5 family + embedders": family_launches[k["name"]],
                    "cli + serving": serving_launches[k["name"]],
                    "pipelines": pipeline_launches[k["name"]],

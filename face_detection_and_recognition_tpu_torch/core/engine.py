@@ -28,7 +28,6 @@ ensemble refuses it.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import os
@@ -45,6 +44,7 @@ from ..models.embedders import get_embedder, preprocess_crops
 from ..ops import preprocess as P
 from ..ops.crop import crop_and_resize, crop_for_net, pad_boxes
 from ..ops.geometry import rect_letterbox_size, resize_bilinear
+from ..ops.platform import full_f32 as _full_f32
 from ..ops.platform import resolve_device
 from ..utils.quantize import quantized_mode
 from .detections import Detections, PostProcessedDetection, postprocess_detections
@@ -134,18 +134,6 @@ def _ir_input_size(net) -> Optional[Tuple[int, int]]:
     None."""
     dims = getattr(net, "input_dims", None)
     return (int(dims[3]), int(dims[2])) if dims and len(dims) == 4 else None
-
-
-def _full_f32(device: torch.device):
-    """cuDNN runs f32 convolutions in TF32 by default; the reference is f32.
-    Turn TF32 off for the forward only, leaving every other flag as set. A
-    bf16 net's f32 convolutions of bf16 values run under it too, so their
-    sums are f32 sums of exact products, as the JAX layer's are."""
-    if device.type != "cuda":
-        return contextlib.nullcontext()
-    c = torch.backends.cudnn
-    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
-                   deterministic=c.deterministic, allow_tf32=False)
 
 
 class FaceEngine:
@@ -430,13 +418,27 @@ class FaceEngine:
                                       in_size, det_thres, area_thres)
 
     def _pipeline_for(self, shape: Tuple[int, int, int]) -> Callable:
-        """Preprocess + detect + postprocess for one source resolution. The
-        JAX package compiled and cached this per resolution
-        (``_compile_pipeline``); here it is a closure over the resolution's
-        geometry, and the resample matrices it needs are cached in
-        ``ops.geometry``. A native-resolution detector takes the frames as
-        they are, and its input size is theirs."""
+        """Preprocess + detect + postprocess for one source resolution
+        (``_detect_fn``), run in inference mode. The JAX package compiled
+        and cached this per resolution (``_compile_pipeline``); here it
+        is a closure, and the resample matrices it needs are cached in
+        ``ops.geometry``."""
         self._pipelines.add(("detect",) + tuple(shape))
+        detect = self._detect_fn(shape)
+
+        def run(imgs: torch.Tensor, det_thres: float,
+                area_thres: float) -> Detections:
+            with torch.inference_mode():
+                return detect(imgs, det_thres, area_thres)
+
+        return run
+
+    def _detect_fn(self, shape: Tuple[int, int, int]) -> Callable:
+        """``(frames, det_thres, area_thres) -> Detections`` for one source
+        resolution: a function of tensors with no host read, closed over
+        the resolution's geometry (the detect program ``export_ensemble``
+        traces). A native-resolution detector takes the frames as they
+        are, and its input size is theirs."""
         h, w = shape[:2]
         native = self.native_resolution
         in_size = (w, h) if native else self.spec.input_size
@@ -448,11 +450,10 @@ class FaceEngine:
 
         def run(imgs: torch.Tensor, det_thres: float,
                 area_thres: float) -> Detections:
-            with torch.inference_mode():
-                dets, valid = (self._cascade(imgs) if native else
-                               self._detect(self._preprocess(imgs, spec_pre)))
-                return self._postprocess(dets, valid, (w, h), in_size,
-                                         det_thres, area_thres)
+            dets, valid = (self._cascade(imgs) if native else
+                           self._detect(self._preprocess(imgs, spec_pre)))
+            return self._postprocess(dets, valid, (w, h), in_size,
+                                     det_thres, area_thres)
 
         return run
 
@@ -602,72 +603,35 @@ class FaceEngine:
         live_cols = valid.any(0).nonzero()
         return int(live_cols[-1]) + 1 if len(live_cols) else 0
 
-    def detect_embed_classify_batch(
-        self,
-        imgs: np.ndarray,
-        det_thres: float = None,
-        bbox_area_thres: float = None,
-        crop_size: Tuple[int, int] = None,
-        embed_offsets: Tuple[float, ...] = None,
-        mesh=None,
-        want_embed: bool = True,
-        want_ag: bool = True,
-    ) -> EnsembleResult:
-        """Detect -> crop -> embed -> age/gender on a [B, H, W, 3] BGR uint8
-        batch, every stage on the engine's device.
+    def _ensemble_fn(self, shape: Tuple[int, int, int],
+                     crop_size: Tuple[int, int],
+                     embed_offsets: Optional[Tuple[float, ...]],
+                     do_embed: bool, do_ag: bool,
+                     skip_slots: bool = True) -> Callable:
+        """The fused detect -> crop -> embed -> age/gender program for one
+        source resolution: ``(frames, det_thres, area_thres) -> (post,
+        crops, embeddings, age_probs, gender_probs)``, a stage left out
+        giving None. With ``skip_slots`` the nets and the 227x227 crops run
+        on the slots before the last live column alone (``_live_slots``,
+        one host read); without, on every slot, masked, with no host read:
+        the program ``utils.export.export_ensemble`` traces (the JAX
+        engine's ``_build_ensemble`` body). Both give zero rows in the
+        invalid slots."""
+        self._require_fixed_size()
+        h, w = shape[:2]
+        detect = self._detect_fn(shape)
 
-        crop_size: (height, width) of the returned raw face crops; defaults
-        to the embedder's input size (112x112 with no embedder).
-        embed_offsets: optional per-corner crop offsets applied to the boxes
-        before cropping and embedding (the extraction pipelines'
-        (-6, -1, +4, +5)); the reported boxes stay as detected.
-        mesh: a device mesh (``parallel.mesh``): the batch splits over its
-        "data" axis (B must divide it), each piece runs the ensemble on its
-        device, and every field comes back whole (``_on_mesh``), as
-        ``detect_batch_sharded`` does.
-        want_embed / want_ag: skip those stages for this call.
-        A native-resolution detector (MTCNN) raises
-        ``NotImplementedError``, as in the JAX package: serving takes the
-        staged path for it (``FaceService._faces_staged``)."""
-        if self.native_resolution:
-            raise NotImplementedError(
-                "fused ensemble requires a fixed-size detector (got "
-                f"native-resolution '{self.spec.name}')")
-        if mesh is not None:
-            return self._on_mesh(mesh, imgs, lambda eng, frames:
-                                 eng.detect_embed_classify_batch(
-                                     frames, det_thres, bbox_area_thres,
-                                     crop_size, embed_offsets,
-                                     want_embed=want_embed,
-                                     want_ag=want_ag))
-        if crop_size is None:
-            crop_size = (112, 112)
-            if self.embed_spec is not None:
-                ew, eh = self.embed_spec.input_size
-                crop_size = (eh, ew)
-        crop_size = tuple(crop_size)
-        frames = self._frames(imgs)
-        bsz, h, w = frames.shape[:3]
-        dt = self.cfg.det_thres if det_thres is None else det_thres
-        at = (self.cfg.bbox_area_thres if bbox_area_thres is None
-              else bbox_area_thres)
-        post = self._pipeline_for(tuple(frames.shape[1:]))(
-            frames, float(dt), float(at))
-        k = post.valid.shape[1]
-        do_embed = want_embed and self.embed_net is not None
-        do_ag = want_ag and self.ag_net is not None
-        self._pipelines.add(("ens", tuple(frames.shape[1:]), crop_size,
-                             None if embed_offsets is None
-                             else tuple(embed_offsets), do_embed, do_ag))
-        with torch.inference_mode():
+        def run(frames: torch.Tensor, det_thres: float, area_thres: float):
+            post = detect(frames, det_thres, area_thres)
+            bsz, k = post.valid.shape
             crop_boxes = (post.boxes if embed_offsets is None else
                           pad_boxes(post.boxes, tuple(embed_offsets), (w, h)))
             crops = self._face_crops(frames, crop_boxes, crop_size,
                                      post.valid)
-            if not (do_embed or do_ag):
-                return EnsembleResult(det=post, crops=crops)
             emb = age = gender = None
-            k_live = self._live_slots(post.valid)
+            if not (do_embed or do_ag):
+                return post, crops, emb, age, gender
+            k_live = self._live_slots(post.valid) if skip_slots else k
             v = post.valid[:, :k_live]
             vf = v.reshape(-1, 1)
 
@@ -695,6 +659,74 @@ class FaceEngine:
                                          clip=True, out_dtype=self.cfg.dtype)
                     a, g = self._classify(agc.reshape(-1, *AG_HW, 3))
                 age, gender = scatter(a, 8), scatter(g, 2)
+            return post, crops, emb, age, gender
+
+        return run
+
+    def _require_fixed_size(self) -> None:
+        if self.native_resolution:
+            raise NotImplementedError(
+                "fused ensemble requires a fixed-size detector (got "
+                f"native-resolution '{self.spec.name}')")
+
+    def _default_crop_size(self) -> Tuple[int, int]:
+        """(height, width) of the ensemble's raw face crops: the embedder's
+        input size, 112x112 with no embedder."""
+        if self.embed_spec is None:
+            return (112, 112)
+        ew, eh = self.embed_spec.input_size
+        return (eh, ew)
+
+    def detect_embed_classify_batch(
+        self,
+        imgs: np.ndarray,
+        det_thres: float = None,
+        bbox_area_thres: float = None,
+        crop_size: Tuple[int, int] = None,
+        embed_offsets: Tuple[float, ...] = None,
+        mesh=None,
+        want_embed: bool = True,
+        want_ag: bool = True,
+    ) -> EnsembleResult:
+        """Detect -> crop -> embed -> age/gender on a [B, H, W, 3] BGR uint8
+        batch, every stage on the engine's device (``_ensemble_fn``).
+
+        crop_size: (height, width) of the returned raw face crops; defaults
+        to the embedder's input size (112x112 with no embedder).
+        embed_offsets: optional per-corner crop offsets applied to the boxes
+        before cropping and embedding (the extraction pipelines'
+        (-6, -1, +4, +5)); the reported boxes stay as detected.
+        mesh: a device mesh (``parallel.mesh``): the batch splits over its
+        "data" axis (B must divide it), each piece runs the ensemble on its
+        device, and every field comes back whole (``_on_mesh``), as
+        ``detect_batch_sharded`` does.
+        want_embed / want_ag: skip those stages for this call.
+        A native-resolution detector (MTCNN) raises
+        ``NotImplementedError``, as in the JAX package: serving takes the
+        staged path for it (``FaceService._faces_staged``)."""
+        self._require_fixed_size()
+        if mesh is not None:
+            return self._on_mesh(mesh, imgs, lambda eng, frames:
+                                 eng.detect_embed_classify_batch(
+                                     frames, det_thres, bbox_area_thres,
+                                     crop_size, embed_offsets,
+                                     want_embed=want_embed,
+                                     want_ag=want_ag))
+        crop_size = tuple(crop_size or self._default_crop_size())
+        frames = self._frames(imgs)
+        shape = tuple(frames.shape[1:])
+        dt = self.cfg.det_thres if det_thres is None else det_thres
+        at = (self.cfg.bbox_area_thres if bbox_area_thres is None
+              else bbox_area_thres)
+        do_embed = want_embed and self.embed_net is not None
+        do_ag = want_ag and self.ag_net is not None
+        offsets = None if embed_offsets is None else tuple(embed_offsets)
+        self._pipelines.add(("detect",) + shape)
+        self._pipelines.add(("ens", shape, crop_size, offsets, do_embed,
+                             do_ag))
+        run = self._ensemble_fn(shape, crop_size, offsets, do_embed, do_ag)
+        with torch.inference_mode():
+            post, crops, emb, age, gender = run(frames, float(dt), float(at))
         return EnsembleResult(det=post, crops=crops, embeddings=emb,
                               age_probs=age, gender_probs=gender)
 

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..ops.boxes import decode_boxes  # re-exported beside the model
 from ..ops.cuda_kernels import blaze_decode_blend
+from ..ops.platform import on_device
 from .layers import (BlazeBlock, FinalBlazeBlock, conv_bias,
                      set_compute_dtype)
 
@@ -202,14 +203,14 @@ def make_blazeface(cfg: BlazeFaceConfig, generator: torch.Generator,
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     set_compute_dtype(net, dtype)
     # the anchors on each device a replica of the net decodes on
-    on_device = {}
+    cache = {}
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],
                in_hw: Tuple[int, int]):
         # anchors are normalized: the input size does not enter
         dev = raw[0].device
-        if dev not in on_device:
-            on_device[dev] = torch.from_numpy(generate_anchors()).to(dev)
-        return blazeface_postprocess(*raw, on_device[dev], cfg)
+        anchors = on_device(cache, dev, lambda: torch.from_numpy(
+            generate_anchors()).to(dev))
+        return blazeface_postprocess(*raw, anchors, cfg)
 
     return net, decode

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import greedy_nms, top_k
+from ..ops.platform import on_device
 from ..utils.caffe_graph import CaffeLayerDef
 from .layers import BF16, param_key
 
@@ -155,16 +156,15 @@ def make_detection_output(corners: np.ndarray, variances: np.ndarray,
     centers = prior_centers(corners)
     n = len(centers)
     top = min(top, n)
-    on_device: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+    cache: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],
                in_hw: Tuple[int, int]):
         loc, conf = raw
         dev = loc.device
-        if dev not in on_device:
-            on_device[dev] = (torch.from_numpy(centers).to(dev),
-                              torch.from_numpy(variances).to(dev))
-        pc, var = on_device[dev]
+        pc, var = on_device(cache, dev, lambda: (
+            torch.from_numpy(centers).to(dev),
+            torch.from_numpy(variances).to(dev)))
         b = loc.shape[0]
         boxes = decode_variance_priors(loc.float().reshape(b, n, 4), pc, var)
         probs = conf.float().reshape(b, n, ncls)[..., 1]

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cuda_kernels as ck
 from ..ops.int8_conv import RECIP_127, conv_int8, pack_kernel_q
 
 BF16 = torch.bfloat16
@@ -89,6 +90,8 @@ def bf16_param(module: nn.Module, name: str,
     kept on the module until the tensor is replaced or written in place
     (its version moves)."""
     t = getattr(module, name)
+    if ck.exporting():  # a fake tensor, not to be kept
+        return t.detach().to(BF16).to(dtype)
     cache = module.__dict__.setdefault("_bf16_params", {})
     hit = cache.get((name, dtype))
     if hit is not None and hit[0] is t and hit[1] == t._version:
@@ -436,6 +439,14 @@ class QConvBN(nn.Module):
         tensor or bump its version. An inference tensor has no version:
         its pack is made every call."""
         kq = self.kernel_q
+        if ck.exporting():
+            # kernel_q is a fake tensor here, not to be cached: the program
+            # owns the packed weights (export_packed)
+            wpack = self._buffers.get("wpack")
+            if wpack is None:
+                raise RuntimeError("QConvBN: a program is exported outside "
+                                   "export_packed")
+            return wpack
         if kq.device.type == "cpu":
             return None
         if kq.is_inference():
@@ -455,6 +466,25 @@ class QConvBN(nn.Module):
         return conv_int8(x, self.kernel_q, self.wscale, self.bias,
                          self.stride, self.pad, self.groups, self.act,
                          ascale, self._packed())
+
+
+@contextlib.contextmanager
+def export_packed(module: nn.Module):
+    """Within, each ``QConvBN`` under ``module`` holds its packed weights
+    as a buffer (``wpack``, not in the state dict), which ``_packed``
+    hands Q1 while a program is exported: the program then owns them as
+    it owns ``kernel_q``, and Q1's launch record, kept on them, is made at
+    its first call and not at every one."""
+    layers = [m for m in module.modules() if isinstance(m, QConvBN)]
+    for m in layers:
+        with torch.no_grad():
+            m.register_buffer("wpack", pack_kernel_q(m.kernel_q, m.groups),
+                              persistent=False)
+    try:
+        yield
+    finally:
+        for m in layers:
+            del m._buffers["wpack"]
 
 
 def conv_bn(c_in: int, c_out: int, k: int = 1, s: int = 1,

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.nms import greedy_nms, top_k
-from ..ops.platform import check_kernel_choice
+from ..ops.platform import check_kernel_choice, on_device
 from .layers import ConvBN, conv_bias, set_compute_dtype
 
 
@@ -308,14 +308,14 @@ def make_ssd_face(cfg: SSDConfig, generator: torch.Generator,
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     set_compute_dtype(net, dtype)
     # the priors on each device a replica of the net decodes on
-    on_device = {}
+    cache = {}
 
     def decode(raw: Tuple[torch.Tensor, torch.Tensor],
                in_hw: Tuple[int, int]):
         # priors are normalized: the input size does not enter
         dev = raw[0].device
-        if dev not in on_device:
-            on_device[dev] = torch.from_numpy(generate_priors(cfg)).to(dev)
-        return ssd_postprocess(*raw, on_device[dev], cfg)
+        priors = on_device(cache, dev, lambda: torch.from_numpy(
+            generate_priors(cfg)).to(dev))
+        return ssd_postprocess(*raw, priors, cfg)
 
     return net, decode

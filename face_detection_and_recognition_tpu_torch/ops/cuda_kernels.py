@@ -6,10 +6,13 @@ yolov5 nets), their plain PyTorch versions, and the build that turns
 Each wrapper takes the plain version for tensors on the CPU (the tests) and
 launches its kernel for CUDA tensors; there is no fallback between the two.
 Every launch adds one to ``LAUNCHES[name]``, so a run can show that it went
-through the kernel.
+through the kernel. Each entry point is also a ``torch.library`` operator of
+the ``fdr`` namespace (the end of this module), which a wrapper calls while
+a program is exported, so that the program carries the kernel.
 
-Build: one ``nvcc`` call compiles every source in ``csrc/`` for ``sm_90a``
-into ``build/fdr_kernels_<hash>.so`` at the repository root, on first use.
+Build: one ``nvcc`` a source in ``csrc/``, all started together, compiles
+it for ``sm_90a``, and one more links the objects into
+``build/fdr_kernels_<hash>.so`` at the repository root, on first use.
 The name carries a hash of the sources and flags, so a later process finds
 the library and skips the build. The sources have a plain C interface and
 include no PyTorch header, so the build takes seconds; the library is bound
@@ -28,7 +31,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +40,9 @@ from .boxes import decode_boxes, xywh2xyxy
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # launches of each kernel since the last reset (chip_smoke.py reads them)
 LAUNCHES = {"nms_fixpoint": 0, "rows_gather": 0, "crop_resize": 0,
@@ -61,6 +65,13 @@ def reset_launches() -> None:
 def _count(name: str) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+def exporting() -> bool:
+    """Whether a program is being exported (``torch.export``): the
+    wrappers then call their ``fdr`` operator, whose fake tensors carry no
+    data to launch on."""
+    return torch.compiler.is_exporting()
 
 
 def _sources() -> list:
@@ -87,26 +98,37 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` with one nvcc call unless the library for these
-    sources is already built. Returns its path; ptxas's report of each
-    kernel's registers, shared memory and stack frame is kept beside it
-    (``ptxas_report``)."""
+    """Compile ``csrc/*.cu`` unless the library for these sources is
+    already built: one nvcc a source, all at once, then one link. Returns
+    its path; ptxas's report of each kernel's registers, shared memory and
+    stack frame is kept beside it (``ptxas_report``)."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj, log = (Path(tmp, src.stem + ext) for ext in (".o", ".log"))
+            with open(log, "w") as f:
+                jobs.append((src, obj, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT)))
+        failed = [f"{src.name} ({p.returncode}):\n{log.read_text()}"
+                  for src, _, log, p in jobs if p.wait() != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = Path(tmp, out.name)
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                              *(str(obj) for _, obj, _, _ in jobs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        ptxas_report().write_text(res.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n"
+                               f"{res.stderr}")
+        ptxas_report().write_text("".join(log.read_text()
+                                          for _, _, log, _ in jobs))
+        os.replace(lib, out)  # atomic: a concurrent build sees all or none
     return out
 
 
@@ -232,6 +254,9 @@ def nms_fixpoint(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
 
     boxes: [B, K, 4] f32 xyxy, highest score first; valid: [B, K] bool.
     Returns keep [B, K] bool, equal bit for bit to ``nms_fixpoint_plain``."""
+    if exporting():
+        return torch.ops.fdr.nms_fixpoint(boxes, valid, float(iou_thres),
+                                          bool(plus1), bool(strict), mode)
     if boxes.device.type == "cpu":
         return nms_fixpoint_plain(boxes, valid, iou_thres, plus1, strict, mode)
     if mode not in ("union", "min"):
@@ -404,6 +429,12 @@ def candidate_decode(maps_flat: Sequence[torch.Tensor], idx: torch.Tensor,
     ``strides`` and ``input_size`` (w, h) are tuples: the layout is cached
     by them. Returns (pred [B, K, no] f32, boxes [B, K, 4] f32 xyxy,
     valid [B, K] bool)."""
+    if exporting():
+        return torch.ops.fdr.candidate_decode(
+            list(maps_flat), idx, [float(v) for level in anchors
+                                   for pair in level for v in pair],
+            [int(s) for s in strides], [int(v) for v in input_size],
+            float(conf_thres))
     if idx.device.type == "cpu":
         return candidate_decode_plain(maps_flat, idx, anchors, strides,
                                       input_size, conf_thres)
@@ -569,6 +600,11 @@ def crop_resize(img: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
     two-rounding store) as in ``crop_resize_plain``. Returns
     [B, K, oh, ow, C] ``out_dtype``, invalid slots 0 (``-mean`` with a
     mean)."""
+    if exporting():
+        return torch.ops.fdr.crop_resize(
+            img, boxes, valid, [int(v) for v in out_hw], bool(clamp),
+            bool(clip), None if mean is None else [float(m) for m in mean],
+            out_dtype)
     if img.device.type == "cpu":
         return crop_resize_plain(img, boxes, valid, out_hw, clamp, clip, mean,
                                  out_dtype)
@@ -667,6 +703,8 @@ def topk_gallery(queries: torch.Tensor, gallery: torch.Tensor, k: int
     (scores [N, k] f32 descending, indices [N, k] int32)."""
     if not 1 <= k <= TOPK_MAX_K:
         raise ValueError(f"topk_gallery: k = {k} outside 1..{TOPK_MAX_K}")
+    if exporting():
+        return torch.ops.fdr.topk_gallery(queries, gallery, int(k))
     if queries.device.type == "cpu":
         return topk_gallery_plain(queries, gallery, k)
     _require_cuda("topk_gallery", queries, gallery)
@@ -774,6 +812,9 @@ def blend_nms(sdets: torch.Tensor, svalid: torch.Tensor, iou_thres: float,
     sdets: [B, K, D] f32 score-sorted rows (score in col D-1, D >= 5,
     K <= ``BLEND_MAX_ROWS``); svalid: [B, K] bool. Returns (rows
     [B, max_out, D] f32, valid [B, max_out] bool)."""
+    if exporting():
+        return torch.ops.fdr.blend_nms(sdets, svalid, float(iou_thres),
+                                       int(max_out))
     if sdets.device.type == "cpu":
         return blend_nms_plain(sdets, svalid, iou_thres, max_out)
     _require_cuda("blend_nms", sdets, svalid)
@@ -845,6 +886,10 @@ def blaze_decode_blend(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
     if not (scale > 0 and math.frexp(scale)[0] == 0.5):
         raise ValueError(f"blaze_decode_blend: scale {scale} is not a power "
                          "of two")
+    if exporting():
+        return torch.ops.fdr.blaze_decode_blend(
+            raw_boxes, raw_scores, anchors, float(scale), float(score_clip),
+            float(score_thres), float(iou_thres), int(max_out))
     if raw_boxes.device.type == "cpu":
         return blaze_decode_blend_plain(raw_boxes, raw_scores, anchors, scale,
                                         score_clip, score_thres, iou_thres,
@@ -978,6 +1023,10 @@ def conv_int8(x: torch.Tensor, wpack: torch.Tensor, wscale: torch.Tensor,
     (depthwise). The checks of everything but ``x`` are kept on ``wpack``
     for the next call with the same tensors. Returns [B, C_out, Ho, Wo] f32
     in the channels-last memory format."""
+    if exporting():
+        return torch.ops.fdr.conv_int8(x, wpack, wscale, bias, int(k),
+                                       int(stride), int(pad), int(groups),
+                                       act, ascale)
     b, c, h, w = x.shape
     layer = getattr(wpack, "_q1_layer", None)
     if layer is None or not layer.fits(c, wscale, bias, k, stride, pad,
@@ -1015,3 +1064,167 @@ def conv_int8(x: torch.Tensor, wpack: torch.Tensor, wscale: torch.Tensor,
     _check(err, "conv_int8")
     _count("conv_int8")
     return out
+
+
+# ---------------- the operators of an exported program ----------------
+#
+# ``torch.export`` traces a program on fake tensors, which have no data
+# pointer, so no wrapper can launch while a program is exported. Each
+# kernel entry point is therefore also an operator of the ``fdr``
+# namespace, which the wrapper calls instead while exporting
+# (``exporting()``); outside an export the wrapper goes straight to its
+# launch or plain version, with no dispatcher hop. An operator's CUDA
+# implementation is the wrapper's launch (which counts in ``LAUNCHES``, and
+# raises where the kernel does not build or launch), its CPU one the plain
+# version, and its fake one gives the output shapes, dtypes and strides. A
+# program that reloads an exported file needs this module imported, and
+# nothing else of the package.
+
+
+def _op(name: str):
+    """Declare ``fdr::name`` from its CPU implementation, whose annotations
+    give the schema."""
+    return torch.library.custom_op(f"fdr::{name}", mutates_args=(),
+                                   device_types="cpu")
+
+
+def _empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=like.device)
+
+
+@_op("nms_fixpoint")
+def _nms_fixpoint_op(boxes: torch.Tensor, valid: torch.Tensor,
+                     iou_thres: float, plus1: bool, strict: bool, mode: str
+                     ) -> torch.Tensor:
+    return nms_fixpoint_plain(boxes, valid, iou_thres, plus1, strict, mode)
+
+
+_nms_fixpoint_op.register_kernel("cuda")(nms_fixpoint)
+_nms_fixpoint_op.register_fake(
+    lambda boxes, valid, *_: _empty(valid.shape, torch.bool, valid))
+
+
+def _nested_layout(anchors: List[float], strides: List[int],
+                   input_size: List[int]):
+    """``candidate_decode``'s (anchors, strides, input_size) tuples from the
+    operator's flat lists: anchors as (w, h) pairs, level by level."""
+    per = len(anchors) // (2 * max(1, len(strides)))
+    pairs = [tuple(anchors[i:i + 2]) for i in range(0, len(anchors), 2)]
+    return (tuple(tuple(pairs[lv * per:(lv + 1) * per])
+                  for lv in range(len(strides))),
+            tuple(strides), tuple(input_size))
+
+
+@_op("candidate_decode")
+def _candidate_decode_op(maps_flat: List[torch.Tensor], idx: torch.Tensor,
+                         anchors: List[float], strides: List[int],
+                         input_size: List[int], conf_thres: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return candidate_decode_plain(
+        maps_flat, idx, *_nested_layout(anchors, strides, input_size),
+        conf_thres)
+
+
+@_candidate_decode_op.register_kernel("cuda")
+def _(maps_flat, idx, anchors, strides, input_size, conf_thres):
+    return candidate_decode(maps_flat, idx,
+                            *_nested_layout(anchors, strides, input_size),
+                            conf_thres)
+
+
+@_candidate_decode_op.register_fake
+def _(maps_flat, idx, *_):
+    (b, k), no = idx.shape, maps_flat[0].shape[-1]
+    return (_empty((b, k, no), torch.float32, idx),
+            _empty((b, k, 4), torch.float32, idx),
+            _empty((b, k), torch.bool, idx))
+
+
+@_op("crop_resize")
+def _crop_resize_op(img: torch.Tensor, boxes: torch.Tensor,
+                    valid: torch.Tensor, out_hw: List[int], clamp: bool,
+                    clip: bool, mean: Optional[List[float]],
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    return crop_resize_plain(img, boxes, valid, tuple(out_hw), clamp, clip,
+                             mean, out_dtype)
+
+
+@_crop_resize_op.register_kernel("cuda")
+def _(img, boxes, valid, out_hw, clamp, clip, mean, out_dtype):
+    return crop_resize(img, boxes, valid, tuple(out_hw), clamp, clip, mean,
+                       out_dtype)
+
+
+@_crop_resize_op.register_fake
+def _(img, boxes, valid, out_hw, clamp, clip, mean, out_dtype):
+    return _empty((*boxes.shape[:2], *out_hw, img.shape[-1]), out_dtype, img)
+
+
+@_op("topk_gallery")
+def _topk_gallery_op(queries: torch.Tensor, gallery: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return topk_gallery_plain(queries, gallery, k)
+
+
+_topk_gallery_op.register_kernel("cuda")(topk_gallery)
+_topk_gallery_op.register_fake(
+    lambda q, g, k: (_empty((q.shape[0], k), torch.float32, q),
+                     _empty((q.shape[0], k), torch.int32, q)))
+
+
+@_op("blend_nms")
+def _blend_nms_op(sdets: torch.Tensor, svalid: torch.Tensor,
+                  iou_thres: float, max_out: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return blend_nms_plain(sdets, svalid, iou_thres, max_out)
+
+
+_blend_nms_op.register_kernel("cuda")(blend_nms)
+_blend_nms_op.register_fake(
+    lambda sdets, svalid, iou_thres, max_out: (
+        _empty((sdets.shape[0], max_out, sdets.shape[2]), torch.float32,
+               sdets),
+        _empty((sdets.shape[0], max_out), torch.bool, sdets)))
+
+
+@_op("blaze_decode_blend")
+def _blaze_decode_blend_op(raw_boxes: torch.Tensor, raw_scores: torch.Tensor,
+                           anchors: torch.Tensor, scale: float,
+                           score_clip: float, score_thres: float,
+                           iou_thres: float, max_out: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return blaze_decode_blend_plain(raw_boxes, raw_scores, anchors, scale,
+                                    score_clip, score_thres, iou_thres,
+                                    max_out)
+
+
+_blaze_decode_blend_op.register_kernel("cuda")(blaze_decode_blend)
+_blaze_decode_blend_op.register_fake(
+    lambda raw_boxes, *args: (
+        _empty((raw_boxes.shape[0], args[-1], 17), torch.float32, raw_boxes),
+        _empty((raw_boxes.shape[0], args[-1]), torch.bool, raw_boxes)))
+
+
+@_op("conv_int8")
+def _conv_int8_op(x: torch.Tensor, wpack: torch.Tensor, wscale: torch.Tensor,
+                  bias: torch.Tensor, k: int, stride: int, pad: int,
+                  groups: int, act: Optional[str],
+                  ascale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Q1's plain version on its own arguments, in the kernel's
+    channels-last layout (the values do not depend on it)."""
+    from .int8_conv import conv_int8_packed_plain  # it imports this module
+
+    return conv_int8_packed_plain(x, wpack, wscale, bias, k, stride, pad,
+                                  groups, act, ascale).contiguous(
+        memory_format=torch.channels_last)
+
+
+_conv_int8_op.register_kernel("cuda")(conv_int8)
+
+
+@_conv_int8_op.register_fake
+def _(x, wpack, wscale, bias, k, stride, pad, groups, act, ascale):
+    b, _, h, w = x.shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    return torch.empty((b, wscale.shape[0], ho, wo), dtype=torch.float32,
+                       device=x.device, memory_format=torch.channels_last)

@@ -15,12 +15,15 @@ INTER_AREA), and ``host_letterbox`` letterboxes with it.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from .platform import on_device
 
 Color = Tuple[float, float, float]
 
@@ -81,13 +84,18 @@ def _resample_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.ascontiguousarray(weights.T.astype(f32))
 
 
-@functools.lru_cache(maxsize=64)
+# _resample_weights' tensors, by geometry, device and dtype: the 64 used last
+_WEIGHTS = collections.OrderedDict()
+
+
 def _resample_weights(n_in: int, n_out: int, device: torch.device,
                       dtype: torch.dtype) -> torch.Tensor:
     """``_resample_matrix`` on ``device``: built once per geometry, not per
     call."""
-    return torch.from_numpy(_resample_matrix(n_in, n_out)).to(device=device,
-                                                              dtype=dtype)
+    return on_device(_WEIGHTS, (n_in, n_out, device, dtype),
+                     lambda: torch.from_numpy(_resample_matrix(
+                         n_in, n_out)).to(device=device, dtype=dtype),
+                     maxsize=64)
 
 
 def _resample_axis(x: torch.Tensor, n_out: int, axis: int,

@@ -132,11 +132,12 @@ def conv_int8(x: torch.Tensor, kernel_q: torch.Tensor, wscale: torch.Tensor,
     """The quantized ConvBN: Q1 (``csrc/conv_int8.cu``) on a CUDA tensor,
     ``conv_int8_plain`` on the CPU. Same arguments and result; ``wpack``
     is ``pack_kernel_q(kernel_q, groups)`` where the caller keeps it (else
-    it is made here)."""
+    it is made here). While a program is exported, every device takes
+    Q1's operator (``fdr::conv_int8``) on the packed weights."""
     if act not in ACTS:
         raise ValueError(f"conv_int8: activation {act!r} is not one of "
                          f"{ACTS}")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not ck.exporting():
         return conv_int8_plain(x, kernel_q, wscale, bias, stride, pad,
                                groups, act, ascale)
     if wpack is None:

@@ -3,7 +3,8 @@ asks for the CPU. The counterpart of ``ops/platform.py`` in the JAX package,
 which asked whether JAX's default backend was a TPU."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -17,6 +18,41 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return dev
+
+
+def on_device(cache: Dict[Any, Any], key: Any, make: Callable[[], Any],
+              maxsize: Optional[int] = None) -> Any:
+    """``make()`` (constants on a device), made once a ``key`` (the device,
+    or the device and a geometry) and kept in ``cache``; with ``maxsize``
+    (``cache`` an ``OrderedDict``), the ``maxsize`` keys used last. While a
+    program is exported, a constant made before is the program's own, held
+    on its device; one made then is fake and is kept nowhere
+    (``utils.export`` runs a program once before it exports it, so that
+    none is made then on the card)."""
+    if key in cache:
+        if maxsize is not None:
+            cache.move_to_end(key)
+        return cache[key]
+    made = make()
+    if not torch.compiler.is_exporting():
+        cache[key] = made
+        if maxsize is not None and len(cache) > maxsize:
+            cache.popitem(last=False)
+    return made
+
+
+def full_f32(device: torch.device):
+    """cuDNN runs f32 convolutions in TF32 by default; the reference is f32.
+    Turn TF32 off for the forward only, leaving every other flag as set. A
+    bf16 net's f32 convolutions of bf16 values run under it too, so their
+    sums are f32 sums of exact products, as the JAX layer's are. The flag
+    is read when a convolution runs, so an exported program's caller sets
+    it too (``utils.export.load_exported``)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   deterministic=c.deterministic, allow_tf32=False)
 
 
 def check_kernel_choice(choice: Optional[bool],

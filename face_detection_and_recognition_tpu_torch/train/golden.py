@@ -641,10 +641,12 @@ def train_golden(ckpt_out: str, work_dir: str, arch: str = "yolov5n",
     log(f"[golden] eval warmup ok (pos={r0['n_pos']} neg={r0['n_neg']})")
 
     # mosaic / HSV once into the device buffer; flips and brightness are
-    # drawn again every step on the device
+    # drawn again every step on the device. The buffer holds the JAX
+    # package's max(2 x composites, 768) examples, or the run's draws
+    # (max_steps x batch_size) where those are fewer
     aug = AugmentConfig(mosaic=0.5, fliplr=0.0, scale=0.3)
     data = build_example_buffer(
-        index, max(2 * len(index), 768),
+        index, min(max(2 * len(index), 768), max_steps * batch_size),
         (input_size, input_size), cfg.max_targets, seed=seed, augment=aug,
         to_rgb=not is_ssd)
 

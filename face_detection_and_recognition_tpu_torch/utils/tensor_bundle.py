@@ -14,6 +14,7 @@ stream that ``convert_facenet_keras`` pours into the port's FaceNet.
 """
 from __future__ import annotations
 
+import functools
 import os
 import struct
 from typing import Dict, List, Optional, Tuple
@@ -180,25 +181,64 @@ def read_tensor_bundle(prefix: str) -> List[Tuple[str, np.ndarray]]:
 # writer (round-trip fixtures)
 # ---------------------------------------------------------------------------
 
-_CRC32C_TABLE = None
+_CRC_LANES = 16384  # byte streams a CRC runs over at once
+
+
+@functools.lru_cache(maxsize=None)
+def _crc32c_table() -> np.ndarray:
+    """The byte table of CRC-32C (Castagnoli, reflected 0x82F63B78)."""
+    table = np.arange(256, dtype=np.uint32)
+    for _ in range(8):
+        table = np.where(table & 1, (table >> 1) ^ np.uint32(0x82F63B78),
+                         table >> 1)
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def _zeros_operator(n: int) -> Tuple[Tuple[int, ...], ...]:
+    """The register's map over ``n`` zero bytes, linear over GF(2): four
+    tables, one a byte of the register, whose entries XOR to its image."""
+    table = _crc32c_table()
+    basis = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    for _ in range(n):
+        basis = table[basis & 0xFF] ^ (basis >> 8)
+    images = basis.tolist()
+    ops = []
+    for k in range(4):
+        t = [0] * 256
+        for b in range(1, 256):
+            low = b & -b
+            t[b] = t[b ^ low] ^ images[8 * k + low.bit_length() - 1]
+        ops.append(tuple(t))
+    return tuple(ops)
 
 
 def _crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli), table-driven — the checksum the TF table
-    format uses on every block."""
-    global _CRC32C_TABLE
-    if _CRC32C_TABLE is None:
-        poly = 0x82F63B78
-        table = []
-        for i in range(256):
-            c = i
-            for _ in range(8):
-                c = (c >> 1) ^ poly if c & 1 else c >> 1
-            table.append(c)
-        _CRC32C_TABLE = table
+    """CRC-32C (Castagnoli), the checksum the TF table format uses on every
+    block. The bytes are cut into up to ``_CRC_LANES`` equal streams whose
+    registers (from 0) advance together, a table lookup a byte; each is
+    then folded into the running register, shifted over a stream's length
+    of zero bytes (the register's map is linear); the tail, shorter than
+    the streams, runs byte by byte."""
+    table = _crc32c_table()
+    buf = np.frombuffer(data, np.uint8)
+    lanes = min(_CRC_LANES, len(buf) // 64)
     crc = 0xFFFFFFFF
-    for b in data:
-        crc = _CRC32C_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    head = 0
+    if lanes:
+        n = len(buf) // lanes
+        head = lanes * n
+        cols = np.ascontiguousarray(buf[:head].reshape(lanes, n).T)
+        regs = np.zeros(lanes, np.uint32)
+        for col in cols:
+            regs = table[(regs ^ col) & 0xFF] ^ (regs >> 8)
+        t0, t1, t2, t3 = _zeros_operator(n)
+        for r in regs.tolist():
+            crc = (t0[crc & 0xFF] ^ t1[(crc >> 8) & 0xFF]
+                   ^ t2[(crc >> 16) & 0xFF] ^ t3[crc >> 24] ^ r)
+    small = table.tolist()
+    for b in buf[head:].tolist():
+        crc = small[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
 
 

@@ -33,6 +33,18 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.mark.parametrize("n", [0, 9, 63, 64, 65, 1000, 16384 * 64 + 5])
+def test_crc32c_equals_the_jax_writers(n):
+    """The port's CRC-32C (byte streams advanced together, then folded)
+    equals the JAX package's byte loop at every length: below one stream
+    of 64 bytes, at it, and past the widest cut with a tail."""
+    data = (b"123456789" if n == 9 else
+            np.random.RandomState(n).randint(0, 256, n, np.uint8).tobytes())
+    assert TB._crc32c(data) == JTB._crc32c(data)
+    if n == 9:  # the CRC-32C check value
+        assert TB._crc32c(data) == 0xE3069283
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_tensor_bundle_round_trip_across_packages(tmp_path, writer):
     """A bundle written by one package's writer reads back equal through

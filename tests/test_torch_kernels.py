@@ -726,3 +726,40 @@ def test_kernel_module_imports_without_nvcc():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "IMPORTED" in out.stdout
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """``build_library`` starts one nvcc a source (``-c``), links the
+    objects with one more call, keeps every compile's ptxas report, and
+    finds the library built the next time. nvcc is a stand-in script that
+    logs its arguments."""
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {log}\n"
+        "out=''; prev=''\n"
+        "for a in \"$@\"; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        "echo \"ptxas info: $out\" >&2\n"
+        ": > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{fake.parent}{os.pathsep}"
+                       f"{os.environ['PATH']}")
+    monkeypatch.setattr(ck, "BUILD_DIR", tmp_path / "build")
+    out = ck.build_library()
+    assert out.is_file() and out.parent == tmp_path / "build"
+    calls = log.read_text().splitlines()
+    sources = ck._sources()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == len(sources) == len(calls) - 1
+    assert sorted(c.split()[-1] for c in compiles) == sorted(map(str,
+                                                                 sources))
+    link = next(c for c in calls if " -shared " in f" {c} ")
+    assert sum(w.endswith(".o") for w in link.split()) == len(sources)
+    report = ck.ptxas_report().read_text()
+    assert all(f"{src.stem}.o" in report for src in sources)
+    assert sorted(p.name for p in out.parent.iterdir()) == sorted(
+        [out.name, ck.ptxas_report().name])  # no object or log left
+    assert ck.build_library() == out and len(log.read_text().splitlines()) \
+        == len(calls)

@@ -179,3 +179,19 @@ def test_sort_by_score_batched_equals_jax(rng):
         scores, valid, rows)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_resample_weights_keep_the_64_used_last():
+    """The resample matrices stay on their device for the 64 geometries
+    used last, not for every geometry a process meets."""
+    TG._WEIGHTS.clear()
+    first = TG._resample_weights(40, 20, torch.device("cpu"), torch.float32)
+    for n_out in range(21, 21 + 63):
+        TG._resample_weights(40, n_out, torch.device("cpu"), torch.float32)
+    assert TG._resample_weights(40, 20, torch.device("cpu"),
+                                torch.float32) is first  # used last now
+    TG._resample_weights(41, 20, torch.device("cpu"), torch.float32)
+    assert len(TG._WEIGHTS) == 64
+    assert (40, 21, torch.device("cpu"), torch.float32) not in TG._WEIGHTS
+    assert (40, 20, torch.device("cpu"), torch.float32) in TG._WEIGHTS
+    TG._WEIGHTS.clear()
