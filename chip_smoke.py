@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 export, yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
 res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights,
-bf16-families, training, recognition-training and multi-device paths on
-one CUDA card, and trace its detect path.
+bf16-families, training, recognition-training, multi-device and video
+paths on one CUDA card, and trace its detect path.
 
     python3 chip_smoke.py
 
@@ -307,7 +307,30 @@ seconds:
    within phase 19's tolerances, both timed; and ``parallel.mp_demo`` as
    one rank over NCCL (world size 1) in both modes, each result equal to
    the same job on a one-entry mesh in this process;
-21. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+21. main path, video (``utils/video.py``, ``core.inference
+   .inference_vid``): a Motion-JPEG AVI of 64 576 x 1024 frames (the
+   golden image scaled to the golden gate's own letterbox scale, at eight
+   places on an 8-pixel lattice in turn) and one of the negative image,
+   written under the gitignored ``build/chip_smoke/video/``;
+   ``inference_vid`` of yolov5s with ``card_weights/yolov5s.pt`` at the
+   default micro-batch (B1, B2), each frame bit for bit equal to
+   ``detect_batch`` on its decoded block of 32 and passing the golden gate
+   of ``expected.json`` at its three thresholds, with its place's boxes
+   and negative frame; the fused age/gender route (B3), each frame equal
+   to the ensemble call on its block and its labels to the staged
+   ``detect_age_gender``; ``detect_face -i clip.avi --md blazeface-front``
+   in process (B5 fused); ``extract_faces`` over a class tree holding the
+   clip (frames 0, 25 and 50 sampled, a [45, D] ``.npy``); the written AVI
+   read back, each frame the JPEG of its annotated frame. Each part zeroes
+   the launch counts before it and reads them after, with the kernels'
+   calls spied where the path makes them and replayed against their plain
+   versions bit for bit after it. Then frames/s file to annotated file at
+   micro-batch 8 and 32, decode and encode ms a frame (one thread, and the
+   reader's and writer's threads), device ms a block, the synchronizing
+   calls in one block's dispatch (``torch.cuda.set_sync_debug_mode``), and
+   the device's idle share over a traced loop
+   (``utils.trace_analysis.idle_share``);
+22. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -317,6 +340,7 @@ line is ``{"ok": true, "device": {...}}``. Any failure propagates: the script
 then exits non-zero and prints no result. Without a CUDA device, or without
 the repository beside it, it fails at once.
 """
+import collections
 import contextlib
 import copy
 import io
@@ -4435,18 +4459,20 @@ GRAPH_LOSS_RTOL = 1e-3      # res10-ssd and ov-0204, three steps
 # launch counters' names
 REC_COUNTS = {"nms_fixpoint": "nms_fixpoint",
               "candidate_decode": "rows_gather",
-              "crop_resize": "crop_resize", "topk_gallery": "topk_gallery"}
+              "crop_resize": "crop_resize", "topk_gallery": "topk_gallery",
+              "blaze_decode_blend": "blaze_decode_blend"}
 
 
 def spied_part(win, part, fn, kernels):
-    """``win.run(part, fn)`` with spies on the B1 / B2 / B3 / B4 wrappers
-    where the path calls them (outside inference mode: the part trains).
+    """``win.run(part, fn)`` with spies on the B1 / B2 / B3 / B4 / fused B5
+    wrappers where the path calls them (outside inference mode: a part may
+    train).
     Each of ``kernels`` must have launched in the part, and every launch
     must be a spied call; after the window each call is replayed against
     its plain version bit for bit (those launches are not the path's).
     Returns (fn's result, {kernel: calls replayed})."""
-    from face_detection_and_recognition_tpu_torch.models import \
-        yolov5_face
+    from face_detection_and_recognition_tpu_torch.models import (
+        blazeface, yolov5_face)
     from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
     from face_detection_and_recognition_tpu_torch.ops import nms as nms_ops
     from face_detection_and_recognition_tpu_torch.pipelines import \
@@ -4456,12 +4482,14 @@ def spied_part(win, part, fn, kernels):
                       (yolov5_face, "candidate_decode")]) as yolo, \
             spied_calls([(nms_ops, "nms_fixpoint"),
                          (crop_ops, "crop_resize"),
-                         (similarity, "topk_gallery")]) as rest:
+                         (similarity, "topk_gallery"),
+                         (blazeface, "blaze_decode_blend")]) as rest:
         out = win.run(part, fn)
     calls = {"nms_fixpoint": yolo["nms_fixpoint"] + rest["nms_fixpoint"],
              "candidate_decode": yolo["candidate_decode"],
              "crop_resize": rest["crop_resize"],
-             "topk_gallery": rest["topk_gallery"]}
+             "topk_gallery": rest["topk_gallery"],
+             "blaze_decode_blend": rest["blaze_decode_blend"]}
     replayed = {}
     for name in kernels:
         launches, seen = win.parts[part][REC_COUNTS[name]], calls[name]
@@ -5509,6 +5537,393 @@ def run_export(frames, card, det, ens, blaze_front, queries, gallery):
     return launches, stats
 
 
+VIDEO_DIR = WORK_DIR / "video"
+VIDEO_FRAMES = 64              # frames of the clip (two blocks of 32)
+VIDEO_FPS = 25
+VIDEO_BATCHES = (8, 32)        # micro-batches timed file to annotated file
+VIDEO_SAMPLED = [0, 25, 50]    # what 1 frame a second keeps of the clip
+# (dx, top): frame i holds the golden image, scaled to the frame's width
+# (1024 / 720, so that the letterbox gives it the golden gate's own scale),
+# moved dx columns right and cut at row top, by VIDEO_PLACES[i % 8]. On
+# this 8-pixel lattice the letterbox samples the image at the golden
+# image's own phase, and (0, 96) is the golden letterbox itself. The gate's
+# upper threshold, 0.75, is 0.03 under the third face's confidence there,
+# and moving the image moves that confidence by up to 0.1 either way, so
+# the gate does not hold everywhere on the lattice
+# (``tools/video_gate_places.py`` scans it on the CPU); these eight places
+# hold it with 0.025 or more to spare in confidence and in IoU.
+VIDEO_PLACES = [(0, 96), (0, 80), (24, 80), (24, 56), (0, 56), (0, 128),
+                (0, 184), (24, 184)]
+
+
+def gate_images():
+    """(golden image, negative image), each scaled to the frame's width,
+    and the golden boxes at that scale."""
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+    from face_detection_and_recognition_tpu_torch.ops.geometry import \
+        host_resize
+
+    pos, neg = CW.golden_images()
+    scale = IO_HW[1] / pos.shape[1]
+    size = (IO_HW[1], round(pos.shape[0] * scale))
+    golden = np.asarray(CW.load_expected()["golden_boxes"], np.float32)
+    return host_resize(pos, size), host_resize(neg, size), golden * scale
+
+
+def placed(big, background, dx, top):
+    """A 576 x 1024 frame of ``big`` (a scaled gate image) moved ``dx``
+    columns right over ``background`` and cut at row ``top``."""
+    h, w = IO_HW
+    f = background.copy()
+    f[:, dx:] = big[top:top + h, :w - dx]
+    return f
+
+
+def video_clip(path, big, n):
+    """A clip written by the port's writer: ``n`` frames of 576 x 1024 at
+    VIDEO_FPS, frame i ``big`` at VIDEO_PLACES[i % 8] over a seeded
+    background. Returns (the frames, each frame's place, write ms a frame:
+    the writer's encode on its threads and the file)."""
+    from face_detection_and_recognition_tpu_torch.utils.video import \
+        VideoWriter
+
+    background = smooth_frame(SEED + 7)
+    places = [VIDEO_PLACES[i % len(VIDEO_PLACES)] for i in range(n)]
+    frames = [placed(big, background, dx, top) for dx, top in places]
+    t = time.perf_counter()
+    with VideoWriter(str(path), VIDEO_FPS, IO_HW[::-1]) as vw:
+        for f in frames:
+            vw.write(f)
+    write_ms = (time.perf_counter() - t) * 1e3 / n
+    return frames, places, write_ms
+
+
+def same_posts(label, got, ref):
+    """Two lists of per-frame results, bit for bit (boxes, confidences,
+    areas, landmarks, labels)."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} frames against "
+                             f"{len(ref)}")
+    for i, (p, r) in enumerate(zip(got, ref)):
+        for field in ("boxes", "bbox_confs", "bbox_areas", "bbox_lmarks"):
+            a, b = getattr(p, field), getattr(r, field)
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise AssertionError(f"{label}: frame {i} {field} "
+                                     f"{np.asarray(a).tolist()} against "
+                                     f"{np.asarray(b).tolist()}")
+        if list(p.bbox_labels or []) != list(r.bbox_labels or []):
+            raise AssertionError(f"{label}: frame {i} labels "
+                                 f"{p.bbox_labels} against {r.bbox_labels}")
+
+
+def block_refs(eng, frames, mb, age_gender=False, det_thres=None):
+    """The engine's own call on each block of ``mb`` decoded frames (the
+    last padded with its last frame, as the loop pads it), at the engine's
+    threshold or ``det_thres``: what the loop must hand back, frame by
+    frame."""
+    from face_detection_and_recognition_tpu_torch.models.age_gender import \
+        labels_from_probs
+
+    out = []
+    for k in range(0, len(frames), mb):
+        block = frames[k:k + mb]
+        batch = np.stack(block + [block[-1]] * (mb - len(block)))
+        if not age_gender:
+            out += eng.detect_batch(batch, det_thres).to_numpy()[:len(block)]
+            continue
+        res = eng.detect_embed_classify_batch(batch, want_embed=False)
+        posts = res.det.to_numpy()[:len(block)]
+        valid = res.det.valid.cpu().numpy()
+        ages, genders = res.age_probs.cpu().numpy(), \
+            res.gender_probs.cpu().numpy()
+        for i, p in enumerate(posts):
+            p.bbox_labels = list(labels_from_probs(ages[i][valid[i]],
+                                                   genders[i][valid[i]]))
+        out += posts
+    return out
+
+
+def host_syncs(fn):
+    """The synchronizing CUDA calls that ``fn()`` makes (a blocking copy
+    between host and card, a synchronize), each as the file:line of the
+    Python call that made it, from ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    root = Path(__file__).resolve().parent
+    return [f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def place_gate(gate, want, boxes_at, negatives_at):
+    """The golden gate of ``expected.json`` on one frame of the clip
+    (``eval.card_weights.gate_failures``): ``boxes_at[t]``, the frame's
+    boxes [N, 4] at each threshold ``t`` of the gate, held to ``want``,
+    the golden boxes moved by the frame's place; ``negatives_at[t]``, the
+    faces on the negative image's frame at the same place. Returns (the
+    failures, the least IoU at the gate's threshold)."""
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+
+    runs = []
+    for t in CW.gate_thresholds(gate):
+        ious = (CW.match_golden(boxes_at[t], want) if len(boxes_at[t])
+                else [0.0] * len(want))
+        runs.append((len(boxes_at[t]), ious, negatives_at[t]))
+    ok = all(n == len(want) and min(ious) >= gate["iou_thres"]
+             and n_neg == 0 for n, ious, n_neg in runs)
+    bad = CW.gate_failures({"ok": ok, "n_pos": runs[0][0],
+                            "n_neg": runs[0][2], "ious": runs[0][1]}, gate)
+    return bad, min(runs[0][1])
+
+
+def run_video(card):
+    """The video main path (``utils/video.py``, ``core.inference
+    .inference_vid``, the dataset's video items, ``detect_face -i
+    clip.avi``), each part zeroing the launch counts before it and reading
+    them after, with the B1 / B2 / B3 / fused B5 calls spied where the
+    path makes them and replayed against their plain versions after the
+    part (``spied_part``): yolov5s with ``card_weights/yolov5s.pt`` through
+    ``inference_vid`` at the default micro-batch (B1, B2) on the clip and
+    on a clip of the negative image, each frame bit for bit equal to
+    ``detect_batch`` on its decoded block and passing the golden gate of
+    ``expected.json`` (``place_gate``); the fused age/gender route on
+    the yolov5s + seeded age/gender engine (B1, B2, B3), each frame equal
+    to the ensemble call on its block and its labels to the staged
+    ``detect_age_gender`` of the frame; BlazeFace-front through the CLI
+    (B5 fused); ``extract_faces`` over a class tree holding the clip
+    (frames 0, 25 and 50 sampled, a [45, D] ``.npy``). The written AVI is
+    read back. Then the loop's frames/s file to annotated file at each of
+    VIDEO_BATCHES, decode and write ms a frame, device ms a block, and the
+    device's idle share over a traced loop. Returns (launches, numbers)."""
+    from face_detection_and_recognition_tpu_torch.cli import detect_face
+    from face_detection_and_recognition_tpu_torch.core.inference import (
+        _default_micro_batch, _to_host, annotate, inference_vid)
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+    from face_detection_and_recognition_tpu_torch.pipelines import \
+        dataset as PD
+    from face_detection_and_recognition_tpu_torch.pipelines.extract_faces \
+        import extract_faces_from_dataset
+    from face_detection_and_recognition_tpu_torch.utils import \
+        trace_analysis as TA
+    from face_detection_and_recognition_tpu_torch.utils.native import (
+        decode_jpeg_bgr, encode_jpeg_bgr)
+    from face_detection_and_recognition_tpu_torch.utils.profiling import \
+        device_trace
+    from face_detection_and_recognition_tpu_torch.utils.video import (
+        DECODE_WORKERS, ENCODE_WORKERS, VideoReader)
+
+    shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    (VIDEO_DIR / "tree" / "walker").mkdir(parents=True)
+    clip = VIDEO_DIR / "tree" / "walker" / "clip.avi"
+    neg_clip = VIDEO_DIR / "negative.avi"
+    big, big_neg, golden = gate_images()
+    src, places, write_ms = video_clip(clip, big, VIDEO_FRAMES)
+    video_clip(neg_clip, big_neg, len(VIDEO_PLACES))
+    reader = VideoReader(str(clip))
+    chunks = list(reader.chunks())
+    t = time.perf_counter()
+    single = [decode_jpeg_bgr(c) for c in chunks]
+    decode_ms = (time.perf_counter() - t) * 1e3 / len(single)
+    t = time.perf_counter()
+    for f in src:
+        encode_jpeg_bgr(f)
+    encode_ms = (time.perf_counter() - t) * 1e3 / len(src)
+    t = time.perf_counter()
+    decoded = list(reader.frames())
+    decode_threads_ms = (time.perf_counter() - t) * 1e3 / len(decoded)
+    if (len(chunks), reader.fps, len(decoded)) != (
+            VIDEO_FRAMES, VIDEO_FPS, VIDEO_FRAMES) or any(
+            not np.array_equal(a, b) for a, b in zip(decoded, single)):
+        raise AssertionError("the clip does not read back whole")
+    neg_decoded = list(VideoReader(str(neg_clip)).frames())
+    stats = {"card": card, "frames": VIDEO_FRAMES, "hw": list(IO_HW),
+             "decode_ms_a_frame": decode_ms,
+             f"decode_ms_a_frame_{DECODE_WORKERS}_threads":
+                 decode_threads_ms,
+             "encode_ms_a_frame": encode_ms,
+             f"write_ms_a_frame_{ENCODE_WORKERS}_threads": write_ms,
+             "mae_vs_source": float(np.mean([np.abs(
+                 a.astype(np.int16) - b).mean() for a, b in zip(decoded,
+                                                                 src)]))}
+    gate = CW.load_expected()["nets"]["yolov5s"]["gate"]
+    thres = gate["det_thres"]
+    y5_pt = str(CW.CARD_WEIGHTS / "yolov5s.pt")
+    win, replayed = Windows(), {}
+
+    # yolov5s at the default micro-batch (32 on the card), on the clip and
+    # on the negative image's clip (one padded block)
+    det = FaceEngine(EngineConfig(detector="yolov5s", det_thres=thres))
+    det.load_weights(y5_pt)
+    out_avi = VIDEO_DIR / "yolov5s.avi"
+    (results, negatives), replayed["yolov5s"] = spied_part(
+        win, "yolov5s", lambda: (
+            inference_vid(det, str(clip), output=str(out_avi),
+                          display=False),
+            inference_vid(det, str(neg_clip), display=False)),
+        ("nms_fixpoint", "candidate_decode"))
+    mb = _default_micro_batch(det.device)
+    same_posts("yolov5s loop against detect_batch a block", results,
+               block_refs(det, decoded, mb))
+    same_posts("yolov5s loop on the negative clip against detect_batch",
+               negatives, block_refs(det, neg_decoded, mb))
+    # the gate's other thresholds: detect_batch on the same blocks
+    by_thres, neg_by_thres = {thres: results}, {thres: negatives}
+    for t in CW.gate_thresholds(gate)[1:]:
+        by_thres[t] = block_refs(det, decoded, mb, det_thres=t)
+        neg_by_thres[t] = block_refs(det, neg_decoded, mb, det_thres=t)
+    least = []
+    for i, (dx, top) in enumerate(places):
+        neg = i % len(VIDEO_PLACES)
+        bad, iou = place_gate(
+            gate, golden + np.array([dx, -top, dx, -top], np.float32),
+            {t: np.asarray(r[i].boxes, np.float32).reshape(-1, 4)
+             for t, r in by_thres.items()},
+            {t: len(r[neg].boxes) for t, r in neg_by_thres.items()})
+        if bad:
+            raise AssertionError(f"frame {i} at {(dx, top)}: the golden "
+                                 f"gate fails: {bad}")
+        least.append(iou)
+    stats["golden_min_iou"] = float(min(least))
+    stats["detections"] = sum(len(p.boxes) for p in results)
+    # the written AVI: the annotated frames, each JPEG-encoded once
+    out = VideoReader(str(out_avi))
+    written = list(out.frames())
+    if (len(written), out.fps) != (VIDEO_FRAMES, float(VIDEO_FPS)):
+        raise AssertionError(f"written AVI: {len(written)} frames at "
+                             f"{out.fps} fps")
+    for i, (frame, post) in enumerate(zip(decoded, results)):
+        drawn = annotate(frame.copy(), post)
+        if not np.array_equal(written[i],
+                              decode_jpeg_bgr(encode_jpeg_bgr(drawn))):
+            raise AssertionError(f"written frame {i} is not the annotated "
+                                 "frame's JPEG")
+    say(f"  yolov5s: {VIDEO_FRAMES} frames, {stats['detections']} "
+        f"detections, each frame equal to detect_batch on its block of {mb} "
+        "and passing the golden gate at "
+        f"{', '.join(f'{t:.2f}' for t in CW.gate_thresholds(gate))} with "
+        f"its place's boxes and negative frame (least IoU at {thres}: "
+        f"{stats['golden_min_iou']:.4f}); the written AVI read back frame "
+        "for frame")
+
+    # the fused age/gender route
+    ens = FaceEngine(EngineConfig(detector="yolov5s", det_thres=thres,
+                                  with_age_gender=True, seed=SEED))
+    ens.load_weights(y5_pt)
+    labelled, replayed["age/gender"] = spied_part(
+        win, "age/gender", lambda: inference_vid(
+            ens, str(clip), display=False, age_gender=True),
+        ("nms_fixpoint", "candidate_decode", "crop_resize"))
+    same_posts("age/gender loop against the ensemble a block", labelled,
+               block_refs(ens, decoded, mb, age_gender=True))
+    for i, (p, frame) in enumerate(zip(labelled, decoded)):
+        staged = ens.detect_age_gender(frame).bbox_labels
+        if list(p.bbox_labels) != list(staged):
+            raise AssertionError(f"age/gender frame {i}: labels "
+                                 f"{p.bbox_labels} against the staged "
+                                 f"call's {staged}")
+    stats["labels"] = sum(len(p.bbox_labels) for p in labelled)
+    if stats["labels"] != stats["detections"]:
+        raise AssertionError(f"{stats['labels']} labels for "
+                             f"{stats['detections']} faces")
+    say(f"  age/gender: {stats['labels']} labels, each frame's equal to "
+        "the staged detect_age_gender of the frame")
+
+    # BlazeFace-front through the CLI
+    blaze_avi = VIDEO_DIR / "blazeface.avi"
+    (text, _), replayed["blazeface-front cli"] = spied_part(
+        win, "blazeface-front cli", lambda: run_cli(detect_face, [
+            "-i", str(clip), "--md", "blazeface-front", "--ckpt",
+            str(CW.CARD_WEIGHTS / "blazeface_front.pt"), "-o",
+            str(blaze_avi), "--no-display"]), ("blaze_decode_blend",))
+    line = text.strip().splitlines()[-1]
+    if not line.startswith(f"{VIDEO_FRAMES} frames, ") or \
+            len(list(VideoReader(str(blaze_avi)).chunks())) != VIDEO_FRAMES:
+        raise AssertionError(f"detect_face printed {text!r}")
+    stats["blazeface_cli"] = line
+
+    # curation: the clip as a video item of a class tree
+    cur = FaceEngine(EngineConfig(detector="yolov5s", det_thres=thres,
+                                  embedder="mobile_facenet"))
+    cur.load_weights(y5_pt)
+    cur.load_embed_weights(str(CW.CARD_WEIGHTS / "mobile_facenet.pt"))
+    item, = PD.walk_class_tree(str(VIDEO_DIR / "tree"))
+    sampled = [i for i, _ in PD.iter_media_frames(item)]
+    ext, replayed["extract_faces"] = spied_part(
+        win, "extract_faces", lambda: extract_faces_from_dataset(
+            cur, str(VIDEO_DIR / "tree"), str(VIDEO_DIR / "faces"),
+            num_workers=2, block_size=8),
+        ("nms_fixpoint", "candidate_decode", "crop_resize"))
+    feats = np.load(VIDEO_DIR / "faces" / "walker" / "clip.npy")
+    n_rows = int((np.abs(feats).sum(1) > 0).sum())
+    if sampled != VIDEO_SAMPLED or ext.failed or feats.shape != (
+            PD.MAX_N_FRAME_FROM_VID * PD.MAX_N_FACES_PER_FRAME,
+            cur.embed_spec.dim) or n_rows != 9:
+        raise AssertionError(f"extract_faces: frames {sampled}, failed "
+                             f"{ext.failed}, features {feats.shape} with "
+                             f"{n_rows} rows set")
+    stats["extract_faces"] = {"sampled": sampled, "npy": list(feats.shape),
+                              "rows_set": n_rows}
+    stats["replayed"] = replayed
+
+    # the figures: the loop file to annotated file, then its parts
+    for mb in VIDEO_BATCHES:
+        run = lambda: inference_vid(det, str(clip), output=str(
+            VIDEO_DIR / f"timed_{mb}.avi"), display=False, micro_batch=mb)
+        run()  # cuDNN's picks for this batch size
+        secs = []
+        for _ in range(2):
+            t = time.perf_counter()
+            run()
+            secs.append(time.perf_counter() - t)
+        stats[f"frames_per_s_mb{mb}"] = VIDEO_FRAMES / min(secs)
+        block = torch.from_numpy(np.stack(decoded[:mb])).to(det.device)
+        stats[f"device_ms_a_block_mb{mb}"] = cuda_ms(
+            lambda: det.detect_batch(block), iters=5)
+    # host reads inside one block's dispatch (the loop's queued work and
+    # the start of its copies to pinned memory): each stops the loop from
+    # dispatching block k+1 before block k's work is done
+    block = torch.from_numpy(np.stack(decoded[:mb])).to(det.device)
+    fields = lambda d: [d.boxes, d.scores, d.lmarks, d.areas, d.valid]
+    for name, call in (
+            ("detect", lambda: _to_host(fields(det.detect_batch(block)))),
+            ("fused_age_gender", lambda: _to_host(fields(
+                ens.detect_embed_classify_batch(block, want_embed=False)
+                .det)))):
+        syncs = host_syncs(call)
+        stats[f"host_syncs_a_dispatch_{name}"] = len(syncs)
+        say(f"  {name} dispatch: {len(syncs)} synchronizing calls, at "
+            f"{dict(sorted(collections.Counter(syncs).items()))}")
+    trace_dir = VIDEO_DIR / "trace"
+    with device_trace(str(trace_dir), with_stack=False):
+        inference_vid(det, str(clip), output=str(VIDEO_DIR / "traced.avi"),
+                      display=False)
+        torch.cuda.synchronize()
+    busy, wall, idle = TA.idle_share(str(trace_dir), "inference_vid")
+    stats.update({"traced_loop_ms": wall, "traced_busy_ms": busy,
+                  "idle_share": idle})
+    for mb in VIDEO_BATCHES:
+        say(f"  inference_vid micro-batch {mb}: "
+            f"{stats[f'frames_per_s_mb{mb}']:.1f} frames/s file to "
+            f"annotated file, device {stats[f'device_ms_a_block_mb{mb}']:.2f}"
+            f" ms a block ({card})")
+    say(f"  decode {decode_ms:.2f} ms a frame ({decode_threads_ms:.2f} with "
+        f"{DECODE_WORKERS} threads), encode {encode_ms:.2f} ms a frame "
+        f"(written at {write_ms:.2f} with {ENCODE_WORKERS} threads), idle "
+        f"share {idle:.3f} over a traced loop of {wall:.1f} ms ({card})")
+    stats["windows"] = win.parts
+    return win.total(), stats
+
+
 def main():
     say("[environment]")
     if not torch.cuda.is_available():
@@ -5787,6 +6202,24 @@ def main():
         f"{json.dumps({k: v for k, v in md.items() if k != 'windows'})}")
     phase_end("multi-device")
 
+    say("[main path: video] a Motion-JPEG AVI of 64 576 x 1024 frames: "
+        "inference_vid with yolov5s (card_weights) and on the fused "
+        "age/gender route, detect_face -i clip.avi --md blazeface-front, "
+        "extract_faces over the clip as a video item")
+    video_launches, video = run_video(card)
+    say(f"  launches on the video path: {video_launches}, by part "
+        f"{json.dumps(video['windows'])}")
+    say(f"  video numbers: "
+        f"{json.dumps({k: v for k, v in video.items() if k != 'windows'})}")
+    for part, names in (("yolov5s", ("nms_fixpoint", "rows_gather")),
+                        ("age/gender", ("crop_resize",)),
+                        ("blazeface-front cli", ("blaze_decode_blend",))):
+        for name in names:
+            if video["windows"][part][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched in the "
+                                     f"video path's {part} part")
+    phase_end("main path: video")
+
     say("[reference] the card against the CPU")
     gen = torch.Generator().manual_seed(SEED + 1)
     check_reference("raw maps", on(engines[False].net),
@@ -5833,7 +6266,8 @@ def main():
                    "bf16 families": bf16f_launches[k["name"]],
                    "training": train_launches[k["name"]],
                    "recognition training": rec_launches[k["name"]],
-                   "multi-device": md_launches[k["name"]]}
+                   "multi-device": md_launches[k["name"]],
+                   "video": video_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     say(card)

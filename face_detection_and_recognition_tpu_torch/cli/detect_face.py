@@ -1,33 +1,43 @@
-"""Face detection on an image file: the port's ``detect_face`` CLI.
+"""Face detection on an image or a video file: the port's ``detect_face``
+CLI.
 
 The counterpart of ``cli/detect_face.py`` in the JAX package, for the
-detectors the port registers (``models.registry.available()``) and JPEG
-images:
+detectors the port registers (``models.registry.available()``), JPEG
+images and Motion-JPEG AVI videos:
 
     python -m face_detection_and_recognition_tpu_torch.cli.detect_face \\
         -i img.jpg --md yolov5s --dt 0.7 --at 0.12 --no-display -o out.jpg
+    python -m face_detection_and_recognition_tpu_torch.cli.detect_face \\
+        -i clip.avi --md yolov5s --no-display -o out.avi
 
-It prints ``N face(s)``, then one ``[x1,y1,x2,y2] conf=...`` line a face,
-with the age/gender label (``--age-gender``) and ``emb[Dd]``
-(``--embedder``) appended, as the JAX CLI does. It runs on the card unless
-``-d cpu`` is given. ``--ckpt`` loads detector weights from a torch ``.pt``
-/ ``.pth`` state dict, a ``.caffemodel``, a frozen ``.pb`` or an OpenVINO
-``.xml`` (with its sibling ``.bin``); ``--md openvino-ir`` requires the
+For an image it prints ``N face(s)``, then one ``[x1,y1,x2,y2] conf=...``
+line a face, with the age/gender label (``--age-gender``) and ``emb[Dd]``
+(``--embedder``) appended, as the JAX CLI does. For a video it runs
+``core.inference.inference_vid`` and prints ``<n> frames, <m>
+detections``; ``-o`` writes the annotated frames as Motion-JPEG AVI and
+must end in ``.avi``. A video of another codec or container, an ``-o``
+that is not ``.avi`` and a camera index return 2 with the reason, before
+the engine is built. It runs on the card unless ``-d cpu`` is given.
+``--ckpt`` loads detector weights from a torch ``.pt`` / ``.pth`` state
+dict, a ``.caffemodel``, a frozen ``.pb`` or an OpenVINO ``.xml`` (with
+its sibling ``.bin``); ``--md openvino-ir`` requires the
 ``.xml``, which is the net. ``--embed-ckpt`` and ``--ag-ckpt`` load the
 embedder's and the age/gender heads'. Without them the weights are random,
 drawn from a seed. There is no display window (``--no-display`` is
-required) and no video or camera input.
+required) and no camera capture.
 """
 from __future__ import annotations
 
 import sys
 
 from ..core.engine import EngineConfig, FaceEngine
-from ..core.inference import NO_VIDEO, NO_WINDOW, inference_img
+from ..core.inference import (NO_CAMERA, NO_WINDOW, inference_img,
+                              inference_vid)
 from ..models import registry
 from ..utils.files import get_file_type
 from ..utils.native import read_image_bgr
 from ..utils.parser import get_argparse
+from ..utils.video import VideoReader, check_output_path
 
 
 def build_engine(args) -> FaceEngine:
@@ -90,10 +100,18 @@ def main(argv=None) -> int:
               f"{', '.join(registry.available())}", file=sys.stderr)
         return 2
     ftype = get_file_type(args.input_src)
-    if ftype in ("video", "camera"):
-        print(f"cannot read {args.input_src}: {NO_VIDEO}", file=sys.stderr)
+    if ftype == "camera":
+        print(f"cannot read {args.input_src}: {NO_CAMERA}", file=sys.stderr)
         return 2
-    if ftype != "image":
+    if ftype == "video":
+        try:  # the container, the codec and the output, before the engine
+            VideoReader(args.input_src)
+            if args.output:
+                check_output_path(args.output)
+        except (OSError, ValueError) as e:  # the message names the file
+            print(e, file=sys.stderr)
+            return 2
+    elif ftype != "image":
         print(f"cannot determine input type of {args.input_src}",
               file=sys.stderr)
         return 2
@@ -102,6 +120,12 @@ def main(argv=None) -> int:
         return 2
 
     engine = build_engine(args)
+    if ftype == "video":
+        results = inference_vid(engine, args.input_src, output=args.output,
+                                display=False, age_gender=args.age_gender)
+        total = sum(len(r.boxes) for r in results)
+        print(f"{len(results)} frames, {total} detections")
+        return 0
     post = inference_img(engine, args.input_src, output=args.output,
                          display=False, age_gender=args.age_gender)
     print(f"{len(post.boxes)} face(s)")

@@ -9,15 +9,19 @@ MAX_N_FACES_PER_FRAME=3 (``:38-40,421-437``), resume by existence
 the card consumes.
 
 Images are read by the port's decoders (``utils/native.py``: JPEG, PNG,
-BMP). Video items are listed as the JAX walker lists them, but reading one
-raises: the port has no frame decoder. A loader worker that cannot read an
-item (a video, a WebP, a corrupt file) logs the error and hands the item on
-with no frames, so the job records it as failed and goes on.
+BMP). Videos are Motion-JPEG AVI files (``utils/video.py``), sampled as the
+JAX package samples them: one frame a second of footage, at most
+``MAX_N_FRAME_FROM_VID``, and only the frames kept are decoded. A loader
+worker that cannot read an item (a video of another codec or container, a
+WebP, a corrupt file) logs the error and hands the item on with no frames,
+so the job records it as failed and goes on.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
+import itertools
 import logging
 import os
 import queue
@@ -27,14 +31,13 @@ from typing import Iterator, List, Tuple
 import numpy as np
 
 from ..utils.native import IMAGE_EXTENSIONS, read_image_bgr
+from ..utils.video import VideoReader
 
 MAX_N_FRAME_FROM_VID = 15
 MAX_N_FACES_PER_FRAME = 3
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 _VID_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
-NO_VIDEO = ("the port has no video decoder (the JAX package samples frames "
-            "with cv2.VideoCapture)")
 
 logger = logging.getLogger("face_extraction")
 
@@ -66,14 +69,26 @@ def iter_media_frames(
     item: MediaItem,
     max_frames: int = MAX_N_FRAME_FROM_VID,
 ) -> Iterator[Tuple[int, np.ndarray]]:
-    """Yield (frame_index, BGR frame): an image yields once (nothing when it
-    does not decode). A video raises ``NotImplementedError``, and a WebP or
-    another variant the decoders do not read raises ``ValueError``."""
-    if item.kind != "image":
-        raise NotImplementedError(f"{item.path}: {NO_VIDEO}")
-    img = read_image_bgr(item.path, formats=IMAGE_EXTENSIONS)
-    if img is not None:
-        yield 0, img
+    """Yield (frame_index, BGR frame). An image yields once (nothing when it
+    does not decode); a WebP or another variant the decoders do not read
+    raises ``ValueError``. A video yields one frame a second of footage
+    (``frame_num % round(fps) == 0``, every 25th where the file gives no
+    fps), at most ``max_frames`` (reference ``:421-437``), read by
+    ``utils.video.VideoReader.frames(keep=...)``, which decodes only those
+    and ends them as it ends every read; a video that is not a Motion-JPEG
+    AVI raises ``ValueError``."""
+    if item.kind == "image":
+        img = read_image_bgr(item.path, formats=IMAGE_EXTENSIONS)
+        if img is not None:
+            yield 0, img
+        return
+    reader = VideoReader(item.path)
+    fps = reader.fps
+    step = max(1, round(fps)) if fps and np.isfinite(fps) else 25
+    with contextlib.closing(reader.frames(keep=lambda n: n % step == 0)) \
+            as frames:
+        for taken, frame in enumerate(itertools.islice(frames, max_frames)):
+            yield taken * step, frame
 
 
 class PrefetchLoader:

@@ -11,9 +11,11 @@ equal channels.
 **JPEG: one codec, the same on every machine.** ``csrc/jpeg_codec.cpp``
 computes what libjpeg-turbo computes with cv2's settings: the decoder
 (baseline, extended-sequential and progressive Huffman files, restart
-intervals, gray and any integral chroma sampling) runs the JDCT_ISLOW
-integer IDCT and finishes with libjpeg's fancy upsampling and colour
-tables (``csrc/jpeg_ycc.h``), so its pixels are cv2's; the encoder writes
+intervals, gray and any integral chroma sampling; a sequential file
+without Huffman tables, as Motion-JPEG frames are written, takes the
+standard ones, as libjpeg-turbo does) runs the JDCT_ISLOW integer IDCT and
+finishes with libjpeg's fancy upsampling and colour tables
+(``csrc/jpeg_ycc.h``), so its pixels are cv2's; the encoder writes
 ``cv2.imencode(".jpg", img)``'s bytes (quality 95 by default, 4:2:0, the
 standard Huffman tables), one component for a gray image. It needs no
 libjpeg and runs on the host, so the CPU tests hold exactly what runs
@@ -38,8 +40,8 @@ corrupt or truncated file gives ``None``.
 
 ``read_image_bgr`` reads JPEG files unless the caller names more formats:
 ``detect_face`` and serving take JPEG, the dataset pipelines
-``IMAGE_EXTENSIONS``. ``write_image_bgr`` writes JPEG only. Video is not
-supported.
+``IMAGE_EXTENSIONS``. ``write_image_bgr`` writes JPEG only. Video
+(Motion-JPEG AVI, each frame a JPEG of this codec) is ``utils/video.py``'s.
 """
 from __future__ import annotations
 

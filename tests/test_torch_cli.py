@@ -176,9 +176,14 @@ def test_port_cli_refuses_what_it_cannot_do(capsys, tmp_path):
     assert "yolov5s" in registry.available()
     assert main(["-i", "notes.txt", "-d", "cpu", "--no-display"]) == 2
     assert "cannot determine input type" in capsys.readouterr().err
-    for src in ("clip.mp4", "0"):
+    clip = str(tmp_path / "clip.mp4")
+    vw = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 5, (64, 64))
+    vw.write(np.zeros((64, 64, 3), np.uint8))
+    vw.release()
+    for src, why in ((clip, "video sample entry 'mp4v'"),
+                     ("0", "no camera capture")):
         assert main(["-i", src, "-d", "cpu", "--no-display"]) == 2
-        assert "no video or camera decoder" in capsys.readouterr().err
+        assert why in capsys.readouterr().err
     assert main(["-i", IMG, "-d", "cpu"]) == 2
     assert "no display window" in capsys.readouterr().err
     png = str(tmp_path / "a.png")

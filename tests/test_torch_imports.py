@@ -72,7 +72,8 @@ def test_port_imports_without_jax_cv2_or_the_jax_package():
                 "cli.train_golden_embed", "cli.train_golden_ag",
                 "cli.train_golden_mtcnn", "parallel", "parallel.mesh",
                 "parallel.sharding", "parallel.collectives",
-                "parallel.training", "parallel.mp_demo", "utils.export"):
+                "parallel.training", "parallel.mp_demo", "utils.export",
+                "utils.video"):
         assert f"face_detection_and_recognition_tpu_torch.{mod}" in names
 
 

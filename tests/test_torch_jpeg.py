@@ -4,7 +4,9 @@ libjpeg-turbo: decoded pixels equal bit for bit in every sampling, gray and
 progressive, with restart markers, on noise and smooth frames of odd sizes
 down to 1x1; encoded bytes equal to ``cv2.imencode``'s at qualities 50-95,
 gray and colour, 1x1 to 577x1023. The variants the codec does not read raise
-``ValueError`` naming them; truncated and corrupt bytes give None. The one
+``ValueError`` naming them; truncated and corrupt bytes give None. Frames
+whose Huffman tables are left out (Motion-JPEG's) decode with the standard
+ones, as cv2's do. The one
 route builds once, and a missing compiler raises naming it.
 """
 import os
@@ -86,6 +88,40 @@ def test_decode_with_restart_markers_equals_cv2(interval):
             if interval == 1 and img.shape[0] * img.shape[1] > 256:
                 assert b"\xff\xd1" in data  # the file really has them
             assert_decodes_as_cv2(data, f"rst {interval} {name}")
+
+
+def strip_huffman_tables(data):
+    """The JPEG with its DHT segments removed, as Motion-JPEG cameras write
+    frames: the scans then use the standard tables of T.81 Annex K.3."""
+    out, i = bytearray(data[:2]), 2
+    while data[i + 1] != 0xDA:  # markers up to the first scan
+        n = int.from_bytes(data[i + 2:i + 4], "big")
+        if data[i + 1] != 0xC4:
+            out += data[i:i + 2 + n]
+        i += 2 + n
+    assert len(out) < i
+    return bytes(out + data[i:])
+
+
+@pytest.mark.parametrize("sampling", ["420", "422", "444"])
+def test_decode_without_huffman_tables_equals_cv2(sampling):
+    """cv2 (libjpeg-turbo) decodes a frame whose DHTs are left out with the
+    standard tables; so does the port. A progressive file without them is
+    refused by both."""
+    factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    for name, img in frames():
+        for params in ((), (cv2.IMWRITE_JPEG_RST_INTERVAL, 2)):
+            data = strip_huffman_tables(cv2_bytes(
+                img, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor, *params))
+            assert_decodes_as_cv2(data, f"no DHT {sampling} {name}")
+    gray = strip_huffman_tables(cv2_bytes(smooth_frame(33, 65)[..., 0]))
+    assert_decodes_as_cv2(gray, "no DHT gray")
+    prog = strip_huffman_tables(cv2_bytes(
+        smooth_frame(33, 65), cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor,
+        cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    assert cv2.imdecode(np.frombuffer(prog, np.uint8), cv2.IMREAD_COLOR) \
+        is None
+    assert N.decode_jpeg_bgr(prog) is None
 
 
 def test_decode_golden_frames_and_a_full_size_frame():

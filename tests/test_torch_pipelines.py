@@ -52,6 +52,7 @@ from face_detection_and_recognition_tpu_torch.pipelines import \
     extract_faces as TX
 from face_detection_and_recognition_tpu_torch.pipelines import tracking as TT
 from face_detection_and_recognition_tpu_torch.utils import native as N
+from face_detection_and_recognition_tpu_torch.utils.video import VideoWriter
 from face_detection_and_recognition_tpu_torch.utils.logging_utils import \
     setup_job_logger
 from face_detection_and_recognition_tpu_torch.utils.weights import (
@@ -430,9 +431,14 @@ def test_loader_hands_on_unreadable_items_without_frames(tmp_path):
     (d / "w.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
     (d / "x.jpg").write_bytes(b"\xff\xd8 not a jpeg")
     cv2.imwrite(str(d / "y.png"), np.zeros((8, 8, 3), np.uint8))
+    # a Motion-JPEG AVI is read: 25 frames at 10 fps keep 0, 10 and 20
+    with VideoWriter(str(d / "z.avi"), 10, (8, 8)) as vw:
+        for i in range(25):
+            vw.write(np.full((8, 8, 3), i, np.uint8))
     got = {os.path.basename(i.path): len(f) for i, f in TD.PrefetchLoader(
         TD.walk_class_tree(str(tmp_path)), num_workers=2)}
-    assert got == {"v.mp4": 0, "w.webp": 0, "x.jpg": 0, "y.png": 1}
+    assert got == {"v.mp4": 0, "w.webp": 0, "x.jpg": 0, "y.png": 1,
+                   "z.avi": 3}
 
 
 # ---------------- extract_faces ----------------
@@ -515,9 +521,10 @@ def test_extract_faces_resumes_by_existence(engines, face_tree, tmp_path):
 
 
 def test_unreadable_media_fail_without_a_hang(engines, tmp_path):
-    """A corrupt JPEG, a WebP, a video and a palette PNG end in
-    stats.failed, the readable image is extracted, the job returns (within
-    a minute), and no loader thread outlives it."""
+    """A corrupt JPEG, a WebP, a video that is not a Motion-JPEG AVI (an
+    MP4 cut after its ftyp) and a palette PNG end in stats.failed, the
+    readable image is extracted, the job returns (within a minute), and no
+    loader thread outlives it."""
     _, teng = engines
     d = tmp_path / "data" / "class_x"
     d.mkdir(parents=True)
