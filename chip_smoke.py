@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's detect, ensemble, similarity, BlazeFace,
 export, yolov5 family + embedders, CLI + serving, dataset pipeline, SSD + MTCNN,
 res10 + OpenVINO, int8 + keras + eval, bfloat16, trained-weights,
-bf16-families, training, recognition-training, multi-device and video
+crowded, bf16-families, training, recognition-training, multi-device and video
 paths on one CUDA card, and trace its detect path.
 
     python3 chip_smoke.py
@@ -228,15 +228,32 @@ seconds:
    elements bit for bit and every difference within 2 bf16 ulps of its
    largest output, or the run fails);
 16. main path, trained weights: the nets of ``card_weights/``
-   (``eval/card_weights.py``; yolov5s f32 and bf16, yolov5n f32 and int8
-   static, blazeface-front, mtcnn f32 and bf16, loaded through the engine's
-   weight loaders) through the golden gate of each net's JAX test on the
-   golden image and the negative one, their boxes at each of the gate's
-   thresholds within 1 px of the JAX CPU engine's (``expected.json``; the
-   int8 net: the same counts, its largest difference printed), and
-   MobileFaceNet's embeddings of the pinned crops at cosine >= 0.999 to
-   JAX's; each net is a part of the path;
-17. main path, bf16 families: blazeface front and back, the three SSDs,
+   (``eval/card_weights.py``): every golden gate of the JAX regate
+   (``benchmarks/regate_golden.py``) but FaceNet, FaceNet-512 and the
+   age/gender cascade. The yolov5 family (yolov5s f32 and bf16, yolov5n
+   f32 and int8 static, n6, yolov5n-official, the crowded n and s6 at
+   960), BlazeFace front (its test's gate and the regate's band) and
+   back, the three SSDs, res10-ssd from its ``.pt`` and from the
+   reference's ``.caffemodel``, ov-0204 and ov-squeezenet-light from
+   their ``.pt`` files and from their IRs through openvino-ir, and mtcnn
+   f32 and bf16, loaded through the engine's weight loaders, through the
+   golden gate of each net's JAX test on the golden image and the
+   negative one, their boxes at each of the gate's thresholds within 1 px
+   of the JAX CPU engine's (``expected.json``; the int8 net: the same
+   counts, its largest difference printed); MobileFaceNet's and reid's
+   embeddings of the pinned crops at cosine >= 0.999 to JAX's and their
+   3-identity filter gates. Each net is a part of the path, its kernel
+   calls spied and replayed against the plain versions bit for bit;
+17. main path, crowded: the seed-11 set of JAX
+   ``tests/test_crowded_accuracy.py`` (16 640 x 640 frames) built by the
+   port under the gitignored ``build/chip_smoke/crowded/`` and held to
+   the JAX package's bytes; the AP gates of yolov5n, yolov5s,
+   ssd-resnet10, mtcnn, the crowded yolov5n and the crowded yolov5s6 at
+   960 through ``evaluate_engine_on_wider`` at max_det 300 (each floor,
+   and AP50 / AP within 0.005 of the JAX CPU engine's); the max_det
+   saturation case (max_det 8 against 64 on the most crowded frame). A
+   part each, spied and replayed as in 16;
+18. main path, bf16 families: blazeface front and back, the three SSDs,
    mtcnn (every stage full), res10-ssd, ov-0204, ov-squeezenet-light and
    openvino-ir with ``EngineConfig(dtype=torch.bfloat16)``,
    ``detect_batch`` on the 8 frames at thresholds 0, a part each; then B1,
@@ -245,7 +262,7 @@ seconds:
    against the same net on the CPU (the share of equal elements), and
    each network's ms between events and device ms and operations, bf16
    beside f32;
-18. main path, training: one ``make_det_train_step_ema`` step of yolov5s
+19. main path, training: one ``make_det_train_step_ema`` step of yolov5s
    at 640 x 640, B = 4 (golden composites) on the card and on the CPU
    from the same weights and batch, in the step's own precision (f32,
    TF32 off, as the timed chunks and ``train_golden`` train): the loss
@@ -266,7 +283,7 @@ seconds:
    Q1; three steps of the BlazeFace-front (128) and ssd-resnet10 (300)
    trainers, each loss against the CPU's. Each of ``train_golden`` and
    ``quantize_golden`` is a part of the path;
-19. main path, recognition training: one ArcFace step of MobileFaceNet
+20. main path, recognition training: one ArcFace step of MobileFaceNet
    (112 x 112, 512-d, B = 48, three golden identities, s = 16, center
    gain 0.02) on the card and on the CPU from the same weights and batch:
    the loss, each parameter, BN statistic and SGD momentum buffer within
@@ -283,7 +300,7 @@ seconds:
    ``FaceEngine.load_weights`` giving the in-memory net's detections bit
    for bit. The gates' verdicts are printed, not asserted; each trainer is
    a part of the path;
-20. multi-device: single-process meshes over the card (``parallel/``;
+21. multi-device: single-process meshes over the card (``parallel/``;
    the entries repeat the card, or are dealt over the cards of a larger
    host): yolov5s ``detect_batch_sharded`` and the yolov5s +
    mobile_facenet + age/gender ensemble (``mesh=``, thresholds 0) on the 8
@@ -304,10 +321,10 @@ seconds:
    fused on BlazeFace, B4 on the search and Q1 on int8. Then the
    MobileFaceNet B = 48 ArcFace step DP + TP on a 2 x 2 mesh (4 classes,
    the kernel split by classes) against the unsharded step on the card,
-   within phase 19's tolerances, both timed; and ``parallel.mp_demo`` as
+   within phase 20's tolerances, both timed; and ``parallel.mp_demo`` as
    one rank over NCCL (world size 1) in both modes, each result equal to
    the same job on a one-entry mesh in this process;
-21. main path, video (``utils/video.py``, ``core.inference
+22. main path, video (``utils/video.py``, ``core.inference
    .inference_vid``): a Motion-JPEG AVI of 64 576 x 1024 frames (the
    golden image scaled to the golden gate's own letterbox scale, at eight
    places on an 8-pixel lattice in turn) and one of the negative image,
@@ -330,7 +347,7 @@ seconds:
    calls in one block's dispatch (``torch.cuda.set_sync_debug_mode``), and
    the device's idle share over a traced loop
    (``utils.trace_analysis.idle_share``);
-22. reference: the detector's raw maps, MobileFaceNet's embeddings, the
+23. reference: the detector's raw maps, MobileFaceNet's embeddings, the
    age/gender heads' logits, both BlazeFace nets' raw heads, yolov5s6's
    and yolov5s-official's raw maps and FaceNet's and reid-mnv2's
    embeddings on the card against the same modules on the CPU.
@@ -3851,29 +3868,57 @@ def run_bf16_families(frames, card):
     return win.total(), stats
 
 
+# the kernels each family's detect path must launch (spied_part's names)
+FAMILY_KERNELS = {"yolov5": ("nms_fixpoint", "candidate_decode"),
+                  "official": ("nms_fixpoint",),
+                  "blazeface": ("blaze_decode_blend",),
+                  "mtcnn": ("nms_fixpoint", "crop_resize"),
+                  "graph": ("nms_fixpoint",)}
+CROWDED_DIR = WORK_DIR / "crowded"
+
+
+def family_kernels(entry):
+    """The kernels an ``expected.json`` entry's detector launches."""
+    det = entry["detector"]
+    if det.endswith("-official"):
+        return FAMILY_KERNELS["official"]
+    if det.startswith("yolov5"):
+        return FAMILY_KERNELS["yolov5"]
+    if det.startswith("blazeface"):
+        return FAMILY_KERNELS["blazeface"]
+    return FAMILY_KERNELS["mtcnn" if det == "mtcnn" else "graph"]
+
+
 def run_trained_weights(card):
     """The trained-weights main path: each net of ``card_weights/``
-    (``eval/card_weights.py``) loaded on the card through the engine's
-    weight loaders, run through the golden gate of its JAX test on the
-    golden image and the negative one, and held to the JAX CPU engine's
-    detections at each of the gate's thresholds (``expected.json``);
-    MobileFaceNet's embeddings of the pinned crops to JAX's at cosine >=
-    0.999. Each net is a part of the path (``Windows``). A net that fails
-    is run again on the CPU, and the card's boxes against the CPU's are
-    printed before the run fails. Returns (launches, numbers)."""
+    (``eval/card_weights.py``; every row of the JAX regate but FaceNet,
+    FaceNet-512 and the age/gender cascade) loaded on the card through the
+    engine's weight loaders (``.pt`` files, the reference's res10
+    ``.caffemodel`` and the two OpenVINO IRs), run through the golden gate
+    of its JAX test on the golden image and the negative one, and held to
+    the JAX CPU engine's detections at each of the gate's thresholds
+    (``expected.json``); MobileFaceNet's and reid's embeddings of the
+    pinned crops to JAX's at cosine >= 0.999, and their 3-identity filter
+    gate. Each net is a part of the path (``Windows``), its B1 / B2 / B3 /
+    fused-B5 calls spied and replayed against the plain versions bit for
+    bit (``spied_part``). A net that fails is run again on the CPU, and
+    the card's boxes against the CPU's are printed before the run fails.
+    Returns (launches, numbers)."""
     from face_detection_and_recognition_tpu_torch.eval import \
         card_weights as CW
 
     exp = CW.load_expected()
     pos, neg = CW.golden_images()
     golden = np.asarray(exp["golden_boxes"], np.float32)
-    win, stats = Windows(), {}
+    win, stats = Windows(), {"replayed": {}}
     for name, entry in exp["nets"].items():
         t = time.time()
         eng = CW.build_engine(entry)
         try:
-            summary = win.run(name, lambda: CW.check_detector(
-                name, entry, eng, pos, neg, golden))
+            summary, replayed = spied_part(
+                win, name, lambda: CW.check_detector(
+                    name, entry, eng, pos, neg, golden),
+                family_kernels(entry))
         except AssertionError:
             cpu = CW.build_engine(entry, "cpu")
             for tag, img in (("golden", pos), ("negative", neg)):
@@ -3888,21 +3933,97 @@ def run_trained_weights(card):
             raise
         summary["s"] = time.time() - t
         stats[name] = summary
+        stats["replayed"][name] = replayed
         say(f"  {name} ({entry['file']}, {entry.get('dtype', 'float32')}"
             f"{', ' + json.dumps(entry['overrides']) if entry.get('overrides') else ''}): "
-            f"gate ok {summary['ok']}, {summary['n_pos']} faces at IoU "
-            f"{summary['ious']}, {summary['n_neg']} on the negative image; "
-            f"largest box difference from the JAX CPU engine "
-            f"{summary['max_px']} px over {len(entry['jax']['runs'])} "
-            f"thresholds x 2 images ({summary['s']:.1f} s)")
+            f"gate ok {summary['ok']} (JAX {entry['jax']['ok']}), "
+            f"{summary['n_pos']} faces at IoU {summary['ious']} (JAX "
+            f"{[round(i, 4) for i in entry['jax']['ious']]}), "
+            f"{summary['n_neg']} on the negative image; largest box "
+            f"difference from the JAX CPU engine {summary['max_px']} px over "
+            f"{len(entry['jax']['runs'])} thresholds x 2 images; spied calls "
+            f"replayed bit for bit {replayed} ({summary['s']:.1f} s)")
     for name, entry in exp["embedders"].items():
+        t = time.time()
         eng = CW.build_engine(entry)
-        stats[name] = win.run(name, lambda: CW.check_embedder(
-            name, entry, eng, pos))
+        stats[name], replayed = spied_part(
+            win, name, lambda: CW.check_embedder(name, entry, eng, pos),
+            ("crop_resize",))
+        stats[name]["s"] = time.time() - t
+        stats["replayed"][name] = replayed
         say(f"  {name} ({entry['file']}): cosines to JAX's embeddings of "
-            f"the pinned crops {stats[name]['cosines']}")
+            f"the pinned crops {stats[name]['cosines']}; 3-identity filter "
+            f"gate ok {stats[name]['filter_ok']} (JAX "
+            f"{entry['jax']['filter']['ok']}), same {stats[name]['same_acc']}"
+            f", cross {stats[name]['cross_acc']}, margin "
+            f"{stats[name]['margin']:.4f} (JAX "
+            f"{entry['jax']['filter']['margin']:.4f}); spied calls replayed "
+            f"{replayed} ({stats[name]['s']:.1f} s)")
     stats["windows"] = win.parts
     say(f"  trained weights on {card}: every gate held")
+    return win.total(), stats
+
+
+def run_crowded(card):
+    """The crowded main path (JAX ``tests/test_crowded_accuracy.py``): the
+    seed-11 set of 16 640x640 frames built by the port's
+    ``make_crowded_dataset`` and held to the JAX package's bytes
+    (``expected.json`` digests), the six AP gates through the port's
+    ``evaluate_engine_on_wider`` at max_det 300 (each floor, and AP50 /
+    AP within the stored tolerance of the JAX CPU engine's), and the
+    max_det saturation case. Each is a part (``Windows``), its kernel
+    calls spied and replayed bit for bit. Returns (launches, numbers)."""
+    from face_detection_and_recognition_tpu_torch.eval import \
+        card_weights as CW
+
+    exp = CW.load_expected()
+    entry = exp["crowded"]
+    t = time.time()
+    if CROWDED_DIR.exists():
+        shutil.rmtree(CROWDED_DIR)
+    ann, root = CW.crowded_set(str(CROWDED_DIR), entry)
+    win, stats = Windows(), {"set_s": time.time() - t, "replayed": {}}
+    say(f"  the seed-{entry['seed']} set: {len(entry['digests']) - 1} "
+        f"images and gt.txt equal to the JAX package's bytes "
+        f"({stats['set_s']:.1f} s)")
+    for name, net in entry["nets"].items():
+        t = time.time()
+        row = exp["nets"][net["net"]]
+        eng = CW.crowded_engine(entry, row)
+        m, replayed = spied_part(
+            win, name, lambda: CW.check_crowded(name, entry, eng, ann, root),
+            family_kernels(row))
+        stats[name] = {"AP50": m["AP50"], "AP": m["AP"],
+                       "jax_AP50": net["jax"]["AP50"],
+                       "jax_AP": net["jax"]["AP"], "floors": net["floors"],
+                       "s": time.time() - t}
+        stats["replayed"][name] = replayed
+        b1 = win.parts[name]["nms_fixpoint"]
+        say(f"  {name} ({row['file']}): AP50 {m['AP50']:.6f} (JAX "
+            f"{net['jax']['AP50']:.6f}), AP {m['AP']:.6f} (JAX "
+            f"{net['jax']['AP']:.6f}), floors {net['floors']}; {b1} B1 "
+            f"launches at max_det {entry['max_det']}; spied calls replayed "
+            f"bit for bit {replayed} ({stats[name]['s']:.1f} s)")
+    sat = entry["saturation"]
+    row = exp["nets"][sat["net"]]
+    small, big = (CW.build_engine(row, det_thres=sat["det_thres"],
+                                  max_det=md)
+                  for md in (sat["max_det"], sat["max_det_ref"]))
+    img, gt = CW.saturation_frame(sat, ann, root)
+    out, replayed = spied_part(
+        win, "saturation", lambda: CW.check_saturation(sat, small, big, img,
+                                                       gt),
+        FAMILY_KERNELS["yolov5"])
+    stats["saturation"] = out
+    stats["replayed"]["saturation"] = replayed
+    say(f"  saturation on {sat['frame']} ({len(gt)} faces): max_det "
+        f"{sat['max_det']} gives {out['n']} boxes, the top {sat['max_det']} "
+        f"of max_det {sat['max_det_ref']}'s {out['n_ref']} (confidences "
+        f"within {out['conf_gap']}), least IoU with a face "
+        f"{out['least_gt_iou']:.3f}, {out['jax_max_px']} px from JAX's top "
+        f"boxes; spied calls replayed {replayed}")
+    stats["windows"] = win.parts
+    say(f"  crowded AP on {card}: every gate held")
     return win.total(), stats
 
 
@@ -4468,9 +4589,9 @@ def spied_part(win, part, fn, kernels):
     wrappers where the path calls them (outside inference mode: a part may
     train).
     Each of ``kernels`` must have launched in the part, and every launch
-    must be a spied call; after the window each call is replayed against
-    its plain version bit for bit (those launches are not the path's).
-    Returns (fn's result, {kernel: calls replayed})."""
+    of a spied kernel must be a spied call; after the window each call is
+    replayed against its plain version bit for bit (those launches are not
+    the path's). Returns (fn's result, {kernel: calls replayed})."""
     from face_detection_and_recognition_tpu_torch.models import (
         blazeface, yolov5_face)
     from face_detection_and_recognition_tpu_torch.ops import crop as crop_ops
@@ -4491,6 +4612,8 @@ def spied_part(win, part, fn, kernels):
              "topk_gallery": rest["topk_gallery"],
              "blaze_decode_blend": rest["blaze_decode_blend"]}
     replayed = {}
+    kernels = list(kernels) + [n for n in REC_COUNTS if n not in kernels
+                               and win.parts[part][REC_COUNTS[n]] > 0]
     for name in kernels:
         launches, seen = win.parts[part][REC_COUNTS[name]], calls[name]
         if launches <= 0 or len(seen) < launches:
@@ -6144,8 +6267,13 @@ def main():
             raise AssertionError(f"kernel {name} never launched on the path")
     phase_end("main path: bf16")
 
-    say("[main path: trained weights] card_weights/: yolov5s f32 and bf16, "
-        "yolov5n f32 and int8 static, blazeface-front, mtcnn, mobile_facenet")
+    say("[main path: trained weights] card_weights/: every golden gate of "
+        "the JAX regate but FaceNet, FaceNet-512 and age/gender: the yolov5 "
+        "family (f32, bf16, int8 static, n6, official, crowded n and s6 at "
+        "960), BlazeFace front and back, the three SSDs, res10-ssd (.pt and "
+        ".caffemodel), the OpenVINO nets (.pt and IR), mtcnn, "
+        "mobile_facenet and reid-mnv2")
+    t = time.time()
     tw_launches, tw = run_trained_weights(card)
     say(f"  launches on the trained weights path: {tw_launches}, by part "
         f"{json.dumps(tw['windows'])}")
@@ -6153,7 +6281,23 @@ def main():
                  "blaze_decode_blend", "conv_int8"):
         if tw_launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
+    say(f"  the phase took {time.time() - t:.1f} s")
     phase_end("main path: trained weights")
+
+    say("[main path: crowded] the seed-11 crowded set: the AP gates of "
+        "yolov5n, yolov5s, ssd-resnet10, mtcnn, the crowded yolov5n and "
+        "the crowded yolov5s6 at 960, and the max_det saturation case")
+    t = time.time()
+    crowded_launches, crowded = run_crowded(card)
+    say(f"  launches on the crowded path: {crowded_launches}, by part "
+        f"{json.dumps(crowded['windows'])}")
+    say(f"  crowded numbers: "
+        f"{json.dumps({k: v for k, v in crowded.items() if k != 'windows'})}")
+    for name in ("nms_fixpoint", "rows_gather", "crop_resize"):
+        if crowded_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    say(f"  the phase took {time.time() - t:.1f} s")
+    phase_end("main path: crowded")
 
     say("[main path: bf16 families] blazeface, the SSDs, mtcnn, res10-ssd "
         "and the OpenVINO nets in bf16")
@@ -6263,6 +6407,7 @@ def main():
                    "int8 + keras + eval": ike_launches[k["name"]],
                    "bf16": bf16_launches[k["name"]],
                    "trained weights": tw_launches[k["name"]],
+                   "crowded": crowded_launches[k["name"]],
                    "bf16 families": bf16f_launches[k["name"]],
                    "training": train_launches[k["name"]],
                    "recognition training": rec_launches[k["name"]],

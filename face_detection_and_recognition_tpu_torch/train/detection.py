@@ -20,7 +20,8 @@ host-side count before each ``step()``.
 Every family's step trains in full f32 (``train_precision``): on the card
 cuDNN's TF32 convolutions are off for the forward and the backward, as the
 engine's forward turns them off, so the card trains at the precision of the
-JAX package's f32 reference and of the CPU.
+JAX package's f32 reference and of the CPU; and cuDNN takes its
+deterministic algorithms, so a run repeats as the JAX package's does.
 
 A train state is a dict: ``net`` (train mode), ``cfg``, ``opt``, ``ema`` (a
 copy of the net whose parameters the ``_ema`` step averages and whose
@@ -30,6 +31,7 @@ count of optimizer steps, the schedule's input).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -40,7 +42,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.engine import _full_f32
 from ..models.yolov5_face import ARCHS, OFFICIAL_ANCHORS, YoloV5FaceNet
 from ..ops.boxes import xywh2xyxy
 from ..ops.platform import resolve_device
@@ -447,8 +448,15 @@ def optimizer_step(state: Dict[str, Any], loss: torch.Tensor,
 def train_precision(device: torch.device):
     """The context a training step runs in, forward, backward and update:
     full f32 convolutions (TF32 off on the card), the engine's inference
-    precision; a no-op on the CPU."""
-    return _full_f32(device)
+    precision, with cuDNN's deterministic algorithms, so that a seed gives
+    the same run every time on the card (its default backward algorithms
+    vary from run to run: the golden embedder's curve parted at its first
+    eval); a no-op on the CPU."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=False, deterministic=True,
+                   allow_tf32=False)
 
 
 def images_to_float(images: torch.Tensor, scale: float = 255.0,

@@ -421,3 +421,17 @@ def test_sharded_step_raises_naming_the_roadmap():
     assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
     assert not change_gaps(two["net"].state_dict(), one["net"].state_dict(),
                            init, 1e-3)
+
+
+def test_train_precision_is_deterministic_f32_on_the_card():
+    """A training step on the card runs with TF32 off and cuDNN's
+    deterministic algorithms (a seed's run repeats), and puts the flags
+    back after; on the CPU it changes nothing."""
+    c = torch.backends.cudnn
+    before = (c.deterministic, c.benchmark, c.allow_tf32)
+    with D.train_precision(torch.device("cuda")):
+        assert (c.deterministic, c.benchmark, c.allow_tf32) == \
+            (True, False, False)
+    assert (c.deterministic, c.benchmark, c.allow_tf32) == before
+    with D.train_precision(torch.device("cpu")):
+        assert (c.deterministic, c.benchmark, c.allow_tf32) == before
